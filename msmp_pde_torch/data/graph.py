@@ -1,0 +1,88 @@
+"""Static graph construction and window ops (counterpart of
+msmp_pde_tpu/data/graph.py).
+
+Every (task, resolution) has one static neighbour structure: a dense
+per-node list ``idx`` [nx, K] with ``mask`` [nx, K], built once on the host
+and kept on the device for every request.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def build_neighbors_radius(x: np.ndarray, n_neighbors: int):
+    """Dense neighbour list matching radius_graph(r = n*dx + 1e-4) on a
+    uniform grid: j != i with |x_i - x_j| <= r, boundary nodes lose their
+    out-of-range neighbours (not periodic). Returns (idx [nx, K] int32,
+    mask [nx, K] float32), K = 2n; invalid slots point at node 0."""
+    x = np.asarray(x, np.float64)
+    nx = len(x)
+    r = n_neighbors * (x[1] - x[0]) + 1e-4
+    K = 2 * n_neighbors
+    idx = np.zeros((nx, K), np.int32)
+    mask = np.zeros((nx, K), np.float32)
+    for i in range(nx):
+        js = np.where((np.abs(x - x[i]) <= r) & (np.arange(nx) != i))[0]
+        idx[i, : len(js)] = js
+        mask[i, : len(js)] = 1.0
+    return idx, mask
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphSpec:
+    """Static per-task graph structure and metadata, tensors on the
+    device."""
+
+    idx: torch.Tensor  # [nx, K] int64 neighbour indices
+    mask: torch.Tensor  # [nx, K] validity
+    x: torch.Tensor  # [nx] raw coordinates
+    tw: int
+    n_components: int
+    t_grid: torch.Tensor  # [nt] output time grid
+    L: float
+    tmax: float
+    dt: float
+
+    @property
+    def nx(self) -> int:
+        return self.x.shape[0]
+
+
+def build_graph_spec(pde, grid, n_neighbors: int, time_window: int,
+                     device) -> GraphSpec:
+    """Radius stencil graph for the uniform-grid families; the k-NN graphs
+    (WE, unstructured AD) are not ported yet."""
+    family = f"{pde}"
+    if family == "WE" or getattr(pde, "unstructured_grid", False):
+        raise NotImplementedError(
+            f"{family} k-NN graphs are not ported yet (ROADMAP.md Queue 1 "
+            "item 6)")
+    x = np.asarray(grid.x)
+    idx, mask = build_neighbors_radius(x, n_neighbors)
+    t_grid = np.linspace(grid.tmin, grid.tmax, grid.nt).astype(x.dtype)
+    dev = torch.device(device)
+    return GraphSpec(
+        idx=torch.as_tensor(idx, dtype=torch.int64, device=dev),
+        mask=torch.as_tensor(mask, device=dev),
+        x=torch.as_tensor(x, device=dev),
+        tw=time_window,
+        n_components=grid.n_components,
+        t_grid=torch.as_tensor(t_grid, device=dev),
+        L=float(getattr(pde, "L", 16.0)),
+        tmax=float(grid.tmax),
+        dt=float(grid.dt),
+    )
+
+
+def advance_windows(window, pred, n_components: int, tw: int):
+    """Pushforward window advance: append the prediction, drop the oldest
+    tw steps (per component)."""
+    if n_components == 1:
+        return torch.cat([window, pred], dim=-1)[..., tw:]
+    B, nx, _ = window.shape
+    w = window.reshape(B, nx, n_components, tw)
+    p = pred.reshape(B, nx, n_components, tw)
+    return torch.cat([w, p], dim=-1)[..., tw:].reshape(B, nx, -1)
