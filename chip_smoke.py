@@ -9,13 +9,15 @@ Phases, each of which fails the run on error:
   3. fused gated-pair kernel vs its plain version, B in {1, 4, 16};
   4. the full-width MSMP-PDE forward (E1: nx=100, tw=25, hidden 128, six
      gated pairs) with weights made from a numpy seed in the flax layout
-     and carried across by params_from_flax: kernel path vs plain path;
+     and carried across by params_from_flax: kernel path vs
+     reference_forward, the same forward through the plain versions;
   5. the main path: the port's HTTP server on localhost answers rollout
      requests (B = 1, 3, 16, 20, and one trajectory) at n_windows=8, each
      checked against RolloutEngine.rollout and against the expected kernel
      launch counts;
   6. timings (CUDA events, medians) of each kernel beside its plain
-     version and its bound, and request latency per bucket.
+     version (replayed from a CUDA graph, and eager) and its bound, and
+     request latency per bucket.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -72,6 +74,24 @@ def timed(fn, reps=20, rounds=5):
     return statistics.median(out)
 
 
+def timed_graph(fn, reps=20, rounds=11):
+    """``timed`` of ``fn`` captured once in a CUDA graph and replayed: the
+    device time of a chain of small launches, free of the host's launch
+    rate."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timed(graph.replay, reps=reps, rounds=rounds)
+
+
 def bound(nbytes, flops):
     t_mem, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
@@ -109,6 +129,39 @@ def flax_tree(model, seed):
         node[leaf] = rng.uniform(-b, b, size=tuple(val.shape)).astype(
             np.float32)
     return tree
+
+
+def reference_forward(model, window, pos_x, var_vec, idx, mask):
+    """MPSolver.forward written out through the plain versions of both
+    kernels (``lem_scan_plain``, ``fused_gated_pair_plain``) on the model's
+    own parameters: the on-card reference of the kernel path."""
+    import torch
+
+    from msmp_pde_torch.models.common import swish
+    from msmp_pde_torch.ops.lem_scan import lem_scan_plain
+    from msmp_pde_torch.ops.mp_pair import fused_gated_pair_plain
+
+    B, nx, tw = window.shape
+    V, H = var_vec.shape[-1], model.hidden
+    px_n = pos_x / model.L
+    variables = var_vec[:, None, :].expand(B, nx, V)
+    seq = torch.stack([
+        torch.cat([px_n[..., None], window[..., k:k + 1], variables], -1)
+        for k in range(tw)]).reshape(tw, B * nx, 2 + V)
+    lem = model.embedding_lem
+    W, Wz, I = lem.weights, lem.weights_lin_z, 2 + V
+    gx = seq @ W[:, :I].T + lem.bias
+    zx = seq @ Wz[:, :I].T + lem.bias_lin_z
+    zeros = window.new_zeros((B * nx, H))
+    y, _ = lem_scan_plain(gx, zx, zeros, zeros, W[:, I:].T, Wz[:, I:].T,
+                          dt=float(lem.dt))
+    h = swish(model.lemout_2(swish(model.lemout_1(y.reshape(B, nx, H)))))
+    for i in range(model.layers):
+        h = fused_gated_pair_plain(
+            h, window, px_n[..., None], variables, idx, mask,
+            getattr(model, f"gate_{i}").weights(),
+            getattr(model, f"gnn_{i}").weights())
+    return model._decode(h, window)
 
 
 def main():
@@ -198,9 +251,9 @@ def main():
     steps = torch.full((B,), T, dtype=torch.int64, device=dev)
     with torch.no_grad():
         out_k, _ = trainer.forward(window, steps, {})
-        model.set_impl("plain")
-        out_p, _ = trainer.forward(window, steps, {})
-        model.set_impl("kernel")
+        out_p = reference_forward(
+            model, window, spec.x.expand(B, nx),
+            trainer.graph_vars(spec.t_grid[steps], {}), spec.idx, spec.mask)
     torch.cuda.synchronize()
     check(out_k.shape == (B, nx, T), f"model output {tuple(out_k.shape)}")
     check(bool(torch.isfinite(out_k).all()), "model output not finite")
@@ -266,7 +319,8 @@ def main():
     largs = (rand(T, N, 3 * H), rand(T, N, H), rand(N, H), rand(N, H),
              rand(H, 3 * H, scale=H ** -.5), rand(H, H, scale=H ** -.5))
     lem_ms = timed(lambda: lem_scan.lem_scan(*largs))
-    lem_plain_ms = timed(lambda: lem_scan.lem_scan_plain(*largs))
+    lem_eager_ms = timed(lambda: lem_scan.lem_scan_plain(*largs))
+    lem_plain_ms = timed_graph(lambda: lem_scan.lem_scan_plain(*largs))
     lem_bytes = 4 * (T * N * 4 * H + 4 * N * H + 4 * H * H)
     lem_flops = T * N * (2 * H * 3 * H + 2 * H * H)
     lem_bound, lem_by = bound(lem_bytes, lem_flops)
@@ -274,21 +328,28 @@ def main():
     pargs = pair_args[16]
     with torch.no_grad():
         pair_ms = timed(lambda: mp_pair.fused_gated_pair(*pargs))
-        pair_plain_ms = timed(lambda: mp_pair.fused_gated_pair_plain(*pargs))
+        pair_eager_ms = timed(
+            lambda: mp_pair.fused_gated_pair_plain(*pargs))
+        pair_plain_ms = timed_graph(
+            lambda: mp_pair.fused_gated_pair_plain(*pargs))
     D = T
     w_elems = sum(w.numel() for w in Wg) + sum(w.numel() for w in Wl)
     pair_bytes = 4 * (16 * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_elems)
     e_valid = float(spec.mask.sum().item())
-    per_layer = (2 * nx * (H + D + 1 + V) * H + 2 * nx * (H + D + 1) * H
+    # i side with mix (u w_du + px w_dx, counted once), j side h w_hj,
+    # edge w2 over the valid edges, update w3 and w4
+    per_layer = (2 * nx * (H + D + 1 + V) * H + 2 * nx * H * H
                  + 2 * e_valid * H * H + 2 * nx * (2 * H + V) * H
                  + 2 * nx * H * H)
     pair_flops = 16 * 2 * per_layer
     pair_bound, pair_by = bound(pair_bytes, pair_flops)
-    for name, ms, pms, bms, by in (
-            ("lem_fwd", lem_ms, lem_plain_ms, lem_bound, lem_by),
-            ("mp_pair_fwd", pair_ms, pair_plain_ms, pair_bound, pair_by)):
-        print(f"{name} @bucket 16: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+    for name, ms, pms, ems, bms, by in (
+            ("lem_fwd", lem_ms, lem_plain_ms, lem_eager_ms, lem_bound,
+             lem_by),
+            ("mp_pair_fwd", pair_ms, pair_plain_ms, pair_eager_ms,
+             pair_bound, pair_by)):
+        print(f"{name} @bucket 16: kernel {ms:.4f} ms, plain {pms:.4f} ms "
+              f"(CUDA graph; {ems:.4f} ms eager), bound {bms:.4f} ms ({by})")
 
     with torch.no_grad():
         fwd_ms = timed(lambda: trainer.forward(window, steps, {}), reps=5)

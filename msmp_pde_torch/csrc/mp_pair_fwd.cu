@@ -5,7 +5,7 @@
 //
 // For one graph, the gate layer and the main layer (both GNN_LayerLin) read
 // the same inputs h [nx,H], u [nx,D], px [nx], v [nx,V]; each computes
-//   s_i = h w_hi + u w_du + px w_dx + v w_v + b1,  s_j = h w_hj - u w_du - px w_dx
+//   mix = u w_du + px w_dx,  s_i = h w_hi + mix + v w_v + b1,  s_j = h w_hj - mix
 //   m2[i,k] = swish(swish(s_i[i] + s_j[idx[i,k]]) w2 + b2)
 //   agg[i]  = sum_k mask[i,k] m2[i,k] / max(sum_k mask[i,k], 1)
 //   o = swish([h, agg, v] w3 + b3) w4 + b4,   then InstanceNorm over nodes
@@ -32,9 +32,11 @@
 //   writes before its later reads.
 // * Every product is one block-wide tiled GEMM (64x64 output tiles, depth
 //   16, 4x4 outputs a thread) through shared memory, with plain FMAs. The
-//   operand loaders fuse the concatenations ([h,u,px,v], [h,agg,v]), the
-//   neighbour gather and the first swish; the stores fuse bias,
-//   activation and mask. No tensor cores yet: wgmma/TMA is later work.
+//   operand loaders fuse the concatenations ([h,agg,v]), the neighbour
+//   gather and the first swish; the stores fuse bias, activation and mask.
+//   mix is computed once and its store adds it to s_i and subtracts it
+//   from s_j, as the TPU kernel does. No tensor cores yet: wgmma/TMA is
+//   later work.
 #include <cuda_runtime.h>
 
 namespace {
@@ -106,41 +108,49 @@ __device__ void block_gemm(int M, int N, int Kd, const ALoad& A,
 }
 
 // ---- operand loaders and stores -----------------------------------------
-struct NodeIn {  // row r of [h | u | px | v]
-  const float *h, *u, *px, *v;
-  int H, D, V;
-  __device__ float operator()(int r, int c) const {
-    if (c < H) return h[r * H + c];
-    c -= H;
-    if (c < D) return u[r * D + c];
-    c -= D;
-    if (c == 0) return px[r];
-    return v[r * V + c - 1];
-  }
-};
-
-struct SideW {  // [W_i | W_j] over the rows of [h | u | px | v]
-  LayerW w;
-  int H, D;
+struct HW {  // [w_hi | w_hj]
+  const float *w_hi, *w_hj;
+  int H;
   __device__ float operator()(int k, int n) const {
-    const bool jside = n >= H;
-    const int c = jside ? n - H : n;
-    if (k < H) return (jside ? w.w_hj : w.w_hi)[k * H + c];
-    k -= H;
-    if (k < D) return jside ? -w.w_du[k * H + c] : w.w_du[k * H + c];
-    k -= D;
-    if (k == 0) return jside ? -w.w_dx[c] : w.w_dx[c];
-    return jside ? 0.0f : w.w_v[(k - 1) * H + c];
+    return n < H ? w_hi[k * H + n] : w_hj[k * H + n - H];
   }
 };
 
-struct StoreSides {
+struct StoreSides {  // s_i = h w_hi + b1, s_j = h w_hj
   float *si, *sj;
   const float* b1;
   int H;
   __device__ void operator()(int r, int n, float acc) const {
     if (n < H) si[r * H + n] = acc + b1[n];
     else sj[r * H + n - H] = acc;
+  }
+};
+
+struct MixIn {  // row r of [u | px]
+  const float *u, *px;
+  int D;
+  __device__ float operator()(int r, int c) const {
+    return c < D ? u[r * D + c] : px[r];
+  }
+};
+
+struct MixW {  // [w_du ; w_dx]
+  const float *w_du, *w_dx;
+  int H, D;
+  __device__ float operator()(int k, int n) const {
+    return k < D ? w_du[k * H + n] : w_dx[n];
+  }
+};
+
+struct StoreMix {  // mix = u w_du + px w_dx: s_i += mix + v w_v, s_j -= mix
+  float *si, *sj;
+  const float *v, *w_v;
+  int H, V;
+  __device__ void operator()(int r, int n, float acc) const {
+    float vw = 0.0f;
+    for (int k = 0; k < V; ++k) vw = fmaf(v[r * V + k], w_v[k * H + n], vw);
+    si[r * H + n] += acc + vw;
+    sj[r * H + n] -= acc;
   }
 };
 
@@ -196,8 +206,10 @@ __device__ void layer(const LayerW& w, const float* h, const float* u,
                       const float* mask, float* si, float* sj, float* m2,
                       float* agg, float* a3, float* o, int nx, int H, int D,
                       int V, int K, float (*As)[BM + 4], float (*Ws)[BN]) {
-  block_gemm(nx, 2 * H, H + D + 1 + V, NodeIn{h, u, px, v, H, D, V},
-             SideW{w, H, D}, StoreSides{si, sj, w.b1, H}, As, Ws);
+  block_gemm(nx, 2 * H, H, Mat{h, H}, HW{w.w_hi, w.w_hj, H},
+             StoreSides{si, sj, w.b1, H}, As, Ws);
+  block_gemm(nx, H, D + 1, MixIn{u, px, D}, MixW{w.w_du, w.w_dx, H, D},
+             StoreMix{si, sj, v, w.w_v, H, V}, As, Ws);
   block_gemm(nx * K, H, H, EdgeIn{si, sj, idx, H, K}, Mat{w.w2, H},
              StoreEdge{m2, w.b2, mask, H}, As, Ws);
   for (int q = threadIdx.x; q < nx * H; q += blockDim.x) {

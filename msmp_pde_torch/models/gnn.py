@@ -71,9 +71,8 @@ class MPSolver(nn.Module):
     (two-conv CNN). forward(window [B, nx, tw], pos_x [B, nx], t [B],
     var_vec [B, V], idx, mask) -> (out [B, nx, tw], None).
 
-    CUDA tensors go through the kernels; ``set_impl("plain")`` runs the
-    plain PyTorch versions whatever the device, as the reference for
-    on-card checks."""
+    CUDA tensors go through the kernels, CPU tensors through their plain
+    PyTorch versions."""
 
     def __init__(self, tw: int, *, n_vars: int, hidden: int = 128,
                  layers: int = 6, n_components: int = 1,
@@ -90,7 +89,6 @@ class MPSolver(nn.Module):
         g = torch.Generator().manual_seed(seed)
         self.tw, self.hidden, self.layers = tw, hidden, layers
         self.L, self.tmax, self.dt = L, tmax, dt
-        self.impl = "kernel"
         self.embedding_lem = LEM(2 + n_vars, hidden, g)
         self.lemout_1 = Dense(hidden, hidden, g)
         self.lemout_2 = Dense(hidden, hidden, g)
@@ -98,12 +96,6 @@ class MPSolver(nn.Module):
             self.add_module(f"gnn_{i}", GNNLayer(hidden, tw, n_vars, g))
             self.add_module(f"gate_{i}", GNNLayer(hidden, tw, n_vars, g))
         self.output_mlp = WindowDecoder(tw, hidden, g)
-
-    def set_impl(self, impl: str):
-        if impl not in ("kernel", "plain"):
-            raise ValueError(f"unknown impl {impl!r}")
-        self.impl = self.embedding_lem.impl = impl
-        return self
 
     def forward(self, window, pos_x, t, var_vec, idx, mask, lem_state=None):
         if lem_state is not None:
@@ -113,13 +105,12 @@ class MPSolver(nn.Module):
         px_n = pos_x / self.L
         variables = var_vec[:, None, :].expand(B, nx, V)
         h = self._encode(window, px_n, variables)
-        pair = (mp_pair.fused_gated_pair_plain if self.impl == "plain"
-                else mp_pair.fused_gated_pair)
         px_col = px_n[..., None]
         for i in range(self.layers):
-            h = pair(h, window, px_col, variables, idx, mask,
-                     getattr(self, f"gate_{i}").weights(),
-                     getattr(self, f"gnn_{i}").weights())
+            h = mp_pair.fused_gated_pair(
+                h, window, px_col, variables, idx, mask,
+                getattr(self, f"gate_{i}").weights(),
+                getattr(self, f"gnn_{i}").weights())
         return self._decode(h, window), None
 
     def _encode(self, window, px_n, variables):

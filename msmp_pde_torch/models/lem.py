@@ -19,15 +19,13 @@ from msmp_pde_torch.ops import lem_scan as lem_ops
 
 
 class LEM(nn.Module):
-    """inputs [T, N, I] -> (y_T [N, H], (y_T, z_T)). Setting ``impl`` to
-    ``"plain"`` runs the plain scan whatever the device (the reference in
-    on-card checks; MPSolver.set_impl)."""
+    """inputs [T, N, I] -> (y_T [N, H], (y_T, z_T))."""
 
     def __init__(self, input_size: int, hidden: int,
                  generator: torch.Generator, dt: float = 1.0):
         super().__init__()
         H, I = hidden, input_size
-        self.hidden, self.dt, self.impl = hidden, dt, "kernel"
+        self.hidden, self.dt = hidden, dt
         # stdv = 1/sqrt(H) for every parameter
         self.weights = uniform_param((3 * H, I + H), H, generator)
         self.weights_lin_z = uniform_param((H, I + H), H, generator)
@@ -48,8 +46,6 @@ class LEM(nn.Module):
         zx = proj[:, 3 * H:].reshape(T, N, H)
         wy = W[:, I:].T.contiguous()
         wzz = Wz[:, I:].T.contiguous()
-        scan = (lem_ops.lem_scan_plain if self.impl == "plain"
-                else lem_ops.lem_scan)
-        yT, zT = scan(gx, zx, initial_state[0], initial_state[1], wy, wzz,
-                      dt=float(self.dt))
+        yT, zT = lem_ops.lem_scan(gx, zx, initial_state[0], initial_state[1],
+                                  wy, wzz, dt=float(self.dt))
         return yT, (yT, zT)

@@ -48,13 +48,10 @@ def uniform_grid(pde, base_resolution) -> GridInfo:
 
 def build_serving_trainer(experiment: str, model: str, *,
                           base_resolution=(250, 100),
-                          super_resolution=(250, 200),
                           neighbors: int = 3, time_window: int = 25,
                           n_graph_layers: int = 6,
                           data_path: Optional[str] = None,
-                          mode: str = "test",
                           mp_precision: str = "float32",
-                          data_suffix: str = "",
                           device=None, seed: int = 0):
     """The (trainer) a server needs, from grid metadata alone. The model's
     weights are random from ``seed`` until a checkpoint is loaded.
@@ -77,10 +74,7 @@ def build_serving_trainer(experiment: str, model: str, *,
         raise NotImplementedError(
             f"mp_precision={mp_precision!r} is not ported yet (ROADMAP.md "
             "Queue 2 item 7)")
-    del super_resolution, mode  # used by the dataset-file branch only
     pde = pde_for_experiment(experiment, tuple(base_resolution))
-    if data_suffix:
-        pde.unstructured_grid = False
     eq_norms = eq_variable_norms(experiment)
     grid = uniform_grid(pde, tuple(base_resolution))
     spec = build_graph_spec(pde, grid, neighbors, time_window, dev)

@@ -256,11 +256,9 @@ def main(args):
     trainer = build_serving_trainer(
         args.experiment, args.model,
         base_resolution=tuple(args.base_resolution),
-        super_resolution=tuple(args.super_resolution),
         neighbors=args.neighbors, time_window=args.time_window,
         n_graph_layers=args.n_graph_layers,
-        mp_precision=args.mp_precision, data_suffix=args.data_suffix,
-        device=args.device,
+        mp_precision=args.mp_precision, device=args.device,
     )
     buckets = tuple(args.batch_buckets)
     engine = RolloutEngine(trainer, load_npz(args.checkpoint),
@@ -302,7 +300,6 @@ def build_parser():
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8476)
     p.add_argument("--base_resolution", type=int, nargs=2, default=[250, 100])
-    p.add_argument("--super_resolution", type=int, nargs=2, default=[250, 200])
     p.add_argument("--neighbors", type=int, default=3)
     p.add_argument("--time_window", type=int, default=25)
     p.add_argument("--n_graph_layers", type=int, default=6)
@@ -320,7 +317,6 @@ def build_parser():
     p.add_argument("--data_dir", type=str, default="",
                    help="grid metadata source; only '' (the uniform grid "
                         "rebuilt from the PDE) is ported")
-    p.add_argument("--data_suffix", type=str, default="")
     p.add_argument("--mp_precision", type=str, default="float32")
     p.add_argument("--dp", type=int, default=0,
                    help="serving data-parallel devices (only 0 or 1)")

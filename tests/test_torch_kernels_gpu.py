@@ -18,6 +18,7 @@ from msmp_pde_torch.ops import lem_scan, mp_pair
 from msmp_pde_torch.serving.engine import build_serving_trainer
 
 from _torch_helpers import cuda_device  # noqa: F401
+from chip_smoke import reference_forward
 
 pytestmark = pytest.mark.gpu
 
@@ -79,8 +80,10 @@ def test_model_kernel_path_matches_plain_path(cuda_device):
     rng = np.random.default_rng(0)
     window = _rand(rng, cuda_device, 4, 100, 25)
     steps = torch.full((4,), 25, device=cuda_device)
+    spec = trainer.spec
     with torch.no_grad():
         got, _ = trainer.forward(window, steps, {})
-        trainer.model.set_impl("plain")
-        want, _ = trainer.forward(window, steps, {})
+        want = reference_forward(
+            trainer.model, window, spec.x.expand(4, spec.nx),
+            trainer.graph_vars(spec.t_grid[steps], {}), spec.idx, spec.mask)
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)

@@ -91,17 +91,23 @@ def test_forward_matches_pallas_interpret_f32(V):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
-def test_plain_impl_equals_default_on_cpu():
-    """``set_impl("plain")`` (the on-card reference) computes the same as
-    the default path, which on CPU tensors is the plain version too."""
-    inputs = _case(1, 20)
-    m = _port(np_tree(_init(inputs)), 1, torch.float64)
-    args = [tt(a) for a in inputs[:4]] + [torch.as_tensor(inputs[4]),
-                                          tt(inputs[5])]
+@pytest.mark.parametrize("V", [1, 3])
+def test_plain_impl_equals_default_on_cpu(V):
+    """``chip_smoke.reference_forward`` (the on-card reference of the kernel
+    path, written out through the plain versions) computes what the model's
+    forward computes; on CPU tensors both run the plain versions. f64,
+    1e-12."""
+    from chip_smoke import reference_forward
+
+    inputs = _case(V, 20 + V)
+    m = _port(np_tree(_init(inputs)), V, torch.float64)
+    window, pos_x, t, var_vec, idx, mask = inputs
+    args = (tt(window), tt(pos_x), tt(t), tt(var_vec), torch.as_tensor(idx),
+            tt(mask))
     with torch.no_grad():
         a, _ = m(*args)
-        b, _ = m.set_impl("plain")(*args)
-    torch.testing.assert_close(a, b, rtol=0, atol=0)
+        b = reference_forward(m, args[0], args[1], args[3], args[4], args[5])
+    torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("name", ["MP-PDE", "LEM", "MSGMP-PDE", "FNO"])
