@@ -1,17 +1,21 @@
-// LEM recurrent scan, forward without the per-step stash.
+// LEM recurrent scan, forward, with or without the per-step stash.
 //
-// Replaces: msmp_pde_tpu/ops/lem_pallas.py::_fwd_kernel (stash=False), the
-// TPU counterpart of the reference's hand-written lem_cuda kernel.
+// Replaces: msmp_pde_tpu/ops/lem_pallas.py::_fwd_kernel, both variants
+// (stash=False for inference, stash=True under a gradient), the TPU
+// counterpart of the reference's hand-written lem_cuda kernel.
 //
 // Per step t, for every row (node-sample) independently:
 //   g  = gx_t + y @ Wy                 [R, 3H]  (g1 | g2 | zc)
 //   z' = (1 - dt*s(g1)) z + dt*s(g1) tanh(zc)
 //   y' = (1 - dt*s(g2)) y + dt*s(g2) tanh(zx_t + z' @ Wzz)
-// and only (y_T, z_T) are written.
+// and (y_T, z_T) are written; with the stash (ys, zs non-null) also every
+// step's states ys[t] = y_{t+1}, zs[t] = z_{t+1} [T, N, H], which the
+// backward (lem_bwd.cu) recomputes from.
 //
 // What bounds it on an H100: operations. At N = 1600, T = 25, H = 128 the
 // two recurrent products are 5.2 GFLOP of float32 against 82 MB of gx/zx
-// reads, well above the card's 20 FLOP/byte float32 ridge.
+// reads, well above the card's 20 FLOP/byte float32 ridge. The stash adds
+// 41 MB of writes at N = 1600.
 //
 // Design (simple and right first):
 // * Rows are independent, so a block owns R = 16 rows and walks all T
@@ -34,6 +38,7 @@ constexpr int R = 16;  // rows per block
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+template <bool STASH>
 __global__ void lem_fwd_kernel(const float* __restrict__ gx,
                                const float* __restrict__ zx,
                                const float* __restrict__ y0,
@@ -41,6 +46,7 @@ __global__ void lem_fwd_kernel(const float* __restrict__ gx,
                                const float* __restrict__ wy,
                                const float* __restrict__ wzz,
                                float* __restrict__ yT, float* __restrict__ zT,
+                               float* __restrict__ ys, float* __restrict__ zs,
                                int T, int N, int H, float dt) {
   extern __shared__ float smem[];
   float* wzz_s = smem;          // [H, H]
@@ -94,6 +100,8 @@ __global__ void lem_fwd_kernel(const float* __restrict__ gx,
       z[r] = (1.0f - dt1) * z[r] + dt1 * tanhf(gc[r]);
       z_s[r * H + j] = z[r];
       g2[r] = dt * sigm(g2[r]);  // now dt2
+      if (STASH && row0 + r < N)
+        zs[((size_t)t * N + row0 + r) * H + j] = z[r];
     }
     __syncthreads();  // z' complete; every thread is done reading y_s
 
@@ -112,6 +120,8 @@ __global__ void lem_fwd_kernel(const float* __restrict__ gx,
     for (int r = 0; r < R; ++r) {
       y[r] = (1.0f - g2[r]) * y[r] + g2[r] * tanhf(a[r]);
       y_s[r * H + j] = y[r];
+      if (STASH && row0 + r < N)
+        ys[((size_t)t * N + row0 + r) * H + j] = y[r];
     }
     __syncthreads();  // y' complete; every thread is done reading z_s
   }
@@ -132,15 +142,18 @@ extern "C" int lem_fwd_smem_bytes(int H) {
   return (H * H + 2 * R * H) * (int)sizeof(float);
 }
 
+// ys, zs: [T, N, H] stash outputs, or null for none.
 extern "C" int lem_fwd(const float* gx, const float* zx, const float* y0,
                        const float* z0, const float* wy, const float* wzz,
-                       float* yT, float* zT, int T, int N, int H, float dt,
-                       void* stream) {
+                       float* yT, float* zT, float* ys, float* zs, int T,
+                       int N, int H, float dt, void* stream) {
   const int smem = lem_fwd_smem_bytes(H);
-  cudaFuncSetAttribute(lem_fwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool stash = ys != nullptr && zs != nullptr;
+  auto kernel = stash ? lem_fwd_kernel<true> : lem_fwd_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
   const dim3 grid((N + R - 1) / R);
-  lem_fwd_kernel<<<grid, H, smem, (cudaStream_t)stream>>>(
-      gx, zx, y0, z0, wy, wzz, yT, zT, T, N, H, dt);
+  kernel<<<grid, H, smem, (cudaStream_t)stream>>>(gx, zx, y0, z0, wy, wzz, yT,
+                                                  zT, ys, zs, T, N, H, dt);
   return (int)cudaGetLastError();
 }

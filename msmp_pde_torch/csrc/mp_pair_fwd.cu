@@ -30,144 +30,17 @@
 //   floats), which stays in the 50 MB L2 at these sizes. Phases are
 //   separated by __syncthreads(), which also orders the block's global
 //   writes before its later reads.
-// * Every product is one block-wide tiled GEMM (64x64 output tiles, depth
-//   16, 4x4 outputs a thread) through shared memory, with plain FMAs. The
-//   operand loaders fuse the concatenations ([h,agg,v]), the neighbour
-//   gather and the first swish; the stores fuse bias, activation and mask.
-//   mix is computed once and its store adds it to s_i and subtracts it
-//   from s_j, as the TPU kernel does. No tensor cores yet: wgmma/TMA is
-//   later work.
-#include <cuda_runtime.h>
+// * Every product is one block-wide tiled GEMM (block_gemm.cuh) with plain
+//   FMAs. The operand loaders (mp_layer.cuh) fuse the concatenations
+//   ([h,agg,v]), the neighbour gather and the first swish; the stores fuse
+//   bias, activation and mask. mix is computed once and its store adds it
+//   to s_i and subtracts it from s_j, as the TPU kernel does. No tensor
+//   cores yet: wgmma/TMA is later work.
+#include "mp_layer.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 64, BN = 64, BK = 16;
-
-struct LayerW {
-  const float *w_hi, *w_hj, *w_du, *w_dx, *w_v, *b1, *w2, *b2, *w3, *b3,
-      *w4, *b4;
-};
-
-__device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
-__device__ __forceinline__ float swish(float x) { return x * sigm(x); }
-
-// C = A @ W over rows [0, M) and columns [0, N), reduction depth Kd.
-template <class ALoad, class WLoad, class Store>
-__device__ void block_gemm(int M, int N, int Kd, const ALoad& A,
-                           const WLoad& W, const Store& S,
-                           float (*As)[BM + 4], float (*Ws)[BN]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      float acc[4][4] = {};
-      for (int k0 = 0; k0 < Kd; k0 += BK) {
-#pragma unroll
-        for (int i = 0; i < BM * BK / THREADS; ++i) {
-          const int e = tid + i * THREADS;
-          const int m = e / BK, k = e % BK;
-          const int gm = m0 + m, gk = k0 + k;
-          As[k][m] = (gm < M && gk < Kd) ? A(gm, gk) : 0.0f;
-        }
-#pragma unroll
-        for (int i = 0; i < BK * BN / THREADS; ++i) {
-          const int e = tid + i * THREADS;
-          const int k = e / BN, n = e % BN;
-          const int gk = k0 + k, gn = n0 + n;
-          Ws[k][n] = (gk < Kd && gn < N) ? W(gk, gn) : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-          float a[4], w[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) w[j] = Ws[k][tx * 4 + j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gm = m0 + ty * 4 + i;
-        if (gm >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int gn = n0 + tx * 4 + j;
-          if (gn < N) S(gm, gn, acc[i][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// ---- operand loaders and stores -----------------------------------------
-struct HW {  // [w_hi | w_hj]
-  const float *w_hi, *w_hj;
-  int H;
-  __device__ float operator()(int k, int n) const {
-    return n < H ? w_hi[k * H + n] : w_hj[k * H + n - H];
-  }
-};
-
-struct StoreSides {  // s_i = h w_hi + b1, s_j = h w_hj
-  float *si, *sj;
-  const float* b1;
-  int H;
-  __device__ void operator()(int r, int n, float acc) const {
-    if (n < H) si[r * H + n] = acc + b1[n];
-    else sj[r * H + n - H] = acc;
-  }
-};
-
-struct MixIn {  // row r of [u | px]
-  const float *u, *px;
-  int D;
-  __device__ float operator()(int r, int c) const {
-    return c < D ? u[r * D + c] : px[r];
-  }
-};
-
-struct MixW {  // [w_du ; w_dx]
-  const float *w_du, *w_dx;
-  int H, D;
-  __device__ float operator()(int k, int n) const {
-    return k < D ? w_du[k * H + n] : w_dx[n];
-  }
-};
-
-struct StoreMix {  // mix = u w_du + px w_dx: s_i += mix + v w_v, s_j -= mix
-  float *si, *sj;
-  const float *v, *w_v;
-  int H, V;
-  __device__ void operator()(int r, int n, float acc) const {
-    float vw = 0.0f;
-    for (int k = 0; k < V; ++k) vw = fmaf(v[r * V + k], w_v[k * H + n], vw);
-    si[r * H + n] += acc + vw;
-    sj[r * H + n] -= acc;
-  }
-};
-
-struct EdgeIn {  // edge e = (i, k): swish(s_i[i] + s_j[idx[i, k]])
-  const float *si, *sj;
-  const int* idx;
-  int H, K;
-  __device__ float operator()(int e, int c) const {
-    return swish(si[(e / K) * H + c] + sj[idx[e] * H + c]);
-  }
-};
-
-struct Mat {
-  const float* w;
-  int ld;
-  __device__ float operator()(int k, int n) const { return w[k * ld + n]; }
-};
+using namespace mp;
 
 struct StoreEdge {  // mask[e] * swish(acc + b2)
   float* m2;
@@ -175,28 +48,6 @@ struct StoreEdge {  // mask[e] * swish(acc + b2)
   int H;
   __device__ void operator()(int e, int n, float acc) const {
     m2[e * H + n] = swish(acc + b2[n]) * mask[e];
-  }
-};
-
-struct UpdIn {  // row r of [h | agg | v]
-  const float *h, *agg, *v;
-  int H, V;
-  __device__ float operator()(int r, int c) const {
-    if (c < H) return h[r * H + c];
-    c -= H;
-    if (c < H) return agg[r * H + c];
-    return v[r * V + c - H];
-  }
-};
-
-struct StoreBias {
-  float* out;
-  const float* b;
-  int H;
-  bool act;
-  __device__ void operator()(int r, int n, float acc) const {
-    const float x = acc + b[n];
-    out[r * H + n] = act ? swish(x) : x;
   }
 };
 
@@ -270,13 +121,6 @@ mp_pair_fwd_kernel(const float* __restrict__ h, const float* __restrict__ u,
     const float tau = sigm(gn[q]);
     ob[q] = (1.0f - tau) * hb[q] + tau * swish(ln[q]);
   }
-}
-
-LayerW unpack(const void* const* p) {
-  const float* f[12];
-  for (int i = 0; i < 12; ++i) f[i] = static_cast<const float*>(p[i]);
-  return LayerW{f[0], f[1], f[2], f[3], f[4], f[5],
-                f[6], f[7], f[8], f[9], f[10], f[11]};
 }
 
 }  // namespace

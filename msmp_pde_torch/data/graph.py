@@ -77,6 +77,27 @@ def build_graph_spec(pde, grid, n_neighbors: int, time_window: int,
     )
 
 
+def slice_windows(u, steps, tw: int):
+    """Batched temporal-bundling slice: u [B, nt, nx] or [B, nt, d, nx],
+    steps [B] window end points -> (data [B, nx, d*tw] from [step-tw,
+    step), labels [B, nx, d*tw] from [step, step+tw)). One gather for the
+    batch, so the steps may stay on the device; a start clamps into
+    [0, nt - tw], as ``jax.lax.dynamic_slice`` does."""
+    B, nt = u.shape[:2]
+    steps = torch.as_tensor(steps, device=u.device).long()
+    ar = torch.arange(tw, device=u.device)
+
+    def gather(ends):
+        start = torch.clamp(ends - tw, 0, nt - tw)
+        win = u[torch.arange(B, device=u.device)[:, None],
+                start[:, None] + ar]  # [B, tw, (d,) nx]
+        if u.ndim == 3:
+            return win.transpose(1, 2)
+        return win.permute(0, 3, 2, 1).reshape(B, u.shape[-1], -1)
+
+    return gather(steps), gather(steps + tw)
+
+
 def advance_windows(window, pred, n_components: int, tw: int):
     """Pushforward window advance: append the prediction, drop the oldest
     tw steps (per component)."""

@@ -72,7 +72,8 @@ class MPSolver(nn.Module):
     var_vec [B, V], idx, mask) -> (out [B, nx, tw], None).
 
     CUDA tensors go through the kernels, CPU tensors through their plain
-    PyTorch versions."""
+    PyTorch versions; with grad, the LEM scan and each gated pair go
+    through their autograd Functions (ops/lem_scan.py, ops/mp_pair.py)."""
 
     def __init__(self, tw: int, *, n_vars: int, hidden: int = 128,
                  layers: int = 6, n_components: int = 1,

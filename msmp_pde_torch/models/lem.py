@@ -6,8 +6,10 @@ computes both multi-scale gates and the z-candidate from [x_t, y];
 ``weights_lin_z`` [H, I+H] computes the y-candidate from [x_t, z'].
 
 The input halves of both products are hoisted out of the recurrence as one
-``[T*N, I] @ [I, 4H]`` product; the recurrence runs through
-``ops/lem_scan.py`` (the kernel on CUDA tensors).
+``[T*N, I] @ [I, 4H]`` product with plain autograd, as the JAX package
+leaves them to XLA; the recurrence runs through ``ops/lem_scan.py`` (the
+kernels on CUDA tensors; with grad, the ``LemScan`` Function's stash
+forward and BPTT backward).
 """
 from __future__ import annotations
 

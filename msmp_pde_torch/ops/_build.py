@@ -7,8 +7,9 @@ Each source compiles on first use with
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>.so csrc/<name>.cu
 
 into ``build/torch_kernels/`` at the root of the checkout. A library newer
-than its source is reused. ``build_all`` rebuilds every source, one
-``nvcc`` each, all started together. Every C entry point returns
+than its source and every shared header (``csrc/*.cuh``) is reused.
+``build_all`` rebuilds every source, one ``nvcc`` each, all started
+together. Every C entry point returns
 ``cudaGetLastError()``; ``check`` raises if it is not 0.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("lem_fwd", "mp_pair_fwd")
+SOURCES = ("lem_fwd", "lem_bwd", "mp_pair_fwd", "mp_pair_bwd")
 
 _lock = threading.Lock()
 _libs = {}
@@ -45,7 +46,8 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def _start(name: str, extra=()):

@@ -10,7 +10,6 @@ gated-pair kernel once per pair.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -19,72 +18,21 @@ import torch
 from msmp_pde_torch.data.graph import advance_windows
 
 
-@dataclasses.dataclass
-class GridInfo:
-    """The slice of dataset metadata a server needs."""
-
-    x: np.ndarray
-    nt: int
-    dt: float
-    tmin: float
-    tmax: float
-    n_components: int
-
-
-def uniform_grid(pde, base_resolution) -> GridInfo:
-    """Dataset-free grid of the uniform families: ``linspace(0, L, nx)``
-    with dt = (tmax - tmin) / (nt - 1)."""
-    family = f"{pde}"
-    nt, nx = base_resolution
-    if family in ("WE", "KS") or getattr(pde, "unstructured_grid", False):
-        raise ValueError(f"{family} grid is not a plain uniform grid")
-    L = float(getattr(pde, "L", 16.0))
-    x = np.linspace(0.0, L, nx)
-    tmin, tmax = float(getattr(pde, "tmin", 0.0)), float(pde.tmax)
-    return GridInfo(x=x.astype(np.float32), nt=nt,
-                    dt=(tmax - tmin) / (nt - 1), tmin=tmin, tmax=tmax,
-                    n_components=2 if family == "AD" else 1)
-
-
 def build_serving_trainer(experiment: str, model: str, *,
-                          base_resolution=(250, 100),
-                          neighbors: int = 3, time_window: int = 25,
-                          n_graph_layers: int = 6,
-                          data_path: Optional[str] = None,
-                          mp_precision: str = "float32",
-                          device=None, seed: int = 0):
-    """The (trainer) a server needs, from grid metadata alone. The model's
+                          data_path: Optional[str] = None, **kw):
+    """The (trainer) a server needs, from grid metadata alone
+    (training/setup.py::build_trainer, whose keywords it takes). The model's
     weights are random from ``seed`` until a checkpoint is loaded.
     ``device`` defaults to CUDA and raises without it."""
-    from msmp_pde_torch.data.graph import build_graph_spec
-    from msmp_pde_torch.device import resolve_device
-    from msmp_pde_torch.models.registry import get_model
-    from msmp_pde_torch.training.loop import Trainer
-    from msmp_pde_torch.training.setup import (
-        eq_variable_norms,
-        pde_for_experiment,
-    )
+    from msmp_pde_torch.training.setup import build_trainer
 
-    dev = resolve_device(device)
     if data_path is not None:
         raise NotImplementedError(
             "grid metadata from a dataset file is not ported yet "
             "(ROADMAP.md Queue 1 item 6)")
-    if mp_precision != "float32":
-        raise NotImplementedError(
-            f"mp_precision={mp_precision!r} is not ported yet (ROADMAP.md "
-            "Queue 2 item 7)")
-    pde = pde_for_experiment(experiment, tuple(base_resolution))
-    eq_norms = eq_variable_norms(experiment)
-    grid = uniform_grid(pde, tuple(base_resolution))
-    spec = build_graph_spec(pde, grid, neighbors, time_window, dev)
-    m, kind = get_model(
-        model, tw=time_window, n_eq_vars=len(eq_norms),
-        L=float(getattr(pde, "L", 16.0)), tmax=grid.tmax, dt=grid.dt,
-        n_layers=n_graph_layers, seed=seed,
-    )
-    return Trainer(model=m.to(dev).eval(), kind=kind, spec=spec,
-                   eq_norms=eq_norms)
+    trainer = build_trainer(experiment, model, **kw)
+    trainer.model.eval()
+    return trainer
 
 
 class RolloutEngine:

@@ -1,14 +1,28 @@
-"""Model application for graph models (counterpart of
-msmp_pde_tpu/training/loop.py). The forward only: the optimizer step is the
-next slice (ROADMAP.md Queue 1 item 7)."""
+"""Training loop for graph models: pushforward trick and temporal bundling
+(counterpart of msmp_pde_tpu/training/loop.py).
+
+One optimizer step slices the batch's windows from trajectories kept on
+the device, rolls the model forward ``unrolled`` times under
+``torch.no_grad`` (the pushforward), takes the loss
+``sqrt(sum((pred - labels)**2))`` on the next window, backpropagates and
+applies AdamW. On the card the forward with grad runs the stash variant
+of the LEM-scan kernel and the fused-pair forward kernel, and the backward
+the LEM-scan and fused-pair backward kernels. The JAX package runs a whole
+pass as one jitted scan; here it is a Python loop over eager steps.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
-from msmp_pde_torch.data.graph import GraphSpec
+from msmp_pde_torch.data.graph import (
+    GraphSpec,
+    advance_windows,
+    slice_windows,
+)
 from msmp_pde_torch.models.common import assemble_variables
 
 
@@ -26,7 +40,7 @@ def make_var_fns(eq_norms: Dict[str, float], tmax: float):
 @dataclasses.dataclass
 class Trainer:
     """One graph model on its static graph. ``model`` lives on the spec's
-    device."""
+    device and holds the parameters a step updates in place."""
 
     model: torch.nn.Module
     kind: str
@@ -39,6 +53,7 @@ class Trainer:
         self.tw = self.spec.tw
         self.d = self.spec.n_components
         self.graph_vars = make_var_fns(self.eq_norms, self.spec.tmax)
+        self._steps = {}
 
     @property
     def device(self) -> torch.device:
@@ -53,3 +68,107 @@ class Trainer:
         pos_x = spec.x.expand(window.shape[0], spec.nx)
         return self.model(window, pos_x, t, var_vec, spec.idx, spec.mask,
                           lem_state=lem_state)
+
+    # ------------------------------------------------------------ training
+    def make_optimizer(self, lr: float, lr_decay: float, milestones,
+                       steps_per_epoch: int):
+        """(AdamW, per-step LambdaLR) on every parameter: optax's ``adamw``
+        decays biases too, and its ``piecewise_constant_schedule`` scales
+        the rate by ``lr_decay`` once the update count reaches each
+        ``milestone * steps_per_epoch`` (train.py:410-411)."""
+        bounds = sorted({int(m) * steps_per_epoch for m in milestones})
+        opt = torch.optim.AdamW(self.model.parameters(), lr=lr,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.01)
+        sched = torch.optim.lr_scheduler.LambdaLR(
+            opt, lambda count: lr_decay ** sum(count >= b for b in bounds))
+        return opt, sched
+
+    def step_loss(self, u_all, var_all, idx_batch, steps, unrolled: int,
+                  forward: Optional[Callable] = None):
+        """The loss of one batch after ``unrolled`` pushforward windows,
+        with grad; ``forward`` (default ``self.forward``) maps (window,
+        steps, variables, lem_state) -> (pred, lem_state)."""
+        forward = forward or self.forward
+        tw = self.tw
+        u_traj = u_all[idx_batch]
+        variables = {k: v[idx_batch] for k, v in var_all.items()}
+        window, _ = slice_windows(u_traj, steps, tw)
+        state = None
+        # no_grad, not inference_mode: these windows feed the grad forward
+        with torch.no_grad():
+            for _ in range(unrolled):
+                pred, state = forward(window, steps, variables,
+                                      lem_state=state)
+                window = advance_windows(window, pred, self.d, tw)
+                steps = steps + tw
+        _, labels = slice_windows(u_traj, steps, tw)
+        pred, _ = forward(window, steps, variables, lem_state=state)
+        return torch.sqrt(torch.sum((pred - labels) ** 2))
+
+    def _one_step(self, tx, unrolled: int):
+        """The single optimizer step for a pushforward depth:
+        step(u_all, var_all, idx_batch, steps) -> loss (a 0-d tensor on the
+        device; the parameters and ``tx``'s state update in place)."""
+        opt, sched = tx
+
+        def step(u_all, var_all, idx_batch, steps):
+            loss = self.step_loss(u_all, var_all, idx_batch, steps, unrolled)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            sched.step()
+            return loss.detach()
+
+        return step
+
+    def train_step_fn(self, tx, unrolled: int):
+        """The step for a given pushforward depth, built once per (tx,
+        depth)."""
+        key = (id(tx), unrolled)
+        if key not in self._steps:
+            # the value keeps tx alive, so its id() is not reused
+            self._steps[key] = (tx, self._one_step(tx, unrolled))
+        return self._steps[key][1]
+
+
+def train_epoch(trainer: Trainer, tx, u_all, var_all, epoch: int,
+                batch_size: int, t_res: int, unrolling: int,
+                rng: np.random.Generator, print_interval: int = 20,
+                log=print, on_step: Optional[Callable] = None):
+    """One reference epoch: t_res passes over the shuffled loader
+    (train.py:233-244 + train_helper.py:89-147), drawing from ``rng`` in
+    the JAX package's order (a permutation, then one unroll flag per batch,
+    then the start steps per flag), so that one seed draws the same batches
+    there and here. ``on_step(flag)`` runs after each step. Returns
+    (mean loss / batch_size, the losses [t_res, n_batches] as numpy)."""
+    tw = trainer.tw
+    dev = trainer.device
+    n = int(u_all.shape[0])
+    batch_size = min(batch_size, n)
+    n_batches = max(1, n // batch_size)
+    max_unrolling = min(epoch, unrolling)
+    unroll_choices = list(range(max_unrolling + 1))
+    losses = []
+    for i in range(t_res):
+        perm = rng.permutation(n)[: n_batches * batch_size]
+        perm = perm.reshape(n_batches, batch_size)
+        flags = [int(rng.choice(unroll_choices)) for _ in range(n_batches)]
+        steps = np.stack([
+            rng.integers(tw, t_res - tw - tw * f + 1, size=batch_size)
+            for f in flags])
+        perm_d = torch.as_tensor(perm, device=dev)
+        steps_d = torch.as_tensor(steps, device=dev)
+        pass_losses = []
+        for b, f in enumerate(flags):
+            fn = trainer.train_step_fn(tx, f)
+            pass_losses.append(fn(u_all, var_all, perm_d[b], steps_d[b]))
+            if on_step is not None:
+                on_step(f)
+        losses.append(torch.stack(pass_losses))
+        if i % print_interval == 0:
+            recent = float(losses[-1].mean())
+            log(f"Training Loss (progress: {i / t_res:.2f}): "
+                f"{recent / batch_size}")
+    losses = torch.stack(losses).cpu().numpy()
+    return float(losses.mean()) / batch_size, losses

@@ -6,7 +6,13 @@ imports no JAX, so it runs on a machine without it:
 
 Tolerances in float32: the LEM scan 1e-5 (FMA order only); the pair 1e-4
 (FMA order, then InstanceNorm divides by a per-feature spread); the model
-5e-4 (six pairs and the LEM compound the pair's rounding).
+5e-4 (six pairs and the LEM compound the pair's rounding). Backward: the LEM
+scan's per-row outputs rtol 5e-4, atol 1e-5, its weight gradients (sums over
+T*N rows) atol 1e-5 * max|ref|; the pair's gradients and a training step's
+parameter gradients the scale-aware max|diff| <= max(1e-3 max|ref|, 2e-4),
+where b4's gradient, analytically zero and roundoff on both sides, takes
+its layer's w4 gradient's scale (chip_smoke.scale_aware); a step's loss
+relative 1e-4.
 """
 import numpy as np
 import pytest
@@ -16,9 +22,15 @@ from msmp_pde_torch.data.graph import build_neighbors_radius
 from msmp_pde_torch.models.gnn import GNNLayer
 from msmp_pde_torch.ops import lem_scan, mp_pair
 from msmp_pde_torch.serving.engine import build_serving_trainer
+from msmp_pde_torch.training.setup import build_trainer
 
 from _torch_helpers import cuda_device  # noqa: F401
-from chip_smoke import reference_forward
+from chip_smoke import (
+    grad_scales,
+    reference_forward,
+    reference_step_loss,
+    scale_aware,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -87,3 +99,98 @@ def test_model_kernel_path_matches_plain_path(cuda_device):
             trainer.model, window, spec.x.expand(4, spec.nx),
             trainer.graph_vars(spec.t_grid[steps], {}), spec.idx, spec.mask)
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("N", [100, 400, 1600, 37])
+def test_lem_stash_and_bwd_match_plain(cuda_device, N):
+    rng = np.random.default_rng(100 + N)
+    T, H = 25, 128
+    r = lambda *s, scale=1.0: _rand(rng, cuda_device, *s, scale=scale)
+    args = (r(T, N, 3 * H), r(T, N, H), r(N, H, scale=.5), r(N, H, scale=.5),
+            r(H, 3 * H, scale=H ** -.5), r(H, H, scale=H ** -.5))
+    before = (lem_scan.launches, lem_scan.stash_launches)
+    got = lem_scan.lem_scan_kernel(*args, stash=True)
+    assert (lem_scan.launches, lem_scan.stash_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = lem_scan.lem_scan_plain(*args, stash=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    cot = (r(N, H), r(N, H))
+    before = lem_scan.bwd_launches
+    got = lem_scan.lem_scan_bwd_kernel(*args, *want[2:], *cot)
+    assert lem_scan.bwd_launches == before + 1
+    want = lem_scan.lem_scan_bwd_plain(*args, *want[2:], *cot)
+    for k, (a, b) in enumerate(zip(got, want)):
+        atol = 1e-5 * (b.abs().max().item() if k >= 4 else 1.0)
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=atol)
+
+
+@pytest.mark.parametrize("B,nx,H,V,n", [(1, 100, 128, 1, 3),
+                                         (4, 100, 128, 1, 3),
+                                         (16, 100, 128, 1, 3),
+                                         (2, 40, 96, 3, 2)])
+def test_pair_bwd_kernel_matches_plain(cuda_device, B, nx, H, V, n):
+    """Bitwise repeatable; the last case has a width that no 64-column tile
+    divides."""
+    rng = np.random.default_rng(200 + B)
+    D = 25
+    idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
+    g = torch.Generator().manual_seed(B)
+    W = [tuple(w.detach() for w in GNNLayer(H, D, V, g).to(cuda_device)
+               .weights()) for _ in "gl"]
+    r = lambda *s: _rand(rng, cuda_device, *s)
+    args = (r(B, nx, H), r(B, nx, D), r(B, nx, 1), r(B, nx, V),
+            torch.as_tensor(idx, device=cuda_device),
+            torch.as_tensor(mask, device=cuda_device), *W, r(B, nx, H))
+    before = mp_pair.bwd_launches
+    flat = lambda res: [res[0], *res[1], *res[2]]
+    got = flat(mp_pair.fused_gated_pair_bwd_kernel(*args))
+    again = flat(mp_pair.fused_gated_pair_bwd_kernel(*args))
+    assert mp_pair.bwd_launches == before + 2
+    want = flat(mp_pair.fused_gated_pair_bwd_plain(*args))
+    for k, (a, b, c) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b), k
+        # outputs 12 and 24 are the layers' b4, 11 and 23 their w4
+        scale = want[k - 1].abs().max().item() if k % 12 == 0 else None
+        assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
+
+
+def _train_batch(trainer, B, unrolled, seed):
+    rng = np.random.default_rng(seed)
+    dev = trainer.device
+    u_all = torch.tensor(rng.normal(size=(B, 250, 100)), dtype=torch.float32,
+                         device=dev)
+    steps = torch.as_tensor(
+        rng.integers(25, 250 - 25 * (unrolled + 1) + 1, B), device=dev)
+    return u_all, torch.arange(B, device=dev), steps
+
+
+def test_every_parameter_gets_a_gradient(cuda_device):
+    """The kernels' outputs carry a grad_fn: one backward on the kernel
+    path reaches every parameter of MPSolver."""
+    trainer = build_trainer("E1", "MSMP-PDE", device=cuda_device)
+    u_all, idx, steps = _train_batch(trainer, 4, 0, 0)
+    before = (lem_scan.bwd_launches, mp_pair.bwd_launches)
+    trainer.step_loss(u_all, {}, idx, steps, 0).backward()
+    assert (lem_scan.bwd_launches, mp_pair.bwd_launches) == (
+        before[0] + 1, before[1] + 6)
+    for name, p in trainer.model.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+
+
+@pytest.mark.parametrize("unrolled", [0, 1])
+def test_train_step_kernel_path_matches_plain_path(cuda_device, unrolled):
+    trainer = build_trainer("E1", "MSMP-PDE", device=cuda_device)
+    params = list(trainer.model.parameters())
+    batch = _train_batch(trainer, 4, unrolled, 1 + unrolled)
+    loss_k = trainer.step_loss(*batch[:1], {}, *batch[1:], unrolled)
+    grads_k = torch.autograd.grad(loss_k, params)
+    loss_p = reference_step_loss(trainer, batch[0], *batch[1:], unrolled)
+    grads_p = torch.autograd.grad(loss_p, params)
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    names = [n for n, _ in trainer.model.named_parameters()]
+    scales = grad_scales(zip(names, grads_p))
+    for name, a, b in zip(names, grads_k, grads_p):
+        ok, err = scale_aware(a, b, scales[name])
+        assert ok, (name, err, scales[name])
