@@ -31,7 +31,24 @@ Phases, each of which fails the run on error:
      [16, 250, 100], i.e. 250 optimizer steps, each with the expected
      kernel launches, finite losses, and a falling loss;
  11. timings of the three training kernels beside their plain versions and
-     bounds, and of one train step at unrolled 0 and 1.
+     bounds, and of one train step at unrolled 0 and 1;
+ 12. the single-layer kernels (forward and backward) vs their plain
+     versions, B in {1, 4, 16} at MP-PDE's weights and one width no
+     64-column tile divides, for both (final_act, residual) in {(T, T),
+     (F, F)}; two backward runs give bitwise equal gradients;
+ 13. the pair's stash variant (out bitwise equal to the variant without
+     it, gn and ln against the plain layers) and its fallback backward at
+     batch 48, which does not fit the fused backward: launches and
+     gradients; then one MSMP-PDE train step at batch 48, the fallback's
+     main path, with its launches;
+ 14. the full-width MP-PDE and LEM forwards (six GNN_Layers) vs
+     reference_forward; the served MP-PDE answers the requests of phase 5;
+ 15. one training step at batch 16 of MP-PDE and of LEM, kernel path vs
+     plain path (unrolled 0 and 1); one MP-PDE train_epoch of 250 steps
+     with per-step launch counts and a falling loss;
+ 16. timings of the single-layer kernels at batch 16, of the stash and of
+     both pair-backward routes at batch 48, and of MP-PDE's forward, train
+     step and rollouts.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -79,11 +96,59 @@ def scale_aware(got, want, scale=None):
 
 def grad_scales(named):
     """{name: scale for scale_aware} over (name, reference gradient)
-    pairs: b4 (``TorchDense_2.bias``) takes its layer's w4 gradient's."""
+    pairs: b4 (``TorchDense_2.bias``) takes the larger of its own and its
+    layer's w4 gradient's, since without a final activation its own is
+    roundoff."""
     named = dict(named)
-    w4 = lambda n: named[n[:-len("bias")] + "kernel"]
-    return {n: (w4(n) if n.endswith("TorchDense_2.bias") else g)
-            .abs().max().item() for n, g in named.items()}
+    top = lambda g: g.abs().max().item()
+    w4 = lambda n: top(named[n[:-len("bias")] + "kernel"])
+    return {n: (max(top(g), w4(n)) if n.endswith("TorchDense_2.bias")
+                else top(g)) for n, g in named.items()}
+
+
+COUNTERS = ("lem_fwd", "lem_fwd_stash", "lem_bwd", "mp_pair_fwd",
+            "mp_pair_fwd_stash", "mp_pair_bwd", "mp_layer_fwd",
+            "mp_layer_bwd")
+
+
+def launch_counts():
+    """{kernel: launches since the last reset}; the stash variants are
+    counted in their kernel's total too."""
+    from msmp_pde_torch.ops import lem_scan, mp_layer, mp_pair
+
+    return dict(zip(COUNTERS, (
+        lem_scan.launches, lem_scan.stash_launches, lem_scan.bwd_launches,
+        mp_pair.launches, mp_pair.stash_launches, mp_pair.bwd_launches,
+        mp_layer.launches, mp_layer.bwd_launches)))
+
+
+def reset_counts():
+    from msmp_pde_torch.ops import lem_scan, mp_layer, mp_pair
+
+    lem_scan.launches = lem_scan.stash_launches = lem_scan.bwd_launches = 0
+    mp_pair.launches = mp_pair.stash_launches = mp_pair.bwd_launches = 0
+    mp_layer.launches = mp_layer.bwd_launches = 0
+
+
+def diff_counts(now, before):
+    return {k: now[k] - before[k] for k in COUNTERS}
+
+
+def expected_launches(model, forwards, grad_steps=0):
+    """The launches of ``forwards`` model forwards, of which ``grad_steps``
+    with grad and a backward (on the fused pair route)."""
+    want = dict.fromkeys(COUNTERS, 0)
+    if model.encoder == "lem":
+        want.update(lem_fwd=forwards, lem_fwd_stash=grad_steps,
+                    lem_bwd=grad_steps)
+    kind = "mp_pair" if model.gated else "mp_layer"
+    want[f"{kind}_fwd"] = model.layers * forwards
+    want[f"{kind}_bwd"] = model.layers * grad_steps
+    return want
+
+
+def nonzero(counts):
+    return ", ".join(f"{k} {v}" for k, v in counts.items() if v)
 
 
 def fail(msg):
@@ -173,35 +238,46 @@ def flax_tree(model, seed):
 
 
 def reference_forward(model, window, pos_x, var_vec, idx, mask):
-    """MPSolver.forward written out through the plain versions of both
-    kernels (``lem_scan_plain``, ``fused_gated_pair_plain``) on the model's
-    own parameters: the on-card reference of the kernel path."""
+    """MPSolver.forward written out through the plain versions of the
+    kernels (``lem_scan_plain``, ``fused_mp_layer_plain``,
+    ``fused_gated_pair_plain``) on the model's own parameters, for either
+    encoder (mlp, lem) and either processor (ungated layers, gated pairs):
+    the on-card reference of the kernel path."""
     import torch
 
     from msmp_pde_torch.models.common import swish
     from msmp_pde_torch.ops.lem_scan import lem_scan_plain
+    from msmp_pde_torch.ops.mp_layer import fused_mp_layer_plain
     from msmp_pde_torch.ops.mp_pair import fused_gated_pair_plain
 
     B, nx, tw = window.shape
     V, H = var_vec.shape[-1], model.hidden
     px_n = pos_x / model.L
     variables = var_vec[:, None, :].expand(B, nx, V)
-    seq = torch.stack([
-        torch.cat([px_n[..., None], window[..., k:k + 1], variables], -1)
-        for k in range(tw)]).reshape(tw, B * nx, 2 + V)
-    lem = model.embedding_lem
-    W, Wz, I = lem.weights, lem.weights_lin_z, 2 + V
-    gx = seq @ W[:, :I].T + lem.bias
-    zx = seq @ Wz[:, :I].T + lem.bias_lin_z
-    zeros = window.new_zeros((B * nx, H))
-    y, _ = lem_scan_plain(gx, zx, zeros, zeros, W[:, I:].T, Wz[:, I:].T,
-                          dt=float(lem.dt))
-    h = swish(model.lemout_2(swish(model.lemout_1(y.reshape(B, nx, H)))))
+    if model.encoder == "mlp":
+        node_in = torch.cat([window, px_n[..., None], variables], -1)
+        h = swish(model.embed_2(swish(model.embed_1(node_in))))
+    else:
+        seq = torch.stack([
+            torch.cat([px_n[..., None], window[..., k:k + 1], variables], -1)
+            for k in range(tw)]).reshape(tw, B * nx, 2 + V)
+        lem = model.embedding_lem
+        W, Wz, I = lem.weights, lem.weights_lin_z, 2 + V
+        gx = seq @ W[:, :I].T + lem.bias
+        zx = seq @ Wz[:, :I].T + lem.bias_lin_z
+        zeros = window.new_zeros((B * nx, H))
+        y, _ = lem_scan_plain(gx, zx, zeros, zeros, W[:, I:].T, Wz[:, I:].T,
+                              dt=float(lem.dt))
+        h = swish(model.lemout_2(swish(model.lemout_1(y.reshape(B, nx, H)))))
     for i in range(model.layers):
-        h = fused_gated_pair_plain(
-            h, window, px_n[..., None], variables, idx, mask,
-            getattr(model, f"gate_{i}").weights(),
-            getattr(model, f"gnn_{i}").weights())
+        layer = getattr(model, f"gnn_{i}")
+        if model.gated:
+            h = fused_gated_pair_plain(
+                h, window, px_n[..., None], variables, idx, mask,
+                getattr(model, f"gate_{i}").weights(), layer.weights())
+        else:
+            h = fused_mp_layer_plain(h, window, px_n[..., None], variables,
+                                     idx, mask, layer.weights(), True, True)
     return model._decode(h, window)
 
 
@@ -320,8 +396,9 @@ def check_pair_bwd(rand, model, spec, T, H, V):
     return err, args16
 
 
-def check_train_step(trainer, u_all, rng):
-    """Phase 9: one step's loss and gradients, kernel path vs plain path."""
+def check_train_step(trainer, u_all, rng, name="MSMP-PDE"):
+    """Phases 9 and 15: one step's loss and gradients, kernel path vs plain
+    path."""
     import torch
 
     params = list(trainer.model.parameters())
@@ -340,42 +417,37 @@ def check_train_step(trainer, u_all, rng):
         torch.cuda.synchronize()
         rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
         check(rel <= TRAIN_LOSS_RTOL,
-              f"train step unrolled={unrolled}: loss {loss_k.item()} vs "
-              f"{loss_p.item()}")
+              f"{name} train step unrolled={unrolled}: loss {loss_k.item()}"
+              f" vs {loss_p.item()}")
         worst = 0.0
         scales = grad_scales(zip(names, grads_p))
-        for name, a, b in zip(names, grads_k, grads_p):
-            check(bool(torch.isfinite(a).all()), f"{name}: grad not finite")
-            ok, e = scale_aware(a, b, scales[name])
+        for pname, a, b in zip(names, grads_k, grads_p):
+            check(bool(torch.isfinite(a).all()), f"{pname}: grad not finite")
+            ok, e = scale_aware(a, b, scales[pname])
             worst = max(worst, e)
-            check(ok, f"train step unrolled={unrolled}: {name} grad "
+            check(ok, f"{name} train step unrolled={unrolled}: {pname} grad "
                   f"differs by {e:.3e}")
-        print(f"train step B={TRAIN_BATCH} unrolled={unrolled}: loss "
+        print(f"{name} train step B={TRAIN_BATCH} unrolled={unrolled}: loss "
               f"{loss_k.item():.6f} (plain {loss_p.item():.6f}, rel "
               f"{rel:.2e}); {len(params)} grads within the scale-aware "
               f"bound (max |diff| {worst:.3e})")
 
 
-def train_main_path(trainer, u_all):
-    """Phase 10: one train_epoch; returns the launch counts of the run."""
+def train_main_path(trainer, u_all, name="MSMP-PDE"):
+    """Phases 10 and 15: one train_epoch; returns the launch counts of the
+    run and its time."""
     import numpy as np
 
-    from msmp_pde_torch.ops import lem_scan, mp_pair
     from msmp_pde_torch.training.loop import train_epoch
 
     nt = u_all.shape[1]
     tx = trainer.make_optimizer(1e-4, 0.4, [1, 5, 10, 15], nt)
-    counters = lambda: (lem_scan.launches, lem_scan.stash_launches,
-                        mp_pair.launches, mp_pair.bwd_launches,
-                        lem_scan.bwd_launches)
-    lem_scan.launches = lem_scan.stash_launches = 0
-    lem_scan.bwd_launches = 0
-    mp_pair.launches = mp_pair.bwd_launches = 0
-    per_step, last = [], [counters()]
+    reset_counts()
+    per_step, last = [], [launch_counts()]
 
     def on_step(flag):
-        now = counters()
-        per_step.append((flag, tuple(a - b for a, b in zip(now, last[0]))))
+        now = launch_counts()
+        per_step.append((flag, diff_counts(now, last[0])))
         last[0] = now
 
     t0 = time.perf_counter()
@@ -384,17 +456,16 @@ def train_main_path(trainer, u_all):
                                unrolling=1, rng=np.random.default_rng(0),
                                print_interval=50, on_step=on_step)
     took = time.perf_counter() - t0
-    totals = counters()
+    totals = launch_counts()
     losses = losses.reshape(-1)
-    print(f"train_epoch: {len(losses)} steps in {took:.3f} s, mean loss / "
-          f"batch {mean:.6f}")
+    print(f"{name} train_epoch: {len(losses)} steps in {took:.3f} s, mean "
+          f"loss / batch {mean:.6f}")
     print("pass losses: " + " ".join(f"{v:.4g}" for v in losses))
     check(len(per_step) == len(losses) == nt, "train_epoch step count")
     for i, (f, d) in enumerate(per_step):
-        want = (f + 1, 1, 6 * (f + 1), 6, 1)
-        check(d == want, f"step {i} (unrolled {f}): launches lem_fwd, "
-              f"lem_fwd_stash, mp_pair_fwd, mp_pair_bwd, lem_bwd = {d}, "
-              f"expected {want}")
+        want = expected_launches(trainer.model, f + 1, 1)
+        check(d == want, f"{name} step {i} (unrolled {f}): launches "
+              f"{nonzero(d)}, expected {nonzero(want)}")
     check(bool(np.isfinite(losses).all()), "a training loss is not finite")
     flags = np.array([f for f, _ in per_step])
     print(f"mean loss, first 50 steps {losses[:50].mean():.4f}, last 50 "
@@ -405,14 +476,273 @@ def train_main_path(trainer, u_all):
         first = losses[:50][flags[:50] == f].mean()
         final = losses[-50:][flags[-50:] == f].mean()
         print(f"  unrolled {f}: first 50 {first:.4f}, last 50 {final:.4f}")
-        check(final < first, f"the loss at unrolled {f} did not fall")
+        check(final < first, f"{name}: the loss at unrolled {f} did not "
+              "fall")
     flags = flags.tolist()
-    print(f"main path launches: lem_fwd {totals[0]} (of which stash "
-          f"{totals[1]}), mp_pair_fwd {totals[2]}, mp_pair_bwd {totals[3]}, "
-          f"lem_bwd {totals[4]}; steps at unrolled 0/1: {flags.count(0)}/"
-          f"{flags.count(1)}")
-    return dict(zip(("lem_fwd", "lem_fwd_stash", "mp_pair_fwd",
-                     "mp_pair_bwd", "lem_bwd"), totals)), took
+    print(f"{name} main path launches: {nonzero(totals)}; steps at unrolled "
+          f"0/1: {flags.count(0)}/{flags.count(1)}")
+    return totals, took
+
+
+def serve_path(engine, name):
+    """Phases 5 and 14, the serving main path: the port's HTTP server on
+    localhost answers rollout requests (B = 1, 3, 16, 20, and one
+    trajectory) at n_windows=8, each checked against RolloutEngine.rollout
+    and against the expected kernel launches. Returns the launch counts of
+    the run."""
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from msmp_pde_torch.serving import serve
+
+    nx, T = engine.trainer.spec.nx, engine.trainer.tw
+    meta = {"backend": "cuda", "experiment": "E1", "model": name,
+            "buckets": list(BUCKETS)}
+    srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                              serve.make_handler(engine, meta))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+    served = []
+    reset_counts()
+    try:
+        for B, traj in ((1, False), (3, False), (16, False), (20, False),
+                        (4, True)):
+            w = np.random.default_rng(B).normal(size=(B, nx, T)).astype(
+                np.float32)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            got = serve.request_rollout("127.0.0.1", port, w,
+                                        n_windows=N_WINDOWS,
+                                        as_trajectory=traj)
+            lat = time.perf_counter() - t0
+            served.append((B, traj, w, got, lat,
+                           diff_counts(launch_counts(), before)))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join()
+    totals = launch_counts()
+    print(f"{name} main path launches: {nonzero(totals)}")
+    for B, traj, w, got, lat, d in served:
+        forwards = N_WINDOWS * -(-B // BUCKETS[-1])  # windows x chunks
+        want = expected_launches(engine.trainer.model, forwards)
+        check(d == want, f"{name} B={B}: launches {nonzero(d)}, expected "
+              f"{nonzero(want)}")
+        shape = ((B, N_WINDOWS * T, 1, nx) if traj
+                 else (B, N_WINDOWS, nx, T))
+        check(got.shape == shape, f"{name} B={B}: response {got.shape}")
+        check(bool(np.isfinite(got).all()), f"{name} B={B}: not finite")
+        kw = dict(n_windows=N_WINDOWS)
+        direct = (engine.trajectory(w, **kw) if traj
+                  else engine.rollout(w, **kw))
+        check(np.array_equal(got, direct),
+              f"{name} B={B}: served result differs from engine.rollout")
+        print(f"{name} served B={B}{' trajectory' if traj else ''}: "
+              f"{got.shape}, {lat * 1e3:.3f} ms, launches {nonzero(d)}")
+    return totals
+
+
+def check_model_forward(trainer, window, steps, name):
+    """Phases 4 and 14: the whole model, kernel path vs plain path."""
+    import torch
+
+    spec = trainer.spec
+    B, nx, T = window.shape
+    with torch.no_grad():
+        out_k, _ = trainer.forward(window, steps, {})
+        out_p = reference_forward(
+            trainer.model, window, spec.x.expand(B, nx),
+            trainer.graph_vars(spec.t_grid[steps], {}), spec.idx, spec.mask)
+    torch.cuda.synchronize()
+    check(out_k.shape == (B, nx, T), f"{name} output {tuple(out_k.shape)}")
+    check(bool(torch.isfinite(out_k).all()), f"{name} output not finite")
+    e = (out_k - out_p).abs().max().item()
+    print(f"{name} forward B={B}: max |kernel path - plain path| = {e:.3e}"
+          f" (output max |.| {out_p.abs().max().item():.3e})")
+    check(e <= TOL_MODEL, f"{name} differs by {e:.3e} > {TOL_MODEL}")
+
+
+def check_layer_kernels(rand, W, spec, T, H, V):
+    """Phase 12: the single-layer kernels vs their plain versions, B in
+    {1, 4, 16} at the model's weights and one width no 64-column tile
+    divides, for both switch pairs; two backward runs are bitwise equal.
+    Returns (forward max error, backward max error)."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.data.graph import build_neighbors_radius
+    from msmp_pde_torch.models.gnn import GNNLayer
+    from msmp_pde_torch.ops import mp_layer
+
+    dev = spec.x.device
+    W = tuple(w.detach() for w in W)
+    cases = [(B, spec.nx, H, V, spec.idx, spec.mask, W) for B in BUCKETS]
+    idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, 40), 2)
+    odd = GNNLayer(96, T, 3, torch.Generator().manual_seed(3)).to(dev)
+    cases.append((2, 40, 96, 3, torch.as_tensor(idx, device=dev),
+                  torch.as_tensor(mask, device=dev),
+                  tuple(w.detach() for w in odd.weights())))
+    e_fwd = e_bwd = 0.0
+    for B, n, h, v, idx, mask, w in cases:
+        for sw in (True, False):
+            args = (rand(B, n, h), rand(B, n, T),
+                    torch.linspace(0, 1, n, device=dev).expand(B, n)[..., None],
+                    rand(B, n, v, scale=.5), idx, mask, w)
+            k = mp_layer.fused_mp_layer_kernel(*args, sw, sw)
+            p = mp_layer.fused_mp_layer_plain(*args, sw, sw)
+            g = rand(B, n, h)
+            k1 = mp_layer.fused_mp_layer_bwd_kernel(*args, g, sw, sw)
+            k2 = mp_layer.fused_mp_layer_bwd_kernel(*args, g, sw, sw)
+            ref = mp_layer.fused_mp_layer_bwd_plain(*args, g, sw, sw)
+            torch.cuda.synchronize()
+            ef = (k - p).abs().max().item()
+            e_fwd = max(e_fwd, ef)
+            tag = f"B={B} H={h} final_act=residual={sw}"
+            check(ef <= TOL_PAIR, f"mp_layer_fwd {tag} differs by {ef:.3e}")
+            flat = lambda r: [r[0], *r[1]]
+            k1, k2, ref = flat(k1), flat(k2), flat(ref)
+            check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+                  f"mp_layer_bwd {tag}: two runs differ")
+            top = lambda t: t.abs().max().item()
+            eb = 0.0
+            for i, (a, b) in enumerate(zip(k1, ref)):
+                # output 12 is b4, 11 w4 (b4 is roundoff without final_act)
+                scale = max(top(b), top(ref[11])) if i == 12 else None
+                ok, e = scale_aware(a, b, scale)
+                eb = max(eb, e)
+                check(ok, f"mp_layer_bwd {tag} output {i}: {e:.3e}")
+            e_bwd = max(e_bwd, eb)
+            print(f"mp_layer {tag}: forward max |kernel - plain| {ef:.3e}; "
+                  f"backward dh and 12 grads within the scale-aware bound "
+                  f"(max {eb:.3e}), two runs bitwise equal")
+    return e_fwd, e_bwd
+
+
+def check_pair_fallback(rand, model, spec, T, H, V):
+    """Phase 13: the pair's stash variant (out bitwise equal to the variant
+    without it, gn and ln against the plain layers) at B in {1, 4, 16, 48};
+    the fallback route at batch 48 (launches, and dh and the 24 gradients
+    against the fused backward's plain version). Returns (stash max error,
+    fallback max error, the batch-48 operands (args, gn, ln, g))."""
+    import torch
+
+    from msmp_pde_torch.ops import mp_layer, mp_pair
+
+    nx, K = spec.idx.shape
+    Wg = tuple(w.detach() for w in model.gate_0.weights())
+    Wl = tuple(w.detach() for w in model.gnn_0.weights())
+    fits = [B for B in range(1, 65) if mp_pair.pair_bwd_fused_fits(
+        B, nx, H, T, V, K, spec.x.device)]
+    print(f"fused pair backward fits up to batch {max(fits)} (L2 "
+          f"{torch.cuda.get_device_properties(0).L2_cache_size} bytes); "
+          "the fallback takes the larger batches")
+    check(fits == list(range(1, max(fits) + 1)) and 16 in fits
+          and 48 not in fits, "pair_bwd_fused_fits switch")
+    e_stash = 0.0
+    for B in BUCKETS + (48,):
+        args = (rand(B, nx, H), rand(B, nx, T),
+                spec.x.expand(B, nx)[..., None] / spec.L,
+                rand(B, nx, V, scale=.5), spec.idx, spec.mask, Wg, Wl)
+        out, gn, ln = mp_pair.fused_gated_pair_kernel(*args, stash=True)
+        plain = mp_pair.fused_gated_pair_kernel(*args)
+        pgn = mp_layer.fused_mp_layer_plain(*args[:6], Wg)
+        pln = mp_layer.fused_mp_layer_plain(*args[:6], Wl)
+        torch.cuda.synchronize()
+        check(torch.equal(out, plain), f"mp_pair_fwd_stash B={B}: out differs"
+              " from the variant without the stash")
+        e = max((gn - pgn).abs().max().item(), (ln - pln).abs().max().item())
+        e_stash = max(e_stash, e)
+        check(e <= TOL_PAIR, f"mp_pair_fwd_stash B={B}: gn/ln differ by "
+              f"{e:.3e}")
+        print(f"mp_pair_fwd_stash B={B}: out bitwise equal to no-stash; "
+              f"gn, ln max |kernel - plain| {e:.3e}")
+    g = rand(48, nx, H)
+    h = args[0].clone().requires_grad_()
+    ws = [w.clone().requires_grad_() for w in Wg + Wl]
+    reset_counts()
+    out = mp_pair.fused_gated_pair(h, *args[1:6], ws[:12], ws[12:])
+    got = torch.autograd.grad(out, [h] + ws, g)
+    counts = launch_counts()
+    want_counts = dict.fromkeys(COUNTERS, 0)
+    want_counts.update(mp_pair_fwd=1, mp_pair_fwd_stash=1, mp_layer_bwd=2)
+    check(counts == want_counts, f"fallback at batch 48: launches "
+          f"{nonzero(counts)}, expected {nonzero(want_counts)}")
+    dh, dwg, dwl = mp_pair.fused_gated_pair_bwd_plain(*args, g)
+    ref = [dh, *dwg, *dwl]
+    e_fb = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        # outputs 12 and 24 are the layers' b4, 11 and 23 their w4
+        scale = ref[i - 1].abs().max().item() if i % 12 == 0 and i else None
+        ok, e = scale_aware(a, b, scale)
+        e_fb = max(e_fb, e)
+        check(ok, f"fallback at batch 48 output {i}: {e:.3e}")
+    print(f"pair fallback at batch 48: launches {nonzero(counts)}; dh and 24 "
+          f"grads within the scale-aware bound (max |diff| {e_fb:.3e})")
+    return e_stash, e_fb, (args, gn, ln, g)
+
+
+def fallback_step(trainer, u_all):
+    """Phase 13, the fallback's main path: one MSMP-PDE optimizer step at
+    batch 48 through ``train_step_fn``, every pair on the stash forward and
+    two single-layer backwards. Returns the launch counts of the run."""
+    import numpy as np
+    import torch
+
+    dev = trainer.device
+    B = len(u_all)
+    step = trainer.train_step_fn(
+        trainer.make_optimizer(1e-4, 0.4, [1], 250), 0)
+    st = torch.as_tensor(np.random.default_rng(48).integers(25, 226, B),
+                         device=dev)
+    reset_counts()
+    loss = step(u_all, {}, torch.arange(B, device=dev), st)
+    counts = launch_counts()
+    L = trainer.model.layers
+    want = expected_launches(trainer.model, 1, 1)
+    want.update(mp_pair_fwd_stash=L, mp_pair_bwd=0, mp_layer_bwd=2 * L)
+    check(counts == want, f"MSMP-PDE step at batch {B}: launches "
+          f"{nonzero(counts)}, expected {nonzero(want)}")
+    check(bool(torch.isfinite(loss)), "batch-48 loss not finite")
+    print(f"MSMP-PDE train step at batch {B}: loss {loss.item():.4f}, "
+          f"launches {nonzero(counts)}")
+    return counts
+
+
+def time_rollouts(engine, name):
+    """Phases 6 and 16: closed-loop rollout latency per bucket."""
+    import numpy as np
+
+    nx, T = engine.trainer.spec.nx, engine.trainer.tw
+    for B in BUCKETS:
+        w = np.random.default_rng(B).normal(size=(B, nx, T)).astype(
+            np.float32)
+        lats = []
+        for _ in range(ROLLOUT_SAMPLES):
+            t0 = time.perf_counter()
+            engine.rollout(w, n_windows=N_WINDOWS)
+            lats.append((time.perf_counter() - t0) * 1e3)
+        p50, p90 = np.percentile(lats, [50, 90])
+        print(f"{name} rollout bucket {B} x {N_WINDOWS} windows, closed "
+              f"loop, {ROLLOUT_SAMPLES} requests: p50 {p50:.3f} ms, p90 "
+              f"{p90:.3f} ms, {B * N_WINDOWS / p50 * 1e3:.1f} "
+              "sample-windows/s at p50")
+
+
+def time_train_steps(trainer, u_all, name):
+    """Phases 11 and 16: one optimizer step at batch 16, unrolled 0 and 1."""
+    import torch
+
+    dev = trainer.device
+    tx = trainer.make_optimizer(1e-4, 0.4, [1, 5, 10, 15], 250)
+    idx_b = torch.arange(TRAIN_BATCH, device=dev)
+    st = torch.full((TRAIN_BATCH,), 100, dtype=torch.int64, device=dev)
+    for f in (0, 1):
+        step = trainer.train_step_fn(tx, f)
+        ms = timed(lambda: step(u_all, {}, idx_b, st), reps=5)
+        print(f"{name} train step @batch {TRAIN_BATCH} unrolled={f}: "
+              f"{ms:.4f} ms, {TRAIN_BATCH / ms * 1e3:.1f} samples/s")
 
 
 def main():
@@ -425,8 +755,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from msmp_pde_torch.ops import _build, lem_scan, mp_pair
-    from msmp_pde_torch.serving import serve
+    from msmp_pde_torch.ops import _build, lem_scan, mp_layer, mp_pair
     from msmp_pde_torch.serving.engine import (
         RolloutEngine,
         build_serving_trainer,
@@ -501,70 +830,11 @@ def main():
     B = 16
     window = rand(B, nx, T)
     steps = torch.full((B,), T, dtype=torch.int64, device=dev)
-    with torch.no_grad():
-        out_k, _ = trainer.forward(window, steps, {})
-        out_p = reference_forward(
-            model, window, spec.x.expand(B, nx),
-            trainer.graph_vars(spec.t_grid[steps], {}), spec.idx, spec.mask)
-    torch.cuda.synchronize()
-    check(out_k.shape == (B, nx, T), f"model output {tuple(out_k.shape)}")
-    check(bool(torch.isfinite(out_k).all()), "model output not finite")
-    e = (out_k - out_p).abs().max().item()
-    print(f"MSMP-PDE forward B={B}: max |kernel path - plain path| = {e:.3e}"
-          f" (output max |.| {out_p.abs().max().item():.3e})")
-    check(e <= TOL_MODEL, f"model differs by {e:.3e} > {TOL_MODEL}")
+    check_model_forward(trainer, window, steps, "MSMP-PDE")
 
     # 5. the main path: HTTP rollout requests ----------------------------
-    from http.server import ThreadingHTTPServer
-
-    meta = {"backend": "cuda", "experiment": "E1", "model": "MSMP-PDE",
-            "buckets": list(BUCKETS)}
-    srv = ThreadingHTTPServer(("127.0.0.1", 0),
-                              serve.make_handler(engine, meta))
-    th = threading.Thread(target=srv.serve_forever, daemon=True)
-    th.start()
-    port = srv.server_address[1]
-    lem_scan.launches = 0
-    mp_pair.launches = 0
-    served = []
-    try:
-        for B, traj in ((1, False), (3, False), (16, False), (20, False),
-                        (4, True)):
-            w = np.random.default_rng(B).normal(size=(B, nx, T)).astype(
-                np.float32)
-            before = (lem_scan.launches, mp_pair.launches)
-            t0 = time.perf_counter()
-            got = serve.request_rollout("127.0.0.1", port, w,
-                                        n_windows=N_WINDOWS,
-                                        as_trajectory=traj)
-            lat = time.perf_counter() - t0
-            served.append((B, traj, w, got, lat,
-                           lem_scan.launches - before[0],
-                           mp_pair.launches - before[1]))
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        th.join()
-    main_lem, main_pair = lem_scan.launches, mp_pair.launches
-    print(f"main path launches: lem_fwd {main_lem}, mp_pair_fwd {main_pair}")
-    check(main_lem > 0 and main_pair > 0,
-          "a kernel of the path was not launched on the main path")
-    for B, traj, w, got, lat, d_lem, d_pair in served:
-        want_lem = N_WINDOWS * -(-B // BUCKETS[-1])  # windows x chunks
-        check(d_lem == want_lem and d_pair == 6 * want_lem,
-              f"B={B}: launches lem {d_lem} pair {d_pair}, expected "
-              f"{want_lem} and {6 * want_lem}")
-        shape = ((B, N_WINDOWS * T, 1, nx) if traj
-                 else (B, N_WINDOWS, nx, T))
-        check(got.shape == shape, f"B={B}: response {got.shape}")
-        check(bool(np.isfinite(got).all()), f"B={B}: not finite")
-        kw = dict(n_windows=N_WINDOWS)
-        direct = (engine.trajectory(w, **kw) if traj
-                  else engine.rollout(w, **kw))
-        check(np.array_equal(got, direct),
-              f"B={B}: served result differs from engine.rollout")
-        print(f"served B={B}{' trajectory' if traj else ''}: {got.shape}, "
-              f"{lat * 1e3:.3f} ms, launches lem {d_lem} pair {d_pair}")
+    main_counts = serve_path(engine, "MSMP-PDE")
+    main_lem, main_pair = main_counts["lem_fwd"], main_counts["mp_pair_fwd"]
 
     # 6. timings at the bucket-16 shapes ---------------------------------
     N = 16 * nx
@@ -607,19 +877,7 @@ def main():
         fwd_ms = timed(lambda: trainer.forward(window, steps, {}), reps=5)
     print(f"MSMP-PDE forward @bucket 16: {fwd_ms:.4f} ms (LEM 1 x "
           f"{lem_ms:.4f}, pairs 6 x {pair_ms:.4f})")
-    for B in BUCKETS:
-        w = np.random.default_rng(B).normal(size=(B, nx, T)).astype(
-            np.float32)
-        lats = []
-        for _ in range(ROLLOUT_SAMPLES):
-            t0 = time.perf_counter()
-            engine.rollout(w, n_windows=N_WINDOWS)
-            lats.append((time.perf_counter() - t0) * 1e3)
-        p50, p90 = np.percentile(lats, [50, 90])
-        print(f"rollout bucket {B} x {N_WINDOWS} windows, closed loop, "
-              f"{ROLLOUT_SAMPLES} requests: p50 {p50:.3f} ms, p90 "
-              f"{p90:.3f} ms, {B * N_WINDOWS / p50 * 1e3:.1f} "
-              "sample-windows/s at p50")
+    time_rollouts(engine, "MSMP-PDE")
 
     # 7-10. training: kernels vs plain, one step, the main path ----------
     e_stash, e_lbwd = check_lem_training_kernels(rand, T, H)
@@ -675,15 +933,117 @@ def main():
              pbwd_bound, pbwd_by)):
         print(f"{name} @batch 16: kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(CUDA graph; {ems:.4f} ms eager), bound {bms:.4f} ms ({by})")
-    tx = train_tr.make_optimizer(1e-4, 0.4, [1, 5, 10, 15], 250)
-    idx_b = torch.arange(TRAIN_BATCH, device=dev)
-    for f in (0, 1):
-        step = train_tr.train_step_fn(tx, f)
-        st = torch.full((TRAIN_BATCH,), 100, dtype=torch.int64, device=dev)
-        ms = timed(lambda: step(u_all, {}, idx_b, st), reps=5)
-        print(f"train step @batch {TRAIN_BATCH} unrolled={f}: {ms:.4f} ms, "
-              f"{TRAIN_BATCH / ms * 1e3:.1f} samples/s")
+    time_train_steps(train_tr, u_all, "MSMP-PDE")
     print(f"train_epoch (250 steps): {epoch_s:.3f} s")
+
+    # 12. the single-layer kernels vs plain, at MP-PDE's weights ---------
+    mp_tr = build_serving_trainer("E1", "MP-PDE", device=dev)
+    mp_params = params_from_flax(flax_tree(mp_tr.model, seed=1))
+    print(f"MP-PDE E1: {sum(v.numel() for v in mp_params.values())} "
+          "parameters")
+    mp_engine = RolloutEngine(mp_tr, mp_params, batch_buckets=BUCKETS)
+    e_lfwd, e_lbwd_layer = check_layer_kernels(
+        rand, mp_tr.model.gnn_0.weights(), spec, T, H, V)
+
+    # 13. the pair's stash variant and fallback route --------------------
+    e_pstash, e_fb, (args48, gn48, ln48, g48) = check_pair_fallback(
+        rand, train_tr.model, spec, T, H, V)
+    u48 = torch.as_tensor(smooth_trajectories(
+        48, spec.t_grid.cpu().numpy(), spec.x.cpu().numpy(), spec.L, seed=1),
+        device=dev)
+    fb_counts = fallback_step(train_tr, u48)
+    del u48
+
+    # 14. MP-PDE and LEM forwards; the served MP-PDE ---------------------
+    lem_tr = build_serving_trainer("E1", "LEM", device=dev)
+    lem_params = params_from_flax(flax_tree(lem_tr.model, seed=2))
+    lem_tr.model.load_state_dict(lem_params, strict=True)
+    check_model_forward(mp_tr, window, steps, "MP-PDE")
+    check_model_forward(lem_tr, window, steps, "LEM")
+    mp_counts = serve_path(mp_engine, "MP-PDE")
+
+    # 15. training MP-PDE and LEM; the MP-PDE epoch ----------------------
+    trainers = {}
+    for name, p in (("MP-PDE", mp_params), ("LEM", lem_params)):
+        trainers[name] = build_trainer("E1", name, device=dev)
+        trainers[name].model.load_state_dict(p, strict=True)
+        check_train_step(trainers[name], u_all, np.random.default_rng(1),
+                         name)
+    mp_train = trainers["MP-PDE"]
+    mp_train_counts, mp_epoch_s = train_main_path(mp_train, u_all, "MP-PDE")
+
+    # 16. timings of the slice's kernels and of MP-PDE -------------------
+    W1 = tuple(w.detach() for w in mp_tr.model.gnn_0.weights())
+    w_one = sum(w.numel() for w in W1)
+    largs16 = (*pair_args[16][:6], W1)
+    g16 = rand(16, nx, H)
+    with torch.no_grad():
+        lf_ms = timed(
+            lambda: mp_layer.fused_mp_layer_kernel(*largs16, True, True))
+        lf_eager_ms = timed(
+            lambda: mp_layer.fused_mp_layer_plain(*largs16, True, True))
+        lf_plain_ms = timed_graph(
+            lambda: mp_layer.fused_mp_layer_plain(*largs16, True, True))
+        lb_ms = timed(lambda: mp_layer.fused_mp_layer_bwd_kernel(
+            *largs16, g16, True, True))
+        lb_eager_ms = timed(lambda: mp_layer.fused_mp_layer_bwd_plain(
+            *largs16, g16, True, True))
+        lb_plain_ms = timed_graph(lambda: mp_layer.fused_mp_layer_bwd_plain(
+            *largs16, g16, True, True))
+        st_ms = timed(
+            lambda: mp_pair.fused_gated_pair_kernel(*args48, stash=True))
+        st_eager_ms = timed(
+            lambda: mp_pair.fused_gated_pair_plain(*args48, stash=True))
+        st_plain_ms = timed_graph(
+            lambda: mp_pair.fused_gated_pair_plain(*args48, stash=True))
+        pargs16 = (*pair_args[16][:6], *args48[6:])
+        st16_ms = timed(
+            lambda: mp_pair.fused_gated_pair_kernel(*pargs16, stash=True))
+        nost16_ms = timed(lambda: mp_pair.fused_gated_pair_kernel(*pargs16))
+        fused48_ms = timed(
+            lambda: mp_pair.fused_gated_pair_bwd_kernel(*args48, g48))
+        fb48_ms = timed(
+            lambda: mp_pair.fallback_bwd(*args48, gn48, ln48, g48))
+        # the same two routes at batch 16, where the fused one is taken
+        _, gn16, ln16 = mp_pair.fused_gated_pair_kernel(*pargs16, stash=True)
+        fused16_ms = timed(
+            lambda: mp_pair.fused_gated_pair_bwd_kernel(*pargs16, g16))
+        fb16_ms = timed(
+            lambda: mp_pair.fallback_bwd(*pargs16, gn16, ln16, g16))
+    # one layer as the pair counts one (plus the residual's read of h and
+    # final swish, elementwise); the backward as the pair's, for one layer
+    lf_bound, lf_by = bound(
+        4 * (16 * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_one),
+        16 * per_layer)
+    lb_bound, lb_by = bound(
+        4 * (16 * nx * (3 * H + D + 1 + V) + 2 * nx * K + 2 * w_one),
+        16 * (per_layer + bwd_layer))
+    # the pair forward at batch 48 with gn and ln written too
+    st_bound, st_by = bound(
+        4 * (48 * nx * (4 * H + D + 1 + V) + 2 * nx * K + w_elems),
+        48 * 2 * per_layer)
+    for name, at, ms, pms, ems, bms, by in (
+            ("mp_layer_fwd", "batch 16", lf_ms, lf_plain_ms, lf_eager_ms,
+             lf_bound, lf_by),
+            ("mp_layer_bwd", "batch 16", lb_ms, lb_plain_ms, lb_eager_ms,
+             lb_bound, lb_by),
+            ("mp_pair_fwd_stash", "batch 48", st_ms, st_plain_ms,
+             st_eager_ms, st_bound, st_by)):
+        print(f"{name} @{at}: kernel {ms:.4f} ms, plain {pms:.4f} ms "
+              f"(CUDA graph; {ems:.4f} ms eager), bound {bms:.4f} ms ({by})")
+    print(f"mp_pair_fwd @batch 16: stash {st16_ms:.4f} ms, no stash "
+          f"{nost16_ms:.4f} ms")
+    for at, fused_ms, fb_ms in ((48, fused48_ms, fb48_ms),
+                                (16, fused16_ms, fb16_ms)):
+        print(f"pair backward @batch {at}: fused kernel {fused_ms:.4f} ms, "
+              f"fallback route (combine + 2 x mp_layer_bwd) {fb_ms:.4f} ms")
+    with torch.no_grad():
+        mp_fwd_ms = timed(lambda: mp_tr.forward(window, steps, {}), reps=5)
+    print(f"MP-PDE forward @bucket 16: {mp_fwd_ms:.4f} ms (layers 6 x "
+          f"{lf_ms:.4f})")
+    time_rollouts(mp_engine, "MP-PDE")
+    time_train_steps(mp_train, u_all, "MP-PDE")
+    print(f"MP-PDE train_epoch (250 steps): {mp_epoch_s:.3f} s")
 
     kernels = [
         {"name": "lem_fwd", "route": "cuda",
@@ -716,6 +1076,24 @@ def main():
          "launches": train_launches["mp_pair_bwd"], "max_abs_err": e_pbwd,
          "ms": pbwd_ms, "plain_ms": pbwd_plain_ms, "bound_ms": pbwd_bound,
          "bound_by": pbwd_by, "library_ms": None},
+        {"name": "mp_layer_fwd", "route": "cuda",
+         "source": "msmp_pde_torch/csrc/mp_layer_fwd.cu",
+         "replaces": "msmp_pde_tpu/ops/mp_pallas.py:156",
+         "launches": mp_counts["mp_layer_fwd"], "max_abs_err": e_lfwd,
+         "ms": lf_ms, "plain_ms": lf_plain_ms, "bound_ms": lf_bound,
+         "bound_by": lf_by, "library_ms": None},
+        {"name": "mp_layer_bwd", "route": "cuda",
+         "source": "msmp_pde_torch/csrc/mp_layer_bwd.cu",
+         "replaces": "msmp_pde_tpu/ops/mp_pallas.py:228",
+         "launches": mp_train_counts["mp_layer_bwd"],
+         "max_abs_err": e_lbwd_layer, "ms": lb_ms, "plain_ms": lb_plain_ms,
+         "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": None},
+        {"name": "mp_pair_fwd_stash", "route": "cuda",
+         "source": "msmp_pde_torch/csrc/mp_pair_fwd.cu",
+         "replaces": "msmp_pde_tpu/ops/mp_pallas.py:260",
+         "launches": fb_counts["mp_pair_fwd_stash"], "max_abs_err": e_pstash,
+         "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": st_bound,
+         "bound_by": st_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

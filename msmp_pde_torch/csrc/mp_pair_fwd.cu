@@ -1,7 +1,11 @@
 // Fused gated message-passing pair, forward (float32).
 //
-// Replaces: msmp_pde_tpu/ops/mp_pallas.py::_pair_fwd_kernel (stash=False),
-// driven there by make_fused_pair._run_fwd and fused_gated_pair.
+// Replaces: msmp_pde_tpu/ops/mp_pallas.py::_pair_fwd_kernel, both variants,
+// driven there by make_fused_pair._run_fwd and fused_gated_pair. With STASH
+// (a template parameter) the kernel also writes gn and ln, the residuals of
+// the pair's fallback backward (two single-layer backwards, mp_layer_bwd.cu):
+// they are computed straight into the stash outputs instead of the scratch,
+// so the combine reads the same values and out is bitwise the same.
 //
 // For one graph, the gate layer and the main layer (both GNN_LayerLin) read
 // the same inputs h [nx,H], u [nx,D], px [nx], v [nx,V]; each computes
@@ -92,11 +96,13 @@ __device__ void layer(const LayerW& w, const float* h, const float* u,
   __syncthreads();
 }
 
+template <bool STASH>
 __global__ void __launch_bounds__(THREADS)
 mp_pair_fwd_kernel(const float* __restrict__ h, const float* __restrict__ u,
                    const float* __restrict__ px, const float* __restrict__ v,
                    const int* __restrict__ idx, const float* __restrict__ mask,
                    LayerW wg, LayerW wl, float* __restrict__ out,
+                   float* __restrict__ gn_out, float* __restrict__ ln_out,
                    float* scratch, int nx, int H, int D, int V, int K) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Ws[BK][BN];
@@ -109,9 +115,9 @@ mp_pair_fwd_kernel(const float* __restrict__ h, const float* __restrict__ u,
   float* sj = si + nx * H;
   float* agg = sj + nx * H;
   float* a3 = agg + nx * H;
-  float* gn = a3 + nx * H;
-  float* ln = gn + nx * H;
-  float* m2 = ln + nx * H;
+  float* gn = STASH ? gn_out + (size_t)b * nx * H : a3 + nx * H;
+  float* ln = STASH ? ln_out + (size_t)b * nx * H : a3 + 2 * nx * H;
+  float* m2 = a3 + 3 * nx * H;
   layer(wg, hb, ub, pxb, vb, idx, mask, si, sj, m2, agg, a3, gn, nx, H, D,
         V, K, As, Ws);
   layer(wl, hb, ub, pxb, vb, idx, mask, si, sj, m2, agg, a3, ln, nx, H, D,
@@ -125,13 +131,17 @@ mp_pair_fwd_kernel(const float* __restrict__ h, const float* __restrict__ u,
 
 }  // namespace
 
+// out, and with the stash gn and ln: [B, nx, H]; gn = ln = null selects
+// the variant without it. scratch: B * (6 nx + nx K) H floats.
 extern "C" int mp_pair_fwd(const float* h, const float* u, const float* px,
                            const float* v, const int* idx, const float* mask,
                            const void* const* wg, const void* const* wl,
-                           float* out, float* scratch, int B, int nx, int H,
-                           int D, int V, int K, void* stream) {
-  mp_pair_fwd_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      h, u, px, v, idx, mask, unpack(wg), unpack(wl), out, scratch, nx, H, D,
-      V, K);
+                           float* out, float* gn, float* ln, float* scratch,
+                           int B, int nx, int H, int D, int V, int K,
+                           void* stream) {
+  auto kernel = gn ? mp_pair_fwd_kernel<true> : mp_pair_fwd_kernel<false>;
+  kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+      h, u, px, v, idx, mask, unpack(wg), unpack(wl), out, gn, ln, scratch,
+      nx, H, D, V, K);
   return (int)cudaGetLastError();
 }

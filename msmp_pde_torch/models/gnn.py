@@ -1,5 +1,5 @@
-"""Message-passing PDE solver, MSMP-PDE configuration (counterpart of
-msmp_pde_tpu/models/gnn.py).
+"""Message-passing PDE solvers of the MP-PDE family (counterpart of
+msmp_pde_tpu/models/gnn.py): MP-PDE, Gated, LEM and MSMP-PDE.
 
 The graph is a dense per-node neighbour list ``idx``/``mask`` [nx, K]
 (data/graph.py); message passing is a gather over the K axis and a masked
@@ -18,7 +18,7 @@ from msmp_pde_torch.models.common import (
     uniform_param,
 )
 from msmp_pde_torch.models.lem import LEM
-from msmp_pde_torch.ops import mp_pair
+from msmp_pde_torch.ops import mp_layer, mp_pair
 
 _ROADMAP = "not ported yet (ROADMAP.md Queue 1 item 11)"
 
@@ -42,11 +42,14 @@ class FactorizedEdgeDense(nn.Module):
 
 
 class GNNLayer(nn.Module):
-    """One GNN_LayerLin (no final activation, no residual)."""
+    """One message-passing layer: GNN_Layer with ``final_act`` and
+    ``residual`` (the ungated models), GNN_LayerLin with neither."""
 
     def __init__(self, hidden: int, dtw: int, V: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, final_act: bool = False,
+                 residual: bool = False):
         super().__init__()
+        self.final_act, self.residual = final_act, residual
         self.FactorizedEdgeDense_0 = FactorizedEdgeDense(hidden, dtw, V,
                                                          generator)
         self.TorchDense_0 = Dense(hidden, hidden, generator)
@@ -61,19 +64,25 @@ class GNNLayer(nn.Module):
                 self.TorchDense_2.kernel, self.TorchDense_2.bias)
 
     def forward(self, h, u, px, variables, idx, mask):
-        """h [B, nx, H], px [B, nx] -> [B, nx, H]."""
-        return mp_pair.layer_plain(h, u, px[..., None], variables, idx, mask,
-                                   self.weights())
+        """h [B, nx, H], px [B, nx] -> [B, nx, H]; on CUDA tensors through
+        the layer kernels (ops/mp_layer.py)."""
+        return mp_layer.fused_mp_layer(h, u, px[..., None], variables, idx,
+                                       mask, self.weights(), self.final_act,
+                                       self.residual)
 
 
 class MPSolver(nn.Module):
-    """Encode (LEM over the window) - process (sigmoid-gated pairs) - decode
-    (two-conv CNN). forward(window [B, nx, tw], pos_x [B, nx], t [B],
-    var_vec [B, V], idx, mask) -> (out [B, nx, tw], None).
+    """Encode - process - decode (two-conv CNN). forward(window [B, nx, tw],
+    pos_x [B, nx], t [B], var_vec [B, V], idx, mask) -> (out [B, nx, tw],
+    None).
 
-    CUDA tensors go through the kernels, CPU tensors through their plain
-    PyTorch versions; with grad, the LEM scan and each gated pair go
-    through their autograd Functions (ops/lem_scan.py, ops/mp_pair.py)."""
+    The encoder is an MLP on [window, px, variables] (``mlp``) or the LEM
+    over the window (``lem``); the processor is six GNN_Layers with final
+    swish and residual (gate ``none``) or six sigmoid-gated pairs of
+    GNN_LayerLins (gate ``sigmoid``). CUDA tensors go through the kernels,
+    CPU tensors through their plain PyTorch versions; with grad, the LEM
+    scan, each layer and each gated pair go through their autograd
+    Functions (ops/lem_scan.py, ops/mp_layer.py, ops/mp_pair.py)."""
 
     def __init__(self, tw: int, *, n_vars: int, hidden: int = 128,
                  layers: int = 6, n_components: int = 1,
@@ -81,7 +90,8 @@ class MPSolver(nn.Module):
                  decoder: str = "cnn", L: float = 16.0, tmax: float = 4.0,
                  dt: float = 4.0 / 249, seed: int = 0):
         super().__init__()
-        if encoder != "lem" or gate != "sigmoid" or decoder != "cnn":
+        if (encoder not in ("mlp", "lem") or gate not in ("none", "sigmoid")
+                or decoder != "cnn"):
             raise NotImplementedError(
                 f"MPSolver(encoder={encoder!r}, gate={gate!r}, "
                 f"decoder={decoder!r}) is {_ROADMAP}")
@@ -89,13 +99,22 @@ class MPSolver(nn.Module):
             raise NotImplementedError(f"2-component systems are {_ROADMAP}")
         g = torch.Generator().manual_seed(seed)
         self.tw, self.hidden, self.layers = tw, hidden, layers
+        self.encoder, self.gated = encoder, gate == "sigmoid"
         self.L, self.tmax, self.dt = L, tmax, dt
-        self.embedding_lem = LEM(2 + n_vars, hidden, g)
-        self.lemout_1 = Dense(hidden, hidden, g)
-        self.lemout_2 = Dense(hidden, hidden, g)
+        if encoder == "lem":
+            self.embedding_lem = LEM(2 + n_vars, hidden, g)
+            self.lemout_1 = Dense(hidden, hidden, g)
+            self.lemout_2 = Dense(hidden, hidden, g)
+        else:
+            self.embed_1 = Dense(tw + 1 + n_vars, hidden, g)
+            self.embed_2 = Dense(hidden, hidden, g)
+        plain = not self.gated  # ungated stacks use GNN_Layer (gnn.py:341-348)
         for i in range(layers):
-            self.add_module(f"gnn_{i}", GNNLayer(hidden, tw, n_vars, g))
-            self.add_module(f"gate_{i}", GNNLayer(hidden, tw, n_vars, g))
+            self.add_module(f"gnn_{i}", GNNLayer(hidden, tw, n_vars, g,
+                                                 plain, plain))
+            if self.gated:
+                self.add_module(f"gate_{i}",
+                                GNNLayer(hidden, tw, n_vars, g))
         self.output_mlp = WindowDecoder(tw, hidden, g)
 
     def forward(self, window, pos_x, t, var_vec, idx, mask, lem_state=None):
@@ -106,16 +125,22 @@ class MPSolver(nn.Module):
         px_n = pos_x / self.L
         variables = var_vec[:, None, :].expand(B, nx, V)
         h = self._encode(window, px_n, variables)
-        px_col = px_n[..., None]
         for i in range(self.layers):
-            h = mp_pair.fused_gated_pair(
-                h, window, px_col, variables, idx, mask,
-                getattr(self, f"gate_{i}").weights(),
-                getattr(self, f"gnn_{i}").weights())
+            layer = getattr(self, f"gnn_{i}")
+            if self.gated:
+                h = mp_pair.fused_gated_pair(
+                    h, window, px_n[..., None], variables, idx, mask,
+                    getattr(self, f"gate_{i}").weights(), layer.weights())
+            else:
+                h = layer(h, window, px_n, variables, idx, mask)
         return self._decode(h, window), None
 
     def _encode(self, window, px_n, variables):
-        """Per-step LEM input [px_n, u_k, variables] over the tw axis."""
+        """MLP on [window, px_n, variables] (gnn.py:427-431), or the LEM over
+        the per-step inputs [px_n, u_k, variables] along the tw axis."""
+        if self.encoder == "mlp":
+            node_in = torch.cat([window, px_n[..., None], variables], -1)
+            return swish(self.embed_2(swish(self.embed_1(node_in))))
         B, nx, tw = window.shape
         seq = torch.cat([
             px_n[None, ..., None].expand(tw, B, nx, 1),

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("lem_fwd", "lem_bwd", "mp_pair_fwd", "mp_pair_bwd")
+SOURCES = ("lem_fwd", "lem_bwd", "mp_pair_fwd", "mp_pair_bwd", "mp_layer_fwd",
+           "mp_layer_bwd")
 
 _lock = threading.Lock()
 _libs = {}

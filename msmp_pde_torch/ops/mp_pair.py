@@ -5,107 +5,49 @@ msmp_pde_tpu/ops/mp_pallas.py::fused_gated_pair and its custom VJP).
 and ``csrc/mp_pair_bwd.cu`` on CUDA tensors and the plain PyTorch versions
 ``fused_gated_pair_plain`` / ``fused_gated_pair_bwd_plain`` on CPU tensors.
 With grad enabled it goes through the ``torch.autograd.Function``
-``FusedGatedPair``, which saves its inputs and recomputes in the backward,
-as the TPU's fused pair backward does. A layer's weights are the 12-tuple
-``(w_hi, w_hj, w_du, w_dx, w_v, b1, w2, b2, w3, b3, w4, b4)`` in the flax
-layout (models/gnn.py::GNNLayer.weights).
+``FusedGatedPair``. Its backward takes one of two routes, chosen per shape
+as the TPU's VJP chooses (mp_pallas.py:700-730):
+- the fused backward, which recomputes both layers from the saved inputs;
+- where that does not fit (``pair_bwd_fused_fits``), the fallback: the
+  forward's stash variant also returns the layers' normalized outputs gn
+  and ln, the combine is differentiated in torch ops, and each layer's
+  backward is one single-layer backward (ops/mp_layer.py).
+Both layers are GNN_LayerLin (no final activation, no residual). A layer's
+weights are the 12-tuple ``(w_hi, w_hj, w_du, w_dx, w_v, b1, w2, b2, w3,
+b3, w4, b4)`` in the flax layout (models/gnn.py::GNNLayer.weights).
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from msmp_pde_torch.models.common import swish
-from msmp_pde_torch.ops import _build
+from msmp_pde_torch.ops import _build, mp_layer
+from msmp_pde_torch.ops.mp_layer import (
+    _dswish,
+    _instnorm_bwd,
+    _kernel_inputs,
+    _layer_backward,
+    _layer_forward,
+    _lib,
+    _ptrs,
+    _split_grads,
+    _weight_shapes,
+    fused_mp_layer_plain,
+)
 
-launches = 0      # forward kernel launches since the last reset
-bwd_launches = 0  # backward kernel launches since the last reset
-
-
-def _dswish(x):
-    s = torch.sigmoid(x)
-    return s * (1.0 + x * (1.0 - s))
-
-
-def _instnorm(o, eps: float = 1e-5):
-    """Per-graph, per-feature InstanceNorm over the node axis of [B, nx, H]
-    (biased variance) -> (normalized, rsqrt factors [B, 1, H])."""
-    mean = o.mean(dim=1, keepdim=True)
-    var = ((o - mean) ** 2).mean(dim=1, keepdim=True)
-    rs = torch.rsqrt(var + eps)
-    return (o - mean) * rs, rs
-
-
-def _instnorm_bwd(g, xh, rs):
-    return rs * (g - g.mean(dim=1, keepdim=True)
-                 - xh * (g * xh).mean(dim=1, keepdim=True))
+launches = 0        # forward kernel launches since the last reset
+stash_launches = 0  # of which with the gn/ln stash
+bwd_launches = 0    # fused backward kernel launches since the last reset
 
 
-def _layer_forward(h, u, px, v, idx, mask, W):
-    """One GNN_LayerLin: h [B, nx, H], u [B, nx, D], px [B, nx, 1],
-    v [B, nx, V], idx/mask [nx, K] -> (normalized output, rsqrt factors,
-    the intermediates its backward reads)."""
-    (w_hi, w_hj, w_du, w_dx, w_v, b1, w2, b2, w3, b3, w4, b4) = W
-    mix = u @ w_du + px @ w_dx
-    s_i = h @ w_hi + mix + v @ w_v + b1
-    s_j = h @ w_hj - mix
-    m0 = s_i[:, :, None, :] + s_j[:, idx.long()]  # [B, nx, K, H]
-    m1 = swish(m0)
-    z2 = m1 @ w2 + b2
-    deg = torch.clamp(mask.sum(-1), min=1.0)
-    agg = (swish(z2) * mask[None, :, :, None]).sum(2) / deg[None, :, None]
-    x3 = torch.cat([h, agg, v], dim=-1)
-    z3 = x3 @ w3 + b3
-    a3 = swish(z3)
-    xh, rs = _instnorm(a3 @ w4 + b4)
-    return xh, rs, (m0, m1, z2, x3, z3, a3)
-
-
-def layer_plain(h, u, px, v, idx, mask, W):
-    """One GNN_LayerLin -> normalized output [B, nx, H]."""
-    return _layer_forward(h, u, px, v, idx, mask, W)[0]
-
-
-def _layer_backward(dxo, h, u, px, v, idx, mask, W, saved):
-    """Backward through the layer math (pre-norm), mp_pallas.py:185-225:
-    dxo is the cotangent of the pre-norm output. Returns (dh, 12 weight
-    gradients summed over the batch, in parameter shapes)."""
-    (w_hi, w_hj, w_du, w_dx, w_v, b1, w2, b2, w3, b3, w4, b4) = W
-    m0, m1, z2, x3, z3, a3 = saved
-    B, nx, H = h.shape
-    K = idx.shape[-1]
-    rows = lambda x: x.reshape(-1, x.shape[-1])
-    outer = lambda a, b: rows(a).T @ rows(b)
-    colsum = lambda x: rows(x).sum(0)
-    dw4, db4 = outer(a3, dxo), colsum(dxo)
-    dz3 = (dxo @ w4.T) * _dswish(z3)
-    dw3, db3 = outer(x3, dz3), colsum(dz3)
-    dh = dz3 @ w3[:H].T
-    dagg = dz3 @ w3[H:2 * H].T
-    deg = torch.clamp(mask.sum(-1), min=1.0)
-    dz2 = (dagg[:, :, None, :] * (mask / deg[:, None])[None, :, :, None]
-           * _dswish(z2))
-    dw2, db2 = outer(m1, dz2), colsum(dz2)
-    dm0 = (dz2 @ w2.T) * _dswish(m0)
-    ds_i = dm0.sum(2)
-    # the masked gather's transpose: each valid edge (i, k) adds into idx[i, k]
-    ds_j = torch.zeros_like(ds_i).index_add_(
-        1, idx.reshape(-1).long(),
-        (dm0 * mask[None, :, :, None]).reshape(B, nx * K, H))
-    dh = dh + ds_i @ w_hi.T + ds_j @ w_hj.T
-    dmix = ds_i - ds_j
-    dws = (outer(h, ds_i), outer(h, ds_j), outer(u, dmix), outer(px, dmix),
-           outer(v, ds_i), colsum(ds_i), dw2, db2, dw3, db3, dw4, db4)
-    return dh, dws
-
-
-def fused_gated_pair_plain(h, u, px, v, idx, mask, Wg, Wl):
+def fused_gated_pair_plain(h, u, px, v, idx, mask, Wg, Wl, stash=False):
     """(1 - sigmoid(gn)) h + sigmoid(gn) swish(ln) with gn/ln the gate and
-    main layers' normalized outputs."""
-    tau = torch.sigmoid(layer_plain(h, u, px, v, idx, mask, Wg))
-    ln = layer_plain(h, u, px, v, idx, mask, Wl)
-    return (1.0 - tau) * h + tau * swish(ln)
+    main layers' normalized outputs; with ``stash`` returns (out, gn, ln)."""
+    gn = fused_mp_layer_plain(h, u, px, v, idx, mask, Wg)
+    ln = fused_mp_layer_plain(h, u, px, v, idx, mask, Wl)
+    tau = torch.sigmoid(gn)
+    out = (1.0 - tau) * h + tau * swish(ln)
+    return (out, gn, ln) if stash else out
 
 
 def fused_gated_pair_bwd_plain(h, u, px, v, idx, mask, Wg, Wl, g):
@@ -126,73 +68,48 @@ def fused_gated_pair_bwd_plain(h, u, px, v, idx, mask, Wg, Wl, g):
     return g * (1.0 - tau) + dh_g + dh_l, dwg, dwl
 
 
+def fallback_bwd(h, u, px, v, idx, mask, Wg, Wl, gn, ln, g):
+    """The fallback backward from the stashed gn, ln (mp_pallas.py:
+    716-730): the combine's backward in torch ops, then one single-layer
+    backward per layer (kernels on CUDA tensors). Returns (dh, gate
+    12-tuple, main 12-tuple)."""
+    tau = torch.sigmoid(gn)
+    dgn = g * (swish(ln) - h) * tau * (1.0 - tau)
+    dln = g * tau * _dswish(ln)
+    dh_g, dwg = mp_layer.layer_backward(h, u, px, v, idx, mask, Wg, dgn,
+                                        False, False)
+    dh_l, dwl = mp_layer.layer_backward(h, u, px, v, idx, mask, Wl, dln,
+                                        False, False)
+    return g * (1.0 - tau) + dh_g + dh_l, dwg, dwl
+
+
 # ---- the kernels ---------------------------------------------------------
-def _lib(name):
-    lib = _build.load(name)
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn = getattr(lib, name)
-        if name == "mp_pair_fwd":
-            fn.argtypes = [p] * 10 + [i] * 6 + [p]
-        else:
-            fn.argtypes = [p] * 13 + [i] * 6 + [p]
-            lib.mp_pair_bwd_scratch_floats.argtypes = [i] * 5
-            lib.mp_pair_bwd_scratch_floats.restype = ctypes.c_long
-        fn.restype = i
-        lib._typed = True
-    return lib
+def pair_bwd_fused_fits(B, nx, H, D, V, K, device) -> bool:
+    """Whether the fused backward takes this shape: true when its working
+    set, B graphs of scratch and 2 x 12 weight-gradient partials, fits the
+    card's L2, so that its recompute order keeps the working set on chip
+    (the analogue of the TPU's VMEM fit, which decides the same choice
+    there). True on the CPU, whose plain versions have no such limit."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    per_graph = (_lib("mp_pair_bwd").mp_pair_bwd_scratch_floats(nx, H, D, V,
+                                                                K)
+                 + 2 * sum(torch.Size(s).numel()
+                           for s in _weight_shapes(H, D, V)))
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    return B * per_graph * 4 <= l2
 
 
-def _f32_cuda(name, x, shape):
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"fused_gated_pair: {name} is {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_cuda or x.dtype != torch.float32:
-        raise ValueError(f"fused_gated_pair kernel: {name} must be a "
-                         "float32 CUDA tensor")
-    return x.contiguous()
-
-
-def _weight_shapes(H, D, V):
-    return [(H, H), (H, H), (D, H), (1, H), (V, H), (H,), (H, H), (H,),
-            (2 * H + V, H), (H,), (H, H), (H,)]
-
-
-def _weights(W, H, D, V, tag):
-    if len(W) != 12:
-        raise ValueError("fused_gated_pair: a layer has 12 weight tensors")
-    return [_f32_cuda(f"{tag}[{k}]", w, s)
-            for k, (w, s) in enumerate(zip(W, _weight_shapes(H, D, V)))]
-
-
-def _kernel_inputs(h, u, px, v, idx, mask, Wg, Wl):
-    """Checked contiguous float32 CUDA operands, idx as int32."""
-    B, nx, H = h.shape
-    D, V, K = u.shape[-1], v.shape[-1], idx.shape[-1]
-    h = _f32_cuda("h", h, (B, nx, H))
-    u = _f32_cuda("u", u, (B, nx, D))
-    px = _f32_cuda("px", px, (B, nx, 1))
-    v = _f32_cuda("v", v, (B, nx, V))
-    mask = _f32_cuda("mask", mask, (nx, K))
-    if tuple(idx.shape) != (nx, K) or idx.device != h.device:
-        raise ValueError("fused_gated_pair kernel: idx must be [nx, K] on "
-                         "the inputs' device")
-    idx = idx.to(torch.int32).contiguous()
-    wg = _weights(Wg, H, D, V, "Wg")
-    wl = _weights(Wl, H, D, V, "Wl")
-    return (h, u, px, v, idx, mask, wg, wl), (B, nx, H, D, V, K)
-
-
-def _ptrs(ws):
-    return (ctypes.c_void_p * 12)(*[w.data_ptr() for w in ws])
-
-
-def fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl):
-    """Launch ``csrc/mp_pair_fwd.cu``; raises on anything it does not take."""
-    global launches
-    (h, u, px, v, idx, mask, wg, wl), (B, nx, H, D, V, K) = _kernel_inputs(
-        h, u, px, v, idx, mask, Wg, Wl)
+def fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl, stash=False):
+    """Launch ``csrc/mp_pair_fwd.cu``; raises on anything it does not take.
+    With ``stash`` returns (out, gn, ln)."""
+    global launches, stash_launches
+    (h, u, px, v, idx, mask), (wg, wl), (B, nx, H, D, V, K) = \
+        _kernel_inputs("fused_gated_pair", h, u, px, v, idx, mask, Wg, Wl)
     out = torch.empty_like(h)
+    gn, ln = (torch.empty_like(h), torch.empty_like(h)) if stash else (
+        None, None)
     scratch = torch.empty(B * (6 * nx + nx * K) * H, device=h.device,
                           dtype=torch.float32)
     # The launch copies the pointer arrays into the kernel's arguments. The
@@ -203,9 +120,14 @@ def fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl):
         err = _lib("mp_pair_fwd").mp_pair_fwd(
             h.data_ptr(), u.data_ptr(), px.data_ptr(), v.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), _ptrs(wg), _ptrs(wl),
-            out.data_ptr(), scratch.data_ptr(), B, nx, H, D, V, K, stream)
+            out.data_ptr(), gn.data_ptr() if stash else None,
+            ln.data_ptr() if stash else None, scratch.data_ptr(), B, nx, H,
+            D, V, K, stream)
     _build.check(err, "mp_pair_fwd")
     launches += 1
+    if stash:
+        stash_launches += 1
+        return out, gn, ln
     return out
 
 
@@ -214,11 +136,10 @@ def fused_gated_pair_bwd_kernel(h, u, px, v, idx, mask, Wg, Wl, g):
     reduction of the per-graph weight gradients); raises on anything it
     does not take. Returns (dh, gate 12-tuple, main 12-tuple)."""
     global bwd_launches
-    (h, u, px, v, idx, mask, wg, wl), (B, nx, H, D, V, K) = _kernel_inputs(
-        h, u, px, v, idx, mask, Wg, Wl)
-    g = _f32_cuda("g", g, (B, nx, H))
-    shapes = _weight_shapes(H, D, V)
-    per_layer = sum(torch.Size(s).numel() for s in shapes)
+    (h, u, px, v, idx, mask), (wg, wl), (B, nx, H, D, V, K) = \
+        _kernel_inputs("fused_gated_pair", h, u, px, v, idx, mask, Wg, Wl)
+    g = mp_layer._f32_cuda("fused_gated_pair", "g", g, (B, nx, H))
+    per_layer = sum(torch.Size(s).numel() for s in _weight_shapes(H, D, V))
     lib = _lib("mp_pair_bwd")
     f32 = dict(device=h.device, dtype=torch.float32)
     dh = torch.empty_like(h)
@@ -235,19 +156,15 @@ def fused_gated_pair_bwd_kernel(h, u, px, v, idx, mask, Wg, Wl, g):
             scratch.data_ptr(), B, nx, H, D, V, K, stream)
     _build.check(err, "mp_pair_bwd")
     bwd_launches += 1
-    grads, off = [], 0
-    for s in shapes + shapes:
-        n = torch.Size(s).numel()
-        grads.append(dw[off:off + n].view(s))
-        off += n
-    return dh, tuple(grads[:12]), tuple(grads[12:])
+    dwg, dwl = _split_grads(dw, H, D, V, 2)
+    return dh, dwg, dwl
 
 
 # ---- dispatch and autograd -----------------------------------------------
-def _forward(h, u, px, v, idx, mask, Wg, Wl):
+def _forward(h, u, px, v, idx, mask, Wg, Wl, stash=False):
     if h.is_cuda:
-        return fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl)
-    return fused_gated_pair_plain(h, u, px, v, idx, mask, Wg, Wl)
+        return fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl, stash)
+    return fused_gated_pair_plain(h, u, px, v, idx, mask, Wg, Wl, stash)
 
 
 def _backward(h, u, px, v, idx, mask, Wg, Wl, g):
@@ -260,17 +177,31 @@ class FusedGatedPair(torch.autograd.Function):
     """apply(h, u, px, v, idx, mask, *Wg, *Wl): the 24 weights are separate
     arguments so that autograd sees each. The backward returns dh and the
     24 weight gradients; u, px, v, idx and mask get none (the TPU VJP
-    returns zeros for them, mp_pallas.py:715)."""
+    returns zeros for them, mp_pallas.py:715). Where the fused backward
+    does not fit, the forward stashes gn and ln for the fallback."""
 
     @staticmethod
     def forward(ctx, h, u, px, v, idx, mask, *W):
-        ctx.save_for_backward(h, u, px, v, idx, mask, *W)
-        return _forward(h, u, px, v, idx, mask, W[:12], W[12:])
+        B, nx, H = h.shape
+        ctx.fused = pair_bwd_fused_fits(B, nx, H, u.shape[-1], v.shape[-1],
+                                        idx.shape[-1], h.device)
+        if ctx.fused:
+            ctx.save_for_backward(h, u, px, v, idx, mask, *W)
+            return _forward(h, u, px, v, idx, mask, W[:12], W[12:])
+        out, gn, ln = _forward(h, u, px, v, idx, mask, W[:12], W[12:],
+                               stash=True)
+        ctx.save_for_backward(h, u, px, v, idx, mask, *W, gn, ln)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        h, u, px, v, idx, mask, *W = ctx.saved_tensors
-        dh, dwg, dwl = _backward(h, u, px, v, idx, mask, W[:12], W[12:], g)
+        h, u, px, v, idx, mask, *rest = ctx.saved_tensors
+        Wg, Wl = rest[:12], rest[12:24]
+        if ctx.fused:
+            dh, dwg, dwl = _backward(h, u, px, v, idx, mask, Wg, Wl, g)
+        else:
+            dh, dwg, dwl = fallback_bwd(h, u, px, v, idx, mask, Wg, Wl,
+                                        *rest[24:], g)
         return (dh, None, None, None, None, None) + tuple(dwg) + tuple(dwl)
 
 

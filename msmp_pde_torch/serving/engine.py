@@ -5,8 +5,9 @@ Requests are padded up to the nearest batch bucket (oversize requests are
 chunked over the largest), and the horizon runs as an eager loop of
 ``Trainer.forward`` calls under ``torch.inference_mode``, the windows
 advancing by the pushforward rule (``data.graph.advance_windows``). On the
-card each forward goes through the LEM-scan kernel once and the fused
-gated-pair kernel once per pair.
+card each forward goes through the LEM-scan kernel once (LEM encoders) and
+the fused gated-pair kernel once per pair (gated models) or the
+single-layer kernel once per layer (ungated models).
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ Protocol (stdlib only, npz over HTTP):
   ``preds`` [B, n_windows, nx, d*tw], or ``trajectory`` [B, n_windows*tw,
   d, nx] when ``format=trajectory``.
 
+``--model`` is a ported registry name (MSMP-PDE, Gated, MP-PDE, LEM).
 ``--checkpoint`` is an ``.npz`` keyed by ``/``-joined flax paths
 (utils/convert.py). Device work is serialized through a lock (one card).
 """
@@ -292,7 +293,7 @@ def main(args):
 def build_parser():
     import argparse
 
-    p = argparse.ArgumentParser(description="MSMP-PDE rollout server")
+    p = argparse.ArgumentParser(description="MP-PDE family rollout server")
     p.add_argument("--experiment", type=str, required=True)
     p.add_argument("--model", type=str, default="MSMP-PDE")
     p.add_argument("--checkpoint", type=str, required=True,

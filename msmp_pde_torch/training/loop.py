@@ -6,8 +6,9 @@ the device, rolls the model forward ``unrolled`` times under
 ``torch.no_grad`` (the pushforward), takes the loss
 ``sqrt(sum((pred - labels)**2))`` on the next window, backpropagates and
 applies AdamW. On the card the forward with grad runs the stash variant
-of the LEM-scan kernel and the fused-pair forward kernel, and the backward
-the LEM-scan and fused-pair backward kernels. The JAX package runs a whole
+of the LEM-scan kernel and the fused-pair or single-layer forward kernels,
+and the backward the matching backward kernels (the pair's through the
+single-layer backward where its fused backward does not fit). The JAX package runs a whole
 pass as one jitted scan; here it is a Python loop over eager steps.
 """
 from __future__ import annotations

@@ -12,7 +12,8 @@ T*N rows) atol 1e-5 * max|ref|; the pair's gradients and a training step's
 parameter gradients the scale-aware max|diff| <= max(1e-3 max|ref|, 2e-4),
 where b4's gradient, analytically zero and roundoff on both sides, takes
 its layer's w4 gradient's scale (chip_smoke.scale_aware); a step's loss
-relative 1e-4.
+relative 1e-4. The single-layer kernels take the pair's tolerances: the
+forward 1e-4, the backward the scale-aware bound, bitwise repeatable.
 """
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ import torch
 
 from msmp_pde_torch.data.graph import build_neighbors_radius
 from msmp_pde_torch.models.gnn import GNNLayer
-from msmp_pde_torch.ops import lem_scan, mp_pair
+from msmp_pde_torch.ops import lem_scan, mp_layer, mp_pair
 from msmp_pde_torch.serving.engine import build_serving_trainer
 from msmp_pde_torch.training.setup import build_trainer
 
@@ -194,3 +195,119 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device, unrolled):
     for name, a, b in zip(names, grads_k, grads_p):
         ok, err = scale_aware(a, b, scales[name])
         assert ok, (name, err, scales[name])
+
+
+LAYER_CASES = [(B, 100, 128, 1, 3, fa) for B in (1, 4, 16) for fa in (True,
+                                                                        False)]
+LAYER_CASES += [(2, 40, 96, 3, 2, True), (2, 40, 96, 3, 2, False)]
+
+
+def _layer_args(dev, B, nx, H, V, n, switch, seed):
+    rng = np.random.default_rng(seed)
+    D = 25
+    idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
+    g = torch.Generator().manual_seed(seed)
+    W = tuple(w.detach() for w in GNNLayer(H, D, V, g, switch, switch)
+              .to(dev).weights())
+    r = lambda *s: _rand(rng, dev, *s)
+    return (r(B, nx, H), r(B, nx, D), r(B, nx, 1), r(B, nx, V),
+            torch.as_tensor(idx, device=dev),
+            torch.as_tensor(mask, device=dev), W)
+
+
+@pytest.mark.parametrize("B,nx,H,V,n,switch", LAYER_CASES)
+def test_layer_kernels_match_plain(cuda_device, B, nx, H, V, n, switch):
+    """final_act = residual = switch; the last cases have a width that no
+    64-column tile divides."""
+    args = _layer_args(cuda_device, B, nx, H, V, n, switch, 300 + B)
+    before = (mp_layer.launches, mp_layer.bwd_launches)
+    got = mp_layer.fused_mp_layer_kernel(*args, switch, switch)
+    want = mp_layer.fused_mp_layer_plain(*args, switch, switch)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    g = _rand(np.random.default_rng(B), cuda_device, *got.shape)
+    flat = lambda res: [res[0], *res[1]]
+    k1 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
+    k2 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
+    p = flat(mp_layer.fused_mp_layer_bwd_plain(*args, g, switch, switch))
+    assert (mp_layer.launches, mp_layer.bwd_launches) == (
+        before[0] + 1, before[1] + 2)
+    for k, (a, b, c) in enumerate(zip(k1, k2, p)):
+        assert torch.equal(a, b), k
+        # without final_act, b4's gradient (output 12) is roundoff only
+        scale = p[11].abs().max().item() if k == 12 and not switch else None
+        assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_pair_stash_matches_no_stash(cuda_device, B):
+    args = _layer_args(cuda_device, B, 100, 128, 1, 3, False, 400 + B)
+    Wl = _layer_args(cuda_device, B, 100, 128, 1, 3, False, 500 + B)[-1]
+    args = args + (Wl,)
+    before = (mp_pair.launches, mp_pair.stash_launches)
+    out, gn, ln = mp_pair.fused_gated_pair_kernel(*args, stash=True)
+    assert torch.equal(out, mp_pair.fused_gated_pair_kernel(*args))
+    assert (mp_pair.launches, mp_pair.stash_launches) == (
+        before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(
+        gn, mp_layer.fused_mp_layer_plain(*args[:6], args[6]), rtol=1e-4,
+        atol=1e-4)
+    torch.testing.assert_close(
+        ln, mp_layer.fused_mp_layer_plain(*args[:6], args[7]), rtol=1e-4,
+        atol=1e-4)
+
+
+def test_pair_fallback_route_at_batch_48(cuda_device):
+    """Batch 48 does not fit the fused backward: one stash forward, two
+    single-layer backwards, no fused backward; its gradients hold against
+    the fused plain backward."""
+    args = _layer_args(cuda_device, 48, 100, 128, 1, 3, False, 600)
+    Wl = _layer_args(cuda_device, 48, 100, 128, 1, 3, False, 601)[-1]
+    h, u, px, v, idx, mask, Wg = args
+    K = idx.shape[1]
+    assert not mp_pair.pair_bwd_fused_fits(48, 100, 128, 25, 1, K,
+                                           cuda_device)
+    assert mp_pair.pair_bwd_fused_fits(16, 100, 128, 25, 1, K, cuda_device)
+    g = _rand(np.random.default_rng(48), cuda_device, *h.shape)
+    hg = h.clone().requires_grad_()
+    ws = [w.clone().requires_grad_() for w in Wg + Wl]
+    before = (mp_pair.launches, mp_pair.stash_launches, mp_pair.bwd_launches,
+              mp_layer.bwd_launches)
+    out = mp_pair.fused_gated_pair(hg, u, px, v, idx, mask, ws[:12], ws[12:])
+    got = torch.autograd.grad(out, [hg] + ws, g)
+    after = (mp_pair.launches, mp_pair.stash_launches, mp_pair.bwd_launches,
+             mp_layer.bwd_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 2)
+    dh, dwg, dwl = mp_pair.fused_gated_pair_bwd_plain(*args, Wl, g)
+    want = [dh, *dwg, *dwl]
+    for k, (a, b) in enumerate(zip(got, want)):
+        scale = want[k - 1].abs().max().item() if k % 12 == 0 and k else None
+        assert scale_aware(a, b, scale)[0], (k, scale_aware(a, b, scale))
+
+
+@pytest.mark.parametrize("name", ["MP-PDE", "LEM"])
+def test_ungated_model_kernel_path_matches_plain_path(cuda_device, name):
+    trainer = build_serving_trainer("E1", name, device=cuda_device)
+    rng = np.random.default_rng(1)
+    window = _rand(rng, cuda_device, 4, 100, 25)
+    steps = torch.full((4,), 25, device=cuda_device)
+    spec = trainer.spec
+    before = mp_layer.launches
+    with torch.no_grad():
+        got, _ = trainer.forward(window, steps, {})
+        want = reference_forward(
+            trainer.model, window, spec.x.expand(4, spec.nx),
+            trainer.graph_vars(spec.t_grid[steps], {}), spec.idx, spec.mask)
+    assert mp_layer.launches == before + 6
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+def test_mp_pde_every_parameter_gets_a_gradient(cuda_device):
+    trainer = build_trainer("E1", "MP-PDE", device=cuda_device)
+    u_all, idx, steps = _train_batch(trainer, 4, 0, 5)
+    before = (mp_layer.launches, mp_layer.bwd_launches)
+    trainer.step_loss(u_all, {}, idx, steps, 0).backward()
+    assert (mp_layer.launches, mp_layer.bwd_launches) == (
+        before[0] + 6, before[1] + 6)
+    for name, p in trainer.model.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name

@@ -42,10 +42,13 @@ from _torch_helpers import np_tree, tt
 
 NX, H, LAYERS, L, TMAX = 24, 96, 2, 16.0, 4.0
 TOL = dict(rtol=1e-8, atol=1e-8)
+# registry name -> (encoder, gate) of the JAX MPSolver
+ENCODER_GATE = {"MSMP-PDE": ("lem", "sigmoid"), "MP-PDE": ("mlp", "none"),
+                "LEM": ("lem", "none"), "Gated": ("mlp", "sigmoid")}
 
 
-def _port_trainer(tw, nt, idx, mask, x):
-    m, kind = get_model("MSMP-PDE", tw=tw, n_eq_vars=0, L=L, tmax=TMAX,
+def _port_trainer(tw, nt, idx, mask, x, name="MSMP-PDE"):
+    m, kind = get_model(name, tw=tw, n_eq_vars=0, L=L, tmax=TMAX,
                         dt=TMAX / (nt - 1), n_layers=LAYERS, hidden=H)
     spec = GraphSpec(idx=torch.as_tensor(idx, dtype=torch.int64),
                      mask=tt(mask), x=tt(x),
@@ -55,9 +58,9 @@ def _port_trainer(tw, nt, idx, mask, x):
                    eq_norms={})
 
 
-def _trainers(tw, nt):
+def _trainers(tw, nt, name="MSMP-PDE"):
     """(JAX trainer, its float64 params, port trainer with the same
-    weights) on one stencil graph."""
+    weights) of the registry model ``name`` on one stencil graph."""
     x = np.linspace(0.0, L, NX)
     idx, mask = build_neighbors_radius(x, 3)
     t_grid = np.linspace(0.0, TMAX, nt)
@@ -65,16 +68,16 @@ def _trainers(tw, nt):
     meta = dict(tw=tw, n_components=1, L=L, tmax=TMAX, dt=dt)
     jspec = JSpec(idx=jnp.asarray(idx), mask=jnp.asarray(mask, jnp.float64),
                   x=jnp.asarray(x), t_grid=jnp.asarray(t_grid), **meta)
-    jm = JSolver(tw=tw, hidden=H, layers=LAYERS, encoder="lem",
-                 gate="sigmoid", L=L, tmax=TMAX, dt=dt, mp_impl="xla",
-                 lem_impl="xla")
+    encoder, gate = ENCODER_GATE[name]
+    jm = JSolver(tw=tw, hidden=H, layers=LAYERS, encoder=encoder, gate=gate,
+                 L=L, tmax=TMAX, dt=dt, mp_impl="xla", lem_impl="xla")
     jtr = JTrainer(model=jm, kind="graph", spec=jspec, eq_norms={})
     f = lambda a: jnp.asarray(a, jnp.float32)
     params = np_tree(jm.init(
         jax.random.PRNGKey(0), f(np.zeros((2, NX, tw))),
         f(np.broadcast_to(x, (2, NX))), f(np.zeros(2)), f(np.zeros((2, 1))),
         jnp.asarray(idx), f(mask)))
-    trainer = _port_trainer(tw, nt, idx, mask, x)
+    trainer = _port_trainer(tw, nt, idx, mask, x, name)
     trainer.model.load_state_dict(params_from_flax(params), strict=True)
     return jtr, params, trainer
 
