@@ -21,9 +21,9 @@ Phases, each of which fails the run on error:
      request latency per bucket;
   7. the LEM-scan stash variant and backward kernel vs their plain
      versions, N in {100, 400, 1600, 37};
-  8. the fused-pair backward kernel vs its plain version, B in {1, 4, 16}
-     with the model's weights and one width no 64-column tile divides; two
-     runs give bitwise equal gradients;
+  8. the fused-pair backward kernel vs its plain version, B in {1, 4, 16,
+     48} with the model's weights and one width no 64-column tile divides;
+     two runs give bitwise equal gradients;
   9. one training step at batch 16, kernel path vs plain path (the loss
      and every parameter's gradient, unrolled 0 and 1);
  10. the training main path: one train_epoch (epoch 1, unrolling 1, batch
@@ -33,27 +33,29 @@ Phases, each of which fails the run on error:
  11. timings of the three training kernels beside their plain versions and
      bounds, and of one train step at unrolled 0 and 1;
  12. the single-layer kernels (forward and backward) vs their plain
-     versions, B in {1, 4, 16} at MP-PDE's weights and one width no
+     versions, B in {1, 4, 16, 48} at MP-PDE's weights and one width no
      64-column tile divides, for both (final_act, residual) in {(T, T),
      (F, F)}; two backward runs give bitwise equal gradients;
  13. the pair's stash variant (out bitwise equal to the variant without
      it, gn and ln against the plain layers) and its fallback backward at
-     batch 48, which does not fit the fused backward: launches and
-     gradients; then one MSMP-PDE train step at batch 48, the fallback's
-     main path, with its launches;
+     batch 48, forced there (the fused backward takes every batch whose
+     workspace fits a quarter of the card): launches and gradients; then
+     one MSMP-PDE train step at batch 48 on the forced fallback, its main
+     path, with its launches;
  14. the full-width MP-PDE and LEM forwards (six GNN_Layers) vs
      reference_forward; the served MP-PDE answers the requests of phase 5;
  15. one training step at batch 16 of MP-PDE and of LEM, kernel path vs
      plain path (unrolled 0 and 1); one MP-PDE train_epoch of 250 steps
      with per-step launch counts and a falling loss;
  16. timings of the single-layer kernels at batch 16, of the stash and of
-     both pair-backward routes at batch 48, and of MP-PDE's forward, train
-     step and rollouts.
+     both pair-backward routes at batches 16 and 48, the backwards'
+     cooperative grid, and MP-PDE's forward, train step and rollouts.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 The last line is {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -362,7 +364,8 @@ def check_pair_bwd(rand, model, spec, T, H, V):
     nx = spec.nx
     detach = lambda W: tuple(w.detach() for w in W)
     Wg, Wl = detach(model.gate_0.weights()), detach(model.gnn_0.weights())
-    cases = [(B, nx, H, V, spec.idx, spec.mask, Wg, Wl) for B in (1, 4, 16)]
+    cases = [(B, nx, H, V, spec.idx, spec.mask, Wg, Wl)
+             for B in (1, 4, 16, 48)]
     # a width that no 64-column tile divides, three variables, radius 2
     idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, 40), 2)
     g = torch.Generator().manual_seed(2)
@@ -566,7 +569,7 @@ def check_model_forward(trainer, window, steps, name):
 
 def check_layer_kernels(rand, W, spec, T, H, V):
     """Phase 12: the single-layer kernels vs their plain versions, B in
-    {1, 4, 16} at the model's weights and one width no 64-column tile
+    {1, 4, 16, 48} at the model's weights and one width no 64-column tile
     divides, for both switch pairs; two backward runs are bitwise equal.
     Returns (forward max error, backward max error)."""
     import numpy as np
@@ -578,7 +581,8 @@ def check_layer_kernels(rand, W, spec, T, H, V):
 
     dev = spec.x.device
     W = tuple(w.detach() for w in W)
-    cases = [(B, spec.nx, H, V, spec.idx, spec.mask, W) for B in BUCKETS]
+    cases = [(B, spec.nx, H, V, spec.idx, spec.mask, W)
+             for B in BUCKETS + (48,)]
     idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, 40), 2)
     odd = GNNLayer(96, T, 3, torch.Generator().manual_seed(3)).to(dev)
     cases.append((2, 40, 96, 3, torch.as_tensor(idx, device=dev),
@@ -623,9 +627,10 @@ def check_layer_kernels(rand, W, spec, T, H, V):
 def check_pair_fallback(rand, model, spec, T, H, V):
     """Phase 13: the pair's stash variant (out bitwise equal to the variant
     without it, gn and ln against the plain layers) at B in {1, 4, 16, 48};
-    the fallback route at batch 48 (launches, and dh and the 24 gradients
-    against the fused backward's plain version). Returns (stash max error,
-    fallback max error, the batch-48 operands (args, gn, ln, g))."""
+    the fallback route forced at batch 48 (launches, and dh and the 24
+    gradients against the fused backward's plain version). Returns (stash
+    max error, fallback max error, the batch-48 operands (args, gn, ln,
+    g))."""
     import torch
 
     from msmp_pde_torch.ops import mp_layer, mp_pair
@@ -633,13 +638,19 @@ def check_pair_fallback(rand, model, spec, T, H, V):
     nx, K = spec.idx.shape
     Wg = tuple(w.detach() for w in model.gate_0.weights())
     Wl = tuple(w.detach() for w in model.gnn_0.weights())
-    fits = [B for B in range(1, 65) if mp_pair.pair_bwd_fused_fits(
-        B, nx, H, T, V, K, spec.x.device)]
-    print(f"fused pair backward fits up to batch {max(fits)} (L2 "
-          f"{torch.cuda.get_device_properties(0).L2_cache_size} bytes); "
-          "the fallback takes the larger batches")
-    check(fits == list(range(1, max(fits) + 1)) and 16 in fits
-          and 48 not in fits, "pair_bwd_fused_fits switch")
+    fits = lambda B: mp_pair.pair_bwd_fused_fits(B, nx, H, T, V, K,
+                                                 spec.x.device)
+    top, over = 1, 2  # the largest batch that fits, the least that does not
+    while fits(over):
+        top, over = over, 2 * over
+    while over - top > 1:
+        mid = (top + over) // 2
+        top, over = (mid, over) if fits(mid) else (top, mid)
+    print(f"fused pair backward up to batch {top} (its workspace in a "
+          f"quarter of {torch.cuda.get_device_properties(0).total_memory} "
+          "bytes); the fallback takes larger batches, and is forced here")
+    check(all(fits(B) for B in (1, 16, 48)) and not fits(top + 1),
+          "pair_bwd_fused_fits switch")
     e_stash = 0.0
     for B in BUCKETS + (48,):
         args = (rand(B, nx, H), rand(B, nx, T),
@@ -662,7 +673,8 @@ def check_pair_fallback(rand, model, spec, T, H, V):
     h = args[0].clone().requires_grad_()
     ws = [w.clone().requires_grad_() for w in Wg + Wl]
     reset_counts()
-    out = mp_pair.fused_gated_pair(h, *args[1:6], ws[:12], ws[12:])
+    with forced_fallback():
+        out = mp_pair.fused_gated_pair(h, *args[1:6], ws[:12], ws[12:])
     got = torch.autograd.grad(out, [h] + ws, g)
     counts = launch_counts()
     want_counts = dict.fromkeys(COUNTERS, 0)
@@ -683,10 +695,25 @@ def check_pair_fallback(rand, model, spec, T, H, V):
     return e_stash, e_fb, (args, gn, ln, g)
 
 
+@contextlib.contextmanager
+def forced_fallback():
+    """The gated pair takes its fallback backward at every shape while the
+    block runs (the route is chosen in the forward)."""
+    from msmp_pde_torch.ops import mp_pair
+
+    rule = mp_pair.pair_bwd_fused_fits
+    mp_pair.pair_bwd_fused_fits = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        mp_pair.pair_bwd_fused_fits = rule
+
+
 def fallback_step(trainer, u_all):
     """Phase 13, the fallback's main path: one MSMP-PDE optimizer step at
-    batch 48 through ``train_step_fn``, every pair on the stash forward and
-    two single-layer backwards. Returns the launch counts of the run."""
+    batch 48 through ``train_step_fn`` with the fallback forced, every pair
+    on the stash forward and two single-layer backwards. Returns the launch
+    counts of the run."""
     import numpy as np
     import torch
 
@@ -697,7 +724,8 @@ def fallback_step(trainer, u_all):
     st = torch.as_tensor(np.random.default_rng(48).integers(25, 226, B),
                          device=dev)
     reset_counts()
-    loss = step(u_all, {}, torch.arange(B, device=dev), st)
+    with forced_fallback():
+        loss = step(u_all, {}, torch.arange(B, device=dev), st)
     counts = launch_counts()
     L = trainer.model.layers
     want = expected_launches(trainer.model, 1, 1)
@@ -913,8 +941,7 @@ def main():
         lambda: mp_pair.fused_gated_pair_bwd_plain(*pbwd_args))
     pbwd_plain_ms = timed_graph(
         lambda: mp_pair.fused_gated_pair_bwd_plain(*pbwd_args))
-    # the pair's backward needs both layers' forward (the kernel recomputes
-    # the gate's a second time, not counted) and both layers' backward:
+    # the pair's backward needs both layers' forward and backward:
     # dw4, da3, dw3, dh|dagg, dw2 and dm1 over the valid edges, dh from
     # ds_i|ds_j, dw_hi|dw_hj, dw_du|dw_dx|dw_v
     bwd_layer = (2 * nx * H * H * 2 + 2 * nx * (2 * H + V) * H
@@ -1037,6 +1064,12 @@ def main():
                                 (16, fused16_ms, fb16_ms)):
         print(f"pair backward @batch {at}: fused kernel {fused_ms:.4f} ms, "
               f"fallback route (combine + 2 x mp_layer_bwd) {fb_ms:.4f} ms")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print("cooperative grid (blocks on %d SMs): mp_pair_bwd %d, "
+          "mp_layer_bwd %d (GNN_Layer) / %d (GNN_LayerLin)" % (
+              sms, mp_layer.bwd_grid_blocks("mp_pair_bwd"),
+              mp_layer.bwd_grid_blocks("mp_layer_bwd", True),
+              mp_layer.bwd_grid_blocks("mp_layer_bwd", False)))
     with torch.no_grad():
         mp_fwd_ms = timed(lambda: mp_tr.forward(window, steps, {}), reps=5)
     print(f"MP-PDE forward @bucket 16: {mp_fwd_ms:.4f} ms (layers 6 x "

@@ -57,8 +57,7 @@ mp_layer_fwd_kernel(const float* __restrict__ h, const float* __restrict__ u,
   s.rs = s.z2 + (size_t)nx * K * H;
   s.xo = out + b * nh;
   const Graph G{h + b * nh, u + (size_t)b * nx * D, px + (size_t)b * nx,
-                v + (size_t)b * nx * V, idx, mask, nullptr, nullptr,
-                nx, H, D, V, K};
+                v + (size_t)b * nx * V, idx, mask, nx, H, D, V, K};
   layer_fwd<FINAL_ACT, RESIDUAL>(w, G, s, As, Ws);
 }
 

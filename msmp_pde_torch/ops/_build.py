@@ -51,9 +51,10 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < newest
 
 
-def _start(name: str, extra=()):
-    src, lib = _paths(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _start(name: str, extra=(), lib=None):
+    src, default = _paths(name)
+    lib = Path(lib or default)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(lib), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -73,6 +74,22 @@ def build_all() -> dict:
     with _lock:
         procs = {n: _start(n, ("-Xptxas", "-v")) for n in SOURCES}
         return {n: _finish(n, p) for n, p in procs.items()}
+
+
+def build_variant(name: str, lib, extra) -> str:
+    """Compile ``csrc/<name>.cu`` with the extra nvcc flags ``extra`` into
+    the library ``lib`` (another path than the one ``load`` uses); returns
+    nvcc's output. For measurement builds, e.g. ``-DMP_PHASE_TIMES``."""
+    with _lock:
+        return _finish(name, _start(name, ("-Xptxas", "-v", *extra), lib))
+
+
+def use(name: str, lib) -> ctypes.CDLL:
+    """Load ``lib`` as the library of ``csrc/<name>.cu`` for this process,
+    in place of the one ``load`` builds."""
+    with _lock:
+        _libs[name] = ctypes.CDLL(str(lib))
+        return _libs[name]
 
 
 def load(name: str) -> ctypes.CDLL:

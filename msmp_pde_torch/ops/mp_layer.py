@@ -17,6 +17,7 @@ layout (models/gnn.py::GNNLayer.weights).
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -125,10 +126,12 @@ def fused_mp_layer_bwd_plain(h, u, px, v, idx, mask, W, g, final_act=False,
 
 # ---- the kernels (this layer's and the pair's) ---------------------------
 # pointer and int arguments of each C entry point before its stream
-_ARGS = {"mp_pair_fwd": (12, 6), "mp_pair_bwd": (13, 6),
-         "mp_layer_fwd": (9, 8), "mp_layer_bwd": (12, 8)}
+_ARGS = {"mp_pair_fwd": (12, 6), "mp_pair_bwd": (14, 6),
+         "mp_layer_fwd": (9, 8), "mp_layer_bwd": (13, 8)}
 # int arguments of <name>_scratch_floats, where the source has one
-_SCRATCH_ARGS = {"mp_pair_bwd": 5, "mp_layer_fwd": 3, "mp_layer_bwd": 3}
+_SCRATCH_ARGS = {"mp_pair_bwd": 6, "mp_layer_fwd": 3, "mp_layer_bwd": 6}
+# int arguments of <name>_grid, the backwards' cooperative grid
+_GRID_ARGS = {"mp_pair_bwd": 0, "mp_layer_bwd": 1}
 
 
 def _lib(name):
@@ -144,8 +147,65 @@ def _lib(name):
             sf = getattr(lib, f"{name}_scratch_floats")
             sf.argtypes = [i] * _SCRATCH_ARGS[name]
             sf.restype = ctypes.c_long
+        if name in _GRID_ARGS:
+            gr = getattr(lib, f"{name}_grid")
+            gr.argtypes = [i] * _GRID_ARGS[name]
+            gr.restype = i
         lib._typed = True
     return lib
+
+
+def inverse_neighbors(idx, mask):
+    """The inverse neighbour list of the graph ``idx``/``mask`` [nx, K]: for
+    each node n, the valid edges e = i K + k (mask[e] != 0) with
+    idx[e] = n, in increasing e. Returns int32 (rev_ptr [nx + 1], rev_e
+    [nx K]): node n's edges are rev_e[rev_ptr[n]:rev_ptr[n + 1]], the
+    ``rev_ptr[nx]`` valid edges come first and the masked slots after them.
+    A stable sort of the edges by target (the masked slots keyed past the
+    last node), then each node's start in the sorted targets. Deterministic
+    on the card, and no step reads a value back to the host (``bincount``
+    on a CUDA tensor does, to size its output), so the wrapper does not
+    wait for the card. It turns the scatter of the gather's transpose into
+    a gather-sum in a fixed order (the backward kernels' ds_j)."""
+    nx = idx.shape[0]
+    key = torch.where(mask.reshape(-1) != 0, idx.reshape(-1).long(), nx)
+    sorted_key, rev_e = torch.sort(key, stable=True)
+    rev_ptr = torch.searchsorted(
+        sorted_key, torch.arange(nx + 1, device=idx.device))
+    return rev_ptr.to(torch.int32), rev_e.to(torch.int32)
+
+
+_inverse_memo = {}  # id(idx) -> (idx ref, mask ref, versions, lists)
+
+
+def _inverse_of(idx, mask):
+    """``inverse_neighbors(idx, mask)``, remembered for the same idx and
+    mask tensors while neither has changed (same objects, same version
+    counters): the model passes its graph's own tensors to every backward,
+    and the list costs a few launches and their host time each call."""
+    hit = _inverse_memo.get(id(idx))
+    versions = (idx._version, mask._version)
+    if (hit is not None and hit[0]() is idx and hit[1]() is mask
+            and hit[2] == versions):
+        return hit[3]
+    lists = inverse_neighbors(idx, mask)
+    if len(_inverse_memo) >= 8:
+        _inverse_memo.pop(next(iter(_inverse_memo)))
+    _inverse_memo[id(idx)] = (weakref.ref(idx), weakref.ref(mask), versions,
+                              lists)
+    return lists
+
+
+def bwd_grid_blocks(name, final_act=False):
+    """The blocks of the cooperative launch of ``mp_pair_bwd`` or
+    ``mp_layer_bwd`` on the current card (its SMs times the blocks that fit
+    on one at once); raises where it cannot be formed."""
+    lib = _lib(name)
+    n = (lib.mp_layer_bwd_grid(int(final_act)) if name == "mp_layer_bwd"
+         else lib.mp_pair_bwd_grid())
+    if n <= 0:
+        raise RuntimeError(f"{name}: no cooperative grid (CUDA error {-n})")
+    return n
 
 
 def _f32_cuda(op, name, x, shape):
@@ -238,29 +298,31 @@ def fused_mp_layer_kernel(h, u, px, v, idx, mask, W, final_act=False,
 
 def fused_mp_layer_bwd_kernel(h, u, px, v, idx, mask, W, g, final_act=False,
                               residual=False):
-    """Launch ``csrc/mp_layer_bwd.cu`` (the backward and its fixed-order
-    reduction of the per-graph weight gradients); raises on anything it
-    does not take. Returns (dh, 12-tuple)."""
+    """Launch ``csrc/mp_layer_bwd.cu``, one cooperative kernel over the
+    whole batch; raises on anything it does not take. Returns (dh,
+    12-tuple)."""
     global bwd_launches
     switches = _switches(final_act, residual)
+    idx_in, mask_in = idx, mask
     (h, u, px, v, idx, mask), (w,), (B, nx, H, D, V, K) = _kernel_inputs(
         "fused_mp_layer", h, u, px, v, idx, mask, W)
+    rev_ptr, rev_e = _inverse_of(idx_in, mask_in)
     g = _f32_cuda("fused_mp_layer", "g", g, (B, nx, H))
     lib = _lib("mp_layer_bwd")
     f32 = dict(device=h.device, dtype=torch.float32)
     per_layer = sum(torch.Size(s).numel() for s in _weight_shapes(H, D, V))
     dh = torch.empty_like(h)
     dw = torch.empty(per_layer, **f32)
-    partial = torch.empty(B * per_layer, **f32)
-    scratch = torch.empty(B * lib.mp_layer_bwd_scratch_floats(nx, H, K),
-                          **f32)
+    scratch = torch.empty(
+        lib.mp_layer_bwd_scratch_floats(B, nx, H, D, V, K), **f32)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         err = lib.mp_layer_bwd(
             h.data_ptr(), u.data_ptr(), px.data_ptr(), v.data_ptr(),
-            idx.data_ptr(), mask.data_ptr(), _ptrs(w), g.data_ptr(),
-            dh.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-            scratch.data_ptr(), B, nx, H, D, V, K, *switches, stream)
+            idx.data_ptr(), mask.data_ptr(), rev_ptr.data_ptr(),
+            rev_e.data_ptr(), _ptrs(w), g.data_ptr(), dh.data_ptr(),
+            dw.data_ptr(), scratch.data_ptr(), B, nx, H, D, V, K, *switches,
+            stream)
     _build.check(err, "mp_layer_bwd")
     bwd_launches += 1
     return dh, _split_grads(dw, H, D, V, 1)[0]

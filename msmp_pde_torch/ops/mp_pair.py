@@ -6,9 +6,10 @@ and ``csrc/mp_pair_bwd.cu`` on CUDA tensors and the plain PyTorch versions
 ``fused_gated_pair_plain`` / ``fused_gated_pair_bwd_plain`` on CPU tensors.
 With grad enabled it goes through the ``torch.autograd.Function``
 ``FusedGatedPair``. Its backward takes one of two routes, chosen per shape
-as the TPU's VJP chooses (mp_pallas.py:700-730):
+(``pair_bwd_fused_fits``) where the TPU's VJP chooses by its VMEM fit
+(mp_pallas.py:700-730):
 - the fused backward, which recomputes both layers from the saved inputs;
-- where that does not fit (``pair_bwd_fused_fits``), the fallback: the
+- where its workspace does not fit, the fallback: the
   forward's stash variant also returns the layers' normalized outputs gn
   and ln, the combine is differentiated in torch ops, and each layer's
   backward is one single-layer backward (ops/mp_layer.py).
@@ -51,18 +52,20 @@ def fused_gated_pair_plain(h, u, px, v, idx, mask, Wg, Wl, stash=False):
 
 
 def fused_gated_pair_bwd_plain(h, u, px, v, idx, mask, Wg, Wl, g):
-    """The pair's backward in the kernel's recompute order
-    (mp_pallas.py:291-349): gate forward for gn; main layer forward and
-    backward; gate forward again and backward. g is the output cotangent.
-    Returns (dh, gate 12-tuple, main 12-tuple); u, px and v get none."""
-    gn, _, _ = _layer_forward(h, u, px, v, idx, mask, Wg)
-    tau = torch.sigmoid(gn)
+    """The pair's backward in the kernel's order: both layers' forwards,
+    each once, with their intermediates kept; the combine's backward; each
+    layer's InstanceNorm and layer backward. (The TPU kernel,
+    mp_pallas.py:291-349, runs the gate's forward again after the main
+    layer's backward, to hold one layer's intermediates at a time.) g is the
+    output cotangent. Returns (dh, gate 12-tuple, main 12-tuple); u, px and
+    v get none."""
+    gn, rs_g, saved_g = _layer_forward(h, u, px, v, idx, mask, Wg)
     ln, rs_l, saved_l = _layer_forward(h, u, px, v, idx, mask, Wl)
+    tau = torch.sigmoid(gn)
     dln = g * tau * _dswish(ln)
     dgn = g * (swish(ln) - h) * tau * (1.0 - tau)
     dh_l, dwl = _layer_backward(_instnorm_bwd(dln, ln, rs_l), h, u, px, v,
                                 idx, mask, Wl, saved_l)
-    gn, rs_g, saved_g = _layer_forward(h, u, px, v, idx, mask, Wg)
     dh_g, dwg = _layer_backward(_instnorm_bwd(dgn, gn, rs_g), h, u, px, v,
                                 idx, mask, Wg, saved_g)
     return g * (1.0 - tau) + dh_g + dh_l, dwg, dwl
@@ -85,20 +88,22 @@ def fallback_bwd(h, u, px, v, idx, mask, Wg, Wl, gn, ln, g):
 
 # ---- the kernels ---------------------------------------------------------
 def pair_bwd_fused_fits(B, nx, H, D, V, K, device) -> bool:
-    """Whether the fused backward takes this shape: true when its working
-    set, B graphs of scratch and 2 x 12 weight-gradient partials, fits the
-    card's L2, so that its recompute order keeps the working set on chip
-    (the analogue of the TPU's VMEM fit, which decides the same choice
-    there). True on the CPU, whose plain versions have no such limit."""
+    """Whether the pair's backward takes the fused kernel for this shape.
+    On the H100 the fused kernel is the faster route at every batch
+    measured (PERF.md section 6: chip_smoke.py phase 16 prints both routes
+    at batches 16 and 48). It holds both layers' intermediates at once, so
+    its workspace is twice a single-layer backward's (~4 MB a graph at E1):
+    the pair falls back to two single-layer backwards only where that
+    workspace would pass a quarter of the card's memory (from batch ~5,000
+    at E1 on an 80 GB card). True on the CPU, whose plain versions have no
+    such limit."""
     device = torch.device(device)
     if device.type != "cuda":
         return True
-    per_graph = (_lib("mp_pair_bwd").mp_pair_bwd_scratch_floats(nx, H, D, V,
-                                                                K)
-                 + 2 * sum(torch.Size(s).numel()
-                           for s in _weight_shapes(H, D, V)))
-    l2 = torch.cuda.get_device_properties(device).L2_cache_size
-    return B * per_graph * 4 <= l2
+    workspace = 4 * _lib("mp_pair_bwd").mp_pair_bwd_scratch_floats(
+        B, nx, H, D, V, K)
+    total = torch.cuda.get_device_properties(device).total_memory
+    return workspace <= total // 4
 
 
 def fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl, stash=False):
@@ -132,28 +137,30 @@ def fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl, stash=False):
 
 
 def fused_gated_pair_bwd_kernel(h, u, px, v, idx, mask, Wg, Wl, g):
-    """Launch ``csrc/mp_pair_bwd.cu`` (the fused backward and its fixed-order
-    reduction of the per-graph weight gradients); raises on anything it
-    does not take. Returns (dh, gate 12-tuple, main 12-tuple)."""
+    """Launch ``csrc/mp_pair_bwd.cu``, one cooperative kernel over the
+    whole batch; raises on anything it does not take. Returns (dh, gate
+    12-tuple, main 12-tuple)."""
     global bwd_launches
+    idx_in, mask_in = idx, mask
     (h, u, px, v, idx, mask), (wg, wl), (B, nx, H, D, V, K) = \
         _kernel_inputs("fused_gated_pair", h, u, px, v, idx, mask, Wg, Wl)
+    rev_ptr, rev_e = mp_layer._inverse_of(idx_in, mask_in)
     g = mp_layer._f32_cuda("fused_gated_pair", "g", g, (B, nx, H))
     per_layer = sum(torch.Size(s).numel() for s in _weight_shapes(H, D, V))
     lib = _lib("mp_pair_bwd")
     f32 = dict(device=h.device, dtype=torch.float32)
     dh = torch.empty_like(h)
     dw = torch.empty(2 * per_layer, **f32)
-    partial = torch.empty(B * 2 * per_layer, **f32)
-    scratch = torch.empty(B * lib.mp_pair_bwd_scratch_floats(nx, H, D, V, K),
+    scratch = torch.empty(lib.mp_pair_bwd_scratch_floats(B, nx, H, D, V, K),
                           **f32)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         err = lib.mp_pair_bwd(
             h.data_ptr(), u.data_ptr(), px.data_ptr(), v.data_ptr(),
-            idx.data_ptr(), mask.data_ptr(), _ptrs(wg), _ptrs(wl),
-            g.data_ptr(), dh.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-            scratch.data_ptr(), B, nx, H, D, V, K, stream)
+            idx.data_ptr(), mask.data_ptr(), rev_ptr.data_ptr(),
+            rev_e.data_ptr(), _ptrs(wg), _ptrs(wl), g.data_ptr(),
+            dh.data_ptr(), dw.data_ptr(), scratch.data_ptr(), B, nx, H, D,
+            V, K, stream)
     _build.check(err, "mp_pair_bwd")
     bwd_launches += 1
     dwg, dwl = _split_grads(dw, H, D, V, 2)

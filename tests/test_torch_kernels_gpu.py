@@ -129,10 +129,13 @@ def test_lem_stash_and_bwd_match_plain(cuda_device, N):
 @pytest.mark.parametrize("B,nx,H,V,n", [(1, 100, 128, 1, 3),
                                          (4, 100, 128, 1, 3),
                                          (16, 100, 128, 1, 3),
-                                         (2, 40, 96, 3, 2)])
+                                         (48, 100, 128, 1, 3),
+                                         (2, 40, 96, 3, 2),
+                                         (3, 37, 96, 2, 2)])
 def test_pair_bwd_kernel_matches_plain(cuda_device, B, nx, H, V, n):
-    """Bitwise repeatable; the last case has a width that no 64-column tile
-    divides."""
+    """Bitwise repeatable; batch 48 calls the fused kernel directly (the
+    model takes the fallback there); the last cases have a width that no
+    64-column tile divides and node counts no 32-row tile divides."""
     rng = np.random.default_rng(200 + B)
     D = 25
     idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
@@ -197,9 +200,10 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device, unrolled):
         assert ok, (name, err, scales[name])
 
 
-LAYER_CASES = [(B, 100, 128, 1, 3, fa) for B in (1, 4, 16) for fa in (True,
-                                                                        False)]
-LAYER_CASES += [(2, 40, 96, 3, 2, True), (2, 40, 96, 3, 2, False)]
+LAYER_CASES = [(B, 100, 128, 1, 3, fa) for B in (1, 4, 16, 48)
+               for fa in (True, False)]
+LAYER_CASES += [(2, 40, 96, 3, 2, fa) for fa in (True, False)]
+LAYER_CASES += [(3, 37, 96, 2, 2, fa) for fa in (True, False)]
 
 
 def _layer_args(dev, B, nx, H, V, n, switch, seed):
@@ -238,6 +242,16 @@ def test_layer_kernels_match_plain(cuda_device, B, nx, H, V, n, switch):
         assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
 
 
+@pytest.mark.parametrize("name,final_act", [("mp_pair_bwd", False),
+                                            ("mp_layer_bwd", True),
+                                            ("mp_layer_bwd", False)])
+def test_bwd_cooperative_grid_fills_every_sm(cuda_device, name, final_act):
+    """The backwards launch as many blocks as fit on every SM at once."""
+    n = mp_layer.bwd_grid_blocks(name, final_act)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert n >= sms and n % sms == 0, (n, sms)
+
+
 @pytest.mark.parametrize("B", [1, 16])
 def test_pair_stash_matches_no_stash(cuda_device, B):
     args = _layer_args(cuda_device, B, 100, 128, 1, 3, False, 400 + B)
@@ -256,17 +270,18 @@ def test_pair_stash_matches_no_stash(cuda_device, B):
         atol=1e-4)
 
 
-def test_pair_fallback_route_at_batch_48(cuda_device):
-    """Batch 48 does not fit the fused backward: one stash forward, two
-    single-layer backwards, no fused backward; its gradients hold against
-    the fused plain backward."""
+def test_pair_fallback_route_at_batch_48(cuda_device, monkeypatch):
+    """Batch 48 takes the fused backward (its workspace fits); the fallback,
+    forced as the CPU tests force it, runs one stash forward, two
+    single-layer backwards and no fused backward, and its gradients hold
+    against the fused plain backward."""
     args = _layer_args(cuda_device, 48, 100, 128, 1, 3, False, 600)
     Wl = _layer_args(cuda_device, 48, 100, 128, 1, 3, False, 601)[-1]
     h, u, px, v, idx, mask, Wg = args
     K = idx.shape[1]
-    assert not mp_pair.pair_bwd_fused_fits(48, 100, 128, 25, 1, K,
-                                           cuda_device)
-    assert mp_pair.pair_bwd_fused_fits(16, 100, 128, 25, 1, K, cuda_device)
+    for B in (16, 48):
+        assert mp_pair.pair_bwd_fused_fits(B, 100, 128, 25, 1, K, cuda_device)
+    monkeypatch.setattr(mp_pair, "pair_bwd_fused_fits", lambda *a, **k: False)
     g = _rand(np.random.default_rng(48), cuda_device, *h.shape)
     hg = h.clone().requires_grad_()
     ws = [w.clone().requires_grad_() for w in Wg + Wl]
