@@ -7,7 +7,9 @@ Phases, each of which fails the run on error:
   1. build every CUDA kernel (serving and training) from
      msmp_pde_torch/csrc, printing ptxas's registers and spills;
   2. LEM-scan kernel vs its plain PyTorch version, N in {100, 400, 1600, 37};
-  3. fused gated-pair kernel vs its plain version, B in {1, 4, 16};
+  3. fused gated-pair kernel vs its plain version, B in {1, 4, 16, 48} at
+     the model's weights and one width no 64-column tile divides; two runs
+     give bitwise equal outputs;
   4. the full-width MSMP-PDE forward (E1: nx=100, tw=25, hidden 128, six
      gated pairs) with weights made from a numpy seed in the flax layout
      and carried across by params_from_flax: kernel path vs
@@ -17,8 +19,10 @@ Phases, each of which fails the run on error:
      checked against RolloutEngine.rollout and against the expected kernel
      launch counts;
   6. timings (CUDA events, medians) of each kernel beside its plain
-     version (replayed from a CUDA graph, and eager) and its bound, and
-     request latency per bucket;
+     version (replayed from a CUDA graph, and eager) and its bound, the
+     pair's forward at buckets 1 and 16, the model's forward at buckets 1
+     and 16 beside the host's time to enqueue it, and request latency per
+     bucket;
   7. the LEM-scan stash variant and backward kernel vs their plain
      versions, N in {100, 400, 1600, 37};
   8. the fused-pair backward kernel vs its plain version, B in {1, 4, 16,
@@ -31,11 +35,12 @@ Phases, each of which fails the run on error:
      [16, 250, 100], i.e. 250 optimizer steps, each with the expected
      kernel launches, finite losses, and a falling loss;
  11. timings of the three training kernels beside their plain versions and
-     bounds, and of one train step at unrolled 0 and 1;
+     bounds, and of one train step at unrolled 0 and 1 (CUDA events and the
+     host's enqueue time);
  12. the single-layer kernels (forward and backward) vs their plain
      versions, B in {1, 4, 16, 48} at MP-PDE's weights and one width no
      64-column tile divides, for both (final_act, residual) in {(T, T),
-     (F, F)}; two backward runs give bitwise equal gradients;
+     (F, F)}; two runs of each give bitwise equal outputs and gradients;
  13. the pair's stash variant (out bitwise equal to the variant without
      it, gn and ln against the plain layers) and its fallback backward at
      batch 48, forced there (the fused backward takes every batch whose
@@ -47,9 +52,10 @@ Phases, each of which fails the run on error:
  15. one training step at batch 16 of MP-PDE and of LEM, kernel path vs
      plain path (unrolled 0 and 1); one MP-PDE train_epoch of 250 steps
      with per-step launch counts and a falling loss;
- 16. timings of the single-layer kernels at batch 16, of the stash and of
-     both pair-backward routes at batches 16 and 48, the backwards'
-     cooperative grid, and MP-PDE's forward, train step and rollouts.
+ 16. timings of the single-layer kernels at batch 16 (the forward at batch
+     1 too), of the stash and of both pair-backward routes at batches 16
+     and 48, the four message-passing kernels' cooperative grids, and
+     MP-PDE's forward, train step and rollouts.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -180,6 +186,22 @@ def timed(fn, reps=20, rounds=5):
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b) / reps)
     return statistics.median(out)
+
+
+def host_ms(fn, reps=5):
+    """Mean host time of a call of ``fn`` from an idle card, without
+    waiting for the card: the time to enqueue its work, in ms. Where it
+    passes the card's time, ``timed`` measures it and not the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / reps * 1e3
 
 
 def timed_graph(fn, reps=20, rounds=11):
@@ -595,6 +617,7 @@ def check_layer_kernels(rand, W, spec, T, H, V):
                     torch.linspace(0, 1, n, device=dev).expand(B, n)[..., None],
                     rand(B, n, v, scale=.5), idx, mask, w)
             k = mp_layer.fused_mp_layer_kernel(*args, sw, sw)
+            k_again = mp_layer.fused_mp_layer_kernel(*args, sw, sw)
             p = mp_layer.fused_mp_layer_plain(*args, sw, sw)
             g = rand(B, n, h)
             k1 = mp_layer.fused_mp_layer_bwd_kernel(*args, g, sw, sw)
@@ -604,6 +627,8 @@ def check_layer_kernels(rand, W, spec, T, H, V):
             ef = (k - p).abs().max().item()
             e_fwd = max(e_fwd, ef)
             tag = f"B={B} H={h} final_act=residual={sw}"
+            check(torch.equal(k, k_again), f"mp_layer_fwd {tag}: two runs "
+                  "differ")
             check(ef <= TOL_PAIR, f"mp_layer_fwd {tag} differs by {ef:.3e}")
             flat = lambda r: [r[0], *r[1]]
             k1, k2, ref = flat(k1), flat(k2), flat(ref)
@@ -620,7 +645,7 @@ def check_layer_kernels(rand, W, spec, T, H, V):
             e_bwd = max(e_bwd, eb)
             print(f"mp_layer {tag}: forward max |kernel - plain| {ef:.3e}; "
                   f"backward dh and 12 grads within the scale-aware bound "
-                  f"(max {eb:.3e}), two runs bitwise equal")
+                  f"(max {eb:.3e}); two runs of each bitwise equal")
     return e_fwd, e_bwd
 
 
@@ -758,8 +783,24 @@ def time_rollouts(engine, name):
               "sample-windows/s at p50")
 
 
+def time_forwards(trainer, window, steps, name, per_kernel):
+    """Phases 6 and 16: one model forward at buckets 1 and 16, CUDA events
+    beside the host's enqueue time; ``per_kernel``: {bucket: text on the
+    kernels' share}."""
+    import torch
+
+    for B in (1, 16):
+        w, st = window[:B], steps[:B]
+        with torch.no_grad():
+            ms = timed(lambda: trainer.forward(w, st, {}), reps=5)
+            hms = host_ms(lambda: trainer.forward(w, st, {}))
+        print(f"{name} forward @bucket {B}: {ms:.4f} ms (CUDA events; host "
+              f"enqueue {hms:.4f} ms; {per_kernel[B]})")
+
+
 def time_train_steps(trainer, u_all, name):
-    """Phases 11 and 16: one optimizer step at batch 16, unrolled 0 and 1."""
+    """Phases 11 and 16: one optimizer step at batch 16, unrolled 0 and 1,
+    CUDA events beside the host's enqueue time."""
     import torch
 
     dev = trainer.device
@@ -769,8 +810,10 @@ def time_train_steps(trainer, u_all, name):
     for f in (0, 1):
         step = trainer.train_step_fn(tx, f)
         ms = timed(lambda: step(u_all, {}, idx_b, st), reps=5)
+        hms = host_ms(lambda: step(u_all, {}, idx_b, st), reps=3)
         print(f"{name} train step @batch {TRAIN_BATCH} unrolled={f}: "
-              f"{ms:.4f} ms, {TRAIN_BATCH / ms * 1e3:.1f} samples/s")
+              f"{ms:.4f} ms, {TRAIN_BATCH / ms * 1e3:.1f} samples/s (host "
+              f"enqueue {hms:.4f} ms)")
 
 
 def main():
@@ -783,6 +826,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    from msmp_pde_torch.data.graph import build_neighbors_radius
+    from msmp_pde_torch.models.gnn import GNNLayer
     from msmp_pde_torch.ops import _build, lem_scan, mp_layer, mp_pair
     from msmp_pde_torch.serving.engine import (
         RolloutEngine,
@@ -839,20 +884,35 @@ def main():
     # 3. fused gated-pair kernel vs plain, at the model's own weights ----
     Wg, Wl = model.gate_0.weights(), model.gnn_0.weights()
     pair_args = {}
+    cases = [(B, nx, H, V, spec.idx, spec.mask, Wg, Wl)
+             for B in BUCKETS + (48,)]
+    # a width that no 64-column tile divides, three variables, radius 2
+    odd_idx, odd_mask = build_neighbors_radius(np.linspace(0.0, 16.0, 40), 2)
+    odd_gen = torch.Generator().manual_seed(4)
+    cases.append((2, 40, 96, 3, torch.as_tensor(odd_idx, device=dev),
+                  torch.as_tensor(odd_mask, device=dev),
+                  *[GNNLayer(96, T, 3, odd_gen).to(dev).weights()
+                    for _ in "gl"]))
     with torch.no_grad():
-        for B in BUCKETS:
-            args = (rand(B, nx, H), rand(B, nx, T),
-                    spec.x.expand(B, nx)[..., None] / spec.L,
-                    rand(B, nx, V, scale=.5), spec.idx, spec.mask, Wg, Wl)
-            pair_args[B] = args
+        for B, n, h, v, idx, mask, wg, wl in cases:
+            px = (spec.x.expand(B, nx)[..., None] / spec.L if n == nx else
+                  torch.linspace(0, 1, n, device=dev).expand(B, n)[..., None])
+            args = (rand(B, n, h), rand(B, n, T), px,
+                    rand(B, n, v, scale=.5), idx, mask, wg, wl)
+            if n == nx:
+                pair_args[B] = args
             ok = mp_pair.fused_gated_pair(*args)
+            again = mp_pair.fused_gated_pair(*args)
             op = mp_pair.fused_gated_pair_plain(*args)
             torch.cuda.synchronize()
+            check(torch.equal(ok, again),
+                  f"mp_pair_fwd B={B} H={h}: two runs differ")
             e = (ok - op).abs().max().item()
             err["mp_pair_fwd"] = max(err["mp_pair_fwd"], e)
-            print(f"mp_pair_fwd B={B}: max |kernel - plain| = {e:.3e}")
+            print(f"mp_pair_fwd B={B} nx={n} H={h}: max |kernel - plain| = "
+                  f"{e:.3e}; two runs bitwise equal")
             check(e <= TOL_PAIR,
-                  f"mp_pair_fwd B={B} differs by {e:.3e} > {TOL_PAIR}")
+                  f"mp_pair_fwd B={B} H={h} differs by {e:.3e} > {TOL_PAIR}")
 
     # 4. whole model, kernel path vs plain path --------------------------
     B = 16
@@ -875,36 +935,36 @@ def main():
     lem_flops = T * N * (2 * H * 3 * H + 2 * H * H)
     lem_bound, lem_by = bound(lem_bytes, lem_flops)
 
-    pargs = pair_args[16]
-    with torch.no_grad():
-        pair_ms = timed(lambda: mp_pair.fused_gated_pair(*pargs))
-        pair_eager_ms = timed(
-            lambda: mp_pair.fused_gated_pair_plain(*pargs))
-        pair_plain_ms = timed_graph(
-            lambda: mp_pair.fused_gated_pair_plain(*pargs))
     D = T
     w_elems = sum(w.numel() for w in Wg) + sum(w.numel() for w in Wl)
-    pair_bytes = 4 * (16 * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_elems)
     e_valid = float(spec.mask.sum().item())
     # i side with mix (u w_du + px w_dx, counted once), j side h w_hj,
     # edge w2 over the valid edges, update w3 and w4
     per_layer = (2 * nx * (H + D + 1 + V) * H + 2 * nx * H * H
                  + 2 * e_valid * H * H + 2 * nx * (2 * H + V) * H
                  + 2 * nx * H * H)
-    pair_flops = 16 * 2 * per_layer
-    pair_bound, pair_by = bound(pair_bytes, pair_flops)
-    for name, ms, pms, ems, bms, by in (
-            ("lem_fwd", lem_ms, lem_plain_ms, lem_eager_ms, lem_bound,
-             lem_by),
-            ("mp_pair_fwd", pair_ms, pair_plain_ms, pair_eager_ms,
-             pair_bound, pair_by)):
-        print(f"{name} @bucket 16: kernel {ms:.4f} ms, plain {pms:.4f} ms "
-              f"(CUDA graph; {ems:.4f} ms eager), bound {bms:.4f} ms ({by})")
+    print(f"lem_fwd @bucket 16: kernel {lem_ms:.4f} ms, plain "
+          f"{lem_plain_ms:.4f} ms (CUDA graph; {lem_eager_ms:.4f} ms eager), "
+          f"bound {lem_bound:.4f} ms ({lem_by})")
+    pair_times = {}  # bucket: (kernel, plain, eager, bound ms, bound by)
+    for B in (1, 16):
+        pargs = pair_args[B]
+        with torch.no_grad():
+            ms = timed(lambda: mp_pair.fused_gated_pair(*pargs))
+            ems = timed(lambda: mp_pair.fused_gated_pair_plain(*pargs))
+            pms = timed_graph(lambda: mp_pair.fused_gated_pair_plain(*pargs))
+        bms, by = bound(
+            4 * (B * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_elems),
+            B * 2 * per_layer)
+        pair_times[B] = (ms, pms, ems, bms, by)
+        print(f"mp_pair_fwd @bucket {B}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms (CUDA graph; {ems:.4f} ms eager), bound "
+              f"{bms:.4f} ms ({by})")
+    pair_ms, pair_plain_ms, _, pair_bound, pair_by = pair_times[16]
 
-    with torch.no_grad():
-        fwd_ms = timed(lambda: trainer.forward(window, steps, {}), reps=5)
-    print(f"MSMP-PDE forward @bucket 16: {fwd_ms:.4f} ms (LEM 1 x "
-          f"{lem_ms:.4f}, pairs 6 x {pair_ms:.4f})")
+    time_forwards(trainer, window, steps, "MSMP-PDE", {
+        B: f"pairs 6 x {pair_times[B][0]:.4f}" + (
+            f", LEM 1 x {lem_ms:.4f}" if B == 16 else "") for B in (1, 16)})
     time_rollouts(engine, "MSMP-PDE")
 
     # 7-10. training: kernels vs plain, one step, the main path ----------
@@ -1005,6 +1065,13 @@ def main():
     largs16 = (*pair_args[16][:6], W1)
     g16 = rand(16, nx, H)
     with torch.no_grad():
+        largs1 = (*pair_args[1][:6], W1)
+        lf1_ms = timed(
+            lambda: mp_layer.fused_mp_layer_kernel(*largs1, True, True))
+        lf1_eager_ms = timed(
+            lambda: mp_layer.fused_mp_layer_plain(*largs1, True, True))
+        lf1_plain_ms = timed_graph(
+            lambda: mp_layer.fused_mp_layer_plain(*largs1, True, True))
         lf_ms = timed(
             lambda: mp_layer.fused_mp_layer_kernel(*largs16, True, True))
         lf_eager_ms = timed(
@@ -1042,6 +1109,8 @@ def main():
     lf_bound, lf_by = bound(
         4 * (16 * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_one),
         16 * per_layer)
+    lf1_bound, lf1_by = bound(
+        4 * (nx * (2 * H + D + 1 + V) + 2 * nx * K + w_one), per_layer)
     lb_bound, lb_by = bound(
         4 * (16 * nx * (3 * H + D + 1 + V) + 2 * nx * K + 2 * w_one),
         16 * (per_layer + bwd_layer))
@@ -1050,6 +1119,8 @@ def main():
         4 * (48 * nx * (4 * H + D + 1 + V) + 2 * nx * K + w_elems),
         48 * 2 * per_layer)
     for name, at, ms, pms, ems, bms, by in (
+            ("mp_layer_fwd", "batch 1", lf1_ms, lf1_plain_ms, lf1_eager_ms,
+             lf1_bound, lf1_by),
             ("mp_layer_fwd", "batch 16", lf_ms, lf_plain_ms, lf_eager_ms,
              lf_bound, lf_by),
             ("mp_layer_bwd", "batch 16", lb_ms, lb_plain_ms, lb_eager_ms,
@@ -1065,15 +1136,16 @@ def main():
         print(f"pair backward @batch {at}: fused kernel {fused_ms:.4f} ms, "
               f"fallback route (combine + 2 x mp_layer_bwd) {fb_ms:.4f} ms")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print("cooperative grid (blocks on %d SMs): mp_pair_bwd %d, "
-          "mp_layer_bwd %d (GNN_Layer) / %d (GNN_LayerLin)" % (
-              sms, mp_layer.bwd_grid_blocks("mp_pair_bwd"),
-              mp_layer.bwd_grid_blocks("mp_layer_bwd", True),
-              mp_layer.bwd_grid_blocks("mp_layer_bwd", False)))
-    with torch.no_grad():
-        mp_fwd_ms = timed(lambda: mp_tr.forward(window, steps, {}), reps=5)
-    print(f"MP-PDE forward @bucket 16: {mp_fwd_ms:.4f} ms (layers 6 x "
-          f"{lf_ms:.4f})")
+    grid = mp_layer.grid_blocks
+    print("cooperative grid (blocks on %d SMs): mp_pair_fwd %d / %d (stash), "
+          "mp_pair_bwd %d, mp_layer_fwd %d / %d, mp_layer_bwd %d / %d "
+          "(GNN_Layer / GNN_LayerLin)" % (
+              sms, grid("mp_pair_fwd"), grid("mp_pair_fwd", True),
+              grid("mp_pair_bwd"), grid("mp_layer_fwd", True),
+              grid("mp_layer_fwd"), grid("mp_layer_bwd", True),
+              grid("mp_layer_bwd")))
+    time_forwards(mp_tr, window, steps, "MP-PDE", {
+        1: f"layers 6 x {lf1_ms:.4f}", 16: f"layers 6 x {lf_ms:.4f}"})
     time_rollouts(mp_engine, "MP-PDE")
     time_train_steps(mp_train, u_all, "MP-PDE")
     print(f"MP-PDE train_epoch (250 steps): {mp_epoch_s:.3f} s")

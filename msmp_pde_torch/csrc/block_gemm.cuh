@@ -1,6 +1,6 @@
-// Block-wide tiled float32 GEMM through shared memory, shared by the pair
-// kernels (mp_pair_fwd.cu, mp_pair_bwd.cu) and the LEM backward
-// (lem_bwd.cu).
+// Block-wide tiled float32 GEMM through shared memory, used by the LEM
+// backward (lem_bwd.cu); its activations and weight loaders (swish, sigm,
+// Mat, MatT) also serve the message-passing phases (mp_phases.cuh).
 //
 // block_gemm(M, N, Kd, A, W, S) computes C = A @ W over rows [0, M) and
 // columns [0, N) with reduction depth Kd, in 64x64 output tiles of depth

@@ -67,7 +67,8 @@ extern "C" int mp_layer_bwd(const float* h, const float* u, const float* px,
   if ((final_act != 0) != (residual != 0)) return (int)cudaErrorInvalidValue;
   const LayerW lw = unpack(w);
   const Params p{h, u, px, v, idx, mask, rev_ptr, rev_e, {lw, lw}, g, dh,
-                 dw, scratch, B, nx, H, D, V, K};
+                 dw, scratch, B, nx, H, D, V, K, nullptr, nullptr,
+                 nullptr};
   return launch(kernel(final_act), p, (cudaStream_t)stream);
 }
 

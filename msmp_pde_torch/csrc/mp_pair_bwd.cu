@@ -72,7 +72,7 @@ extern "C" int mp_pair_bwd(const float* h, const float* u, const float* px,
                            int K, void* stream) {
   const Params p{h, u, px, v, idx, mask, rev_ptr, rev_e,
                  {unpack(wg), unpack(wl)}, g, dh, dw, scratch,
-                 B, nx, H, D, V, K};
+                 B, nx, H, D, V, K, nullptr, nullptr, nullptr};
   return launch((const void*)mp_pair_bwd_kernel, p, (cudaStream_t)stream);
 }
 

@@ -1,7 +1,8 @@
-// The backward of the message-passing layer over the whole batch at once,
-// as a sequence of phases of one persistent cooperative kernel: the single
-// layer's (mp_layer_bwd.cu, NL = 1) and the gated pair's (mp_pair_bwd.cu,
-// NL = 2: the gate layer, then the main layer, and the combine).
+// The message-passing layer over the whole batch at once, as a sequence of
+// phases of one persistent cooperative kernel: the forward and the backward
+// of the single layer (mp_layer_fwd.cu, mp_layer_bwd.cu; NL = 1) and of the
+// gated pair (mp_pair_fwd.cu, mp_pair_bwd.cu; NL = 2: the gate layer, then
+// the main layer, and the combine).
 //
 // Every phase cuts its work into items that do not depend on the grid: tiles
 // of 32 x 64 outputs of a product, (graph, 16 features) of the InstanceNorm,
@@ -14,15 +15,21 @@
 //
 // Rows are global over the batch: node row r = b nx + i, edge row
 // e = r K + k with neighbour row nbr[e] = b nx + idx[i, k]. Phases, each
-// over all the layers at once (A-D are the forward again):
-//   A   nbr[]; the transposed weights w4^T, w3[:2H]^T, w2^T, [w_hi; w_hj]^T;
-//       s_i = [h u px v] [w_hi; w_du; w_dx; w_v] + b1,
-//       s_j = [h u px v] [w_hj; -w_du; -w_dx; 0]
+// over all the layers at once. A-D are the layers' forward, one copy that
+// both directions run (forward_phases):
+//   A   nbr[]; s_i = [h u px v] [w_hi; w_du; w_dx; w_v] + b1,
+//       s_j = [h u px v] [w_hj; -w_du; -w_dx; 0]; the backward also
+//       writes the transposed weights w4^T, w3[:2H]^T, w2^T, [w_hi; w_hj]^T
 //   A2  m0 = s_i[r] + s_j[nbr[e]]                           (edges, gather)
 //   B   z2 = swish(m0) w2 + b2                                       (edges)
 //   B2  agg = sum_k mask swish(z2) / max(deg, 1)
 //   C   z3 = [h, agg, v] w3 + b3
 //   D   z4 = swish(z3) w4 + b4
+// The forward ends with
+//   E   InstanceNorm per (graph, feature) into out: the single layer's
+//       norm([h +] [swish](z4)); the pair's gn and ln (written to the stash
+//       too with STASH) and (1 - sigmoid(gn)) h + sigmoid(gn) swish(ln)
+// and the backward goes on with
 //   E   InstanceNorm forward and backward per (graph, feature), with the
 //       pair's combine between them: dz4 and the first term of dh
 //   F   dz3 = dz4 w4^T * swish'(z3);  dw4 = swish(z3)^T dz4, db4
@@ -74,7 +81,8 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 #ifdef MP_PHASE_TIMES
 // Built with -DMP_PHASE_TIMES (msmp_pde_torch/tools/bwd_phases.py), block 0
 // notes the card's clock at each phase boundary: g_phase_ns[0] at the start,
-// g_phase_ns[n] once phase n (A = 1, A2 = 2, ..., K = 13) has ended.
+// g_phase_ns[n] once phase n (A = 1, A2 = 2, ..., E = 7, ..., K = 13) has
+// ended; the forward's last phase is E.
 __device__ unsigned long long g_phase_ns[16];
 constexpr bool PHASE_TIMES = true;
 #else
@@ -113,13 +121,24 @@ struct Params {
   const float* g;               // [R, H], the output cotangent
   float *dh, *dw, *scratch;     // [R, H], NL x 12 gradients, workspace
   int B, nx, H, D, V, K;
+  float *out, *gn, *ln;  // the forward's [R, H] output; the pair's stash
 };
 
-// The workspace: per layer 9 node buffers [R, H], 3 edge buffers [E, H] and
-// the 6 H^2 transposed weights; then the node-gradient partials, the
-// edge-gradient partials and nbr [E] (ints).
+// The forward's workspace: per layer s_i, s_j, agg, z3, z4 [R, H] and m0,
+// z2 [E, H]; then nbr [E] (ints). The backward's adds per layer dz4, dz3,
+// ds_i, ds_j [R, H], dz2 [E, H] and the 6 H^2 transposed weights; then the
+// node-gradient partials, the edge-gradient partials and nbr.
+__host__ __device__ inline long fwd_layer_floats(int R, int H, int K) {
+  return 5L * R * H + 2L * R * K * H;
+}
+__host__ __device__ inline long fwd_scratch_floats(int NL, int B, int nx,
+                                                   int H, int K) {
+  const int R = B * nx;
+  return NL * fwd_layer_floats(R, H, K) + (long)R * K;
+}
 __host__ __device__ inline long layer_floats(int R, int H, int K) {
-  return 9L * R * H + 3L * R * K * H + 6L * H * H;
+  return fwd_layer_floats(R, H, K) + 4L * R * H + (long)R * K * H +
+         6L * H * H;
 }
 __host__ __device__ inline long scratch_floats(int NL, int B, int nx, int H,
                                                int D, int V, int K) {
@@ -130,9 +149,36 @@ __host__ __device__ inline long scratch_floats(int NL, int B, int nx, int H,
 }
 
 struct Lay {  // one layer's buffers; dm0 overwrites z2, dh3 dz4
-  float *si, *sj, *agg, *z3, *z4, *dz4, *dz3, *dsi, *dsj, *m0, *z2, *dz2;
+  float *si, *sj, *agg, *z3, *z4, *m0, *z2;       // the forward's
+  float *dz4, *dz3, *dsi, *dsj, *dz2;             // the backward's
   float *t4, *t3, *t2, *thj;  // w4^T, w3[:2H]^T [H, 2H], w2^T, [w_hi; w_hj]^T
 };
+
+// Layer l's buffers in the workspace, each layer `per` floats: the
+// forward's first, so that its workspace is a prefix of each layer's slice.
+__device__ inline Lay layer_bufs(float* scratch, int l, long per, int R,
+                                 int H, int K) {
+  const long RH = (long)R * H, EH = RH * K;
+  float* b = scratch + l * per;
+  Lay L;
+  L.si = b;
+  L.sj = b + RH;
+  L.agg = b + 2 * RH;
+  L.z3 = b + 3 * RH;
+  L.z4 = b + 4 * RH;
+  L.m0 = b + 5 * RH;
+  L.z2 = L.m0 + EH;
+  L.dz4 = L.z2 + EH;
+  L.dz3 = L.dz4 + RH;
+  L.dsi = L.dz3 + RH;
+  L.dsj = L.dsi + RH;
+  L.dz2 = L.dsj + RH;
+  L.t4 = L.dz2 + EH;
+  L.t3 = L.t4 + H * H;
+  L.t2 = L.t3 + 2 * H * H;
+  L.thj = L.t2 + H * H;
+  return L;
+}
 
 // ---- operand loaders (A(m, k), W(k, n)) and stores (S(m, n, acc)) -------
 // A loader returns what it reads; post(loader, x) is the transform the tile
@@ -500,15 +546,31 @@ __device__ void sum_groups(float (&x)[NV], float* red) {
   __syncthreads();
 }
 
-// Phase E. Items (graph b, NF features); thread t takes feature t % NF and
-// rows t / NF, t / NF + RG, ... The single layer (NL = 1) normalizes
-// o = [h +] [swish](z4) with rsqrt factor rs and takes g back through it:
-// dxo = rs (g - mean(g) - xh mean(g xh)), dh = [dxo], dz4 = dxo [swish'(z4)].
-// The pair (NL = 2) normalizes gn and ln, takes g back through the combine
-// (1 - sigmoid(gn)) h + sigmoid(gn) swish(ln), then each layer's norm.
+// The layers' pre-norm outputs x(l, q): the single layer's
+// [h +] [swish](z4), the pair's z4 of the gate (l = 0) and the main layer.
 template <int NL, bool FA, bool RES>
-__device__ __forceinline__ void norm_phase(const Params& p,
-                                           const Lay (&L)[NL], float* red) {
+struct PreNorm {
+  const float* h;
+  const float* z4[NL];
+  __device__ float operator()(int l, int q) const {
+    if constexpr (NL == 2) {
+      return z4[l][q];
+    } else {
+      const float a = FA ? swish(z4[0][q]) : z4[0][q];
+      return RES ? h[q] + a : a;
+    }
+  }
+};
+
+// Phase E's items (graph b, NF features): f(q0, rows, rg, mean, rs) for
+// this block's items, with thread t on feature c = t % NF (q0 = b nx H + c)
+// and rows rg = t / NF, rg + RG, ... of the rows < `rows`, and the
+// InstanceNorm's mean and rsqrt factor of each layer's x for the feature,
+// every thread of a feature with the same values, summed in an order fixed
+// by the shapes.
+template <int NL, class X, class F>
+__device__ __forceinline__ void norm_items(const Params& p, const X& x,
+                                           float* red, const F& f) {
   const int H = p.H, nx = p.nx, fch = cdiv(H, NF);
   const int rg = threadIdx.x / NF;
   const float fnx = (float)nx;
@@ -516,59 +578,96 @@ __device__ __forceinline__ void norm_phase(const Params& p,
     const int c = (t % fch) * NF + threadIdx.x % NF;
     const int rows = c < H ? nx : 0;  // idle threads still reach the syncs
     const int q0 = (t / fch) * nx * H + c;
-    if constexpr (NL == 1) {
-      auto o = [&](int q) {
-        return FA ? p.h[q] + swish(L[0].z4[q]) : L[0].z4[q];
-      };
-      float s[1] = {0.0f};
-      for (int i = rg; i < rows; i += RG) s[0] += o(q0 + i * H);
-      sum_groups(s, red);
-      const float mean = s[0] / fnx;
-      float s2[1] = {0.0f};
-      for (int i = rg; i < rows; i += RG) {
-        const float d = o(q0 + i * H) - mean;
-        s2[0] += d * d;
+    float mean[NL], rs[NL], s[NL] = {};
+    for (int i = rg; i < rows; i += RG)
+#pragma unroll
+      for (int l = 0; l < NL; ++l) s[l] += x(l, q0 + i * H);
+    sum_groups(s, red);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) mean[l] = s[l] / fnx;
+    float v[NL] = {};
+    for (int i = rg; i < rows; i += RG)
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        const float d = x(l, q0 + i * H) - mean[l];
+        v[l] += d * d;
       }
-      sum_groups(s2, red);
-      const float rs = 1.0f / sqrtf(s2[0] / fnx + 1e-5f);
+    sum_groups(v, red);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) rs[l] = 1.0f / sqrtf(v[l] / fnx + 1e-5f);
+    f(q0, rows, rg, mean, rs);
+  }
+}
+
+// The forward's phase E: the single layer's out = norm(o); the pair's
+// gn = norm(z4 of the gate), ln = norm(z4 of the main layer), written to
+// the stash with STASH (the same values the combine reads, so out is
+// bitwise the variant's without it), and out = (1 - sigmoid(gn)) h +
+// sigmoid(gn) swish(ln).
+template <int NL, bool FA, bool RES, bool STASH>
+__device__ __forceinline__ void norm_fwd(const Params& p, const Lay (&L)[NL],
+                                         float* red) {
+  const int H = p.H;
+  PreNorm<NL, FA, RES> x{p.h, {}};
+#pragma unroll
+  for (int l = 0; l < NL; ++l) x.z4[l] = L[l].z4;
+  norm_items<NL>(p, x, red, [&](int q0, int rows, int rg, const float* mean,
+                                const float* rs) {
+    for (int i = rg; i < rows; i += RG) {
+      const int q = q0 + i * H;
+      if constexpr (NL == 1) {
+        p.out[q] = (x(0, q) - mean[0]) * rs[0];
+      } else {
+        const float gn = (x(0, q) - mean[0]) * rs[0];
+        const float ln = (x(1, q) - mean[1]) * rs[1];
+        if constexpr (STASH) {
+          p.gn[q] = gn;
+          p.ln[q] = ln;
+        }
+        const float tau = sigm(gn);
+        p.out[q] = (1.0f - tau) * p.h[q] + tau * swish(ln);
+      }
+    }
+  });
+}
+
+// The backward's phase E. The single layer (NL = 1) normalizes o with
+// rsqrt factor rs and takes g back through it: dxo = rs (g - mean(g) -
+// xh mean(g xh)), dh = [dxo], dz4 = dxo [swish'(z4)]. The pair (NL = 2)
+// normalizes gn and ln, takes g back through the combine
+// (1 - sigmoid(gn)) h + sigmoid(gn) swish(ln), then each layer's norm.
+template <int NL, bool FA, bool RES>
+__device__ __forceinline__ void norm_bwd(const Params& p, const Lay (&L)[NL],
+                                         float* red) {
+  const int H = p.H;
+  const float fnx = (float)p.nx;
+  PreNorm<NL, FA, RES> x{p.h, {}};
+#pragma unroll
+  for (int l = 0; l < NL; ++l) x.z4[l] = L[l].z4;
+  norm_items<NL>(p, x, red, [&](int q0, int rows, int rg, const float* mean,
+                                const float* rs) {
+    if constexpr (NL == 1) {
       float m[2] = {0.0f, 0.0f};
       for (int i = rg; i < rows; i += RG) {
         const int q = q0 + i * H;
         const float gq = p.g[q];
         m[0] += gq;
-        m[1] += gq * ((o(q) - mean) * rs);
+        m[1] += gq * ((x(0, q) - mean[0]) * rs[0]);
       }
       sum_groups(m, red);
       for (int i = rg; i < rows; i += RG) {
         const int q = q0 + i * H;
-        const float xh = (o(q) - mean) * rs;
-        const float d = rs * (p.g[q] - m[0] / fnx - xh * (m[1] / fnx));
+        const float xh = (x(0, q) - mean[0]) * rs[0];
+        const float d = rs[0] * (p.g[q] - m[0] / fnx - xh * (m[1] / fnx));
         p.dh[q] = RES ? d : 0.0f;
         L[0].dz4[q] = FA ? d * dswish(L[0].z4[q]) : d;
       }
     } else {
-      const float *zg = L[0].z4, *zl = L[1].z4;
-      float s[2] = {0.0f, 0.0f};
-      for (int i = rg; i < rows; i += RG) {
-        s[0] += zg[q0 + i * H];
-        s[1] += zl[q0 + i * H];
-      }
-      sum_groups(s, red);
-      const float mg = s[0] / fnx, ml = s[1] / fnx;
-      float v[2] = {0.0f, 0.0f};
-      for (int i = rg; i < rows; i += RG) {
-        const float a = zg[q0 + i * H] - mg, b = zl[q0 + i * H] - ml;
-        v[0] += a * a;
-        v[1] += b * b;
-      }
-      sum_groups(v, red);
-      const float rsg = 1.0f / sqrtf(v[0] / fnx + 1e-5f);
-      const float rsl = 1.0f / sqrtf(v[1] / fnx + 1e-5f);
       // per row: gn, ln, tau and the cotangents of ln and gn
       auto co = [&](int q, float& gn, float& ln, float& tau, float& dln,
                     float& dgn) {
-        gn = (zg[q] - mg) * rsg;
-        ln = (zl[q] - ml) * rsl;
+        gn = (x(0, q) - mean[0]) * rs[0];
+        ln = (x(1, q) - mean[1]) * rs[1];
         tau = sigm(gn);
         const float gq = p.g[q];
         dln = gq * tau * dswish(ln);
@@ -588,66 +687,28 @@ __device__ __forceinline__ void norm_phase(const Params& p,
         const int q = q0 + i * H;
         float gn, ln, tau, dln, dgn;
         co(q, gn, ln, tau, dln, dgn);
-        L[1].dz4[q] = rsl * (dln - m[0] / fnx - ln * (m[1] / fnx));
-        L[0].dz4[q] = rsg * (dgn - m[2] / fnx - gn * (m[3] / fnx));
+        L[1].dz4[q] = rs[1] * (dln - m[0] / fnx - ln * (m[1] / fnx));
+        L[0].dz4[q] = rs[0] * (dgn - m[2] / fnx - gn * (m[3] / fnx));
         p.dh[q] = p.g[q] * (1.0f - tau);
       }
     }
-  }
+  });
 }
 
-// The whole backward; NL = 2 is the gated pair (both layers GNN_LayerLin).
-template <int NL, bool FA, bool RES>
-__device__ __forceinline__ void backward(const Params& p, float* smem) {
-  static_assert(NL == 1 || (!FA && !RES), "the pair's layers are LayerLin");
-  cg::grid_group grid = cg::this_grid();
-  if (PHASE_TIMES) phase_end(grid, 0);
+// Phases A-D, the layers' forward, into nbr and each layer's s_i, s_j, m0,
+// z2, agg, z3 and z4; each phase ends with its grid-wide barrier.
+template <int NL>
+__device__ __forceinline__ void forward_phases(const Params& p,
+                                               const Lay (&L)[NL], int* nbr,
+                                               float* smem,
+                                               cg::grid_group& grid) {
   const int nx = p.nx, H = p.H, D = p.D, V = p.V, K = p.K;
   const int R = p.B * nx, E = R * K, RH = R * H, EH = E * H;
-  const GradOff go(H, D, V);
-  const int stride = NL * go.total;      // floats of a node chunk's partials
-  const int estride = NL * (H * H + H);  // of an edge chunk's
-  Lay L[NL];
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    float* b = p.scratch + l * layer_floats(R, H, K);
-    float* nb[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) nb[i] = b + (long)i * RH;
-    float* eb = b + 9L * RH;
-    float* wt = eb + 3L * EH;
-    L[l] = Lay{nb[0], nb[1], nb[2], nb[3], nb[4], nb[5], nb[6], nb[7],
-               nb[8], eb, eb + EH, eb + 2L * EH,
-               wt, wt + H * H, wt + 3 * H * H, wt + 4 * H * H};
-  }
-  float* npart = p.scratch + NL * layer_floats(R, H, K);
-  float* epart = npart + (long)cdiv(R, CHUNK) * stride;
-  int* nbr = reinterpret_cast<int*>(epart + (long)cdiv(R, CHUNK_E) * estride);
   const int gthreads = gridDim.x * PT;
   const int gtid = blockIdx.x * PT + threadIdx.x;
-  // a node chunk's partial slice of layer l's gradient at offset off
-  auto part = [&](int l, int off) {
-    return [=](int c) {
-      return npart + (long)c * stride + l * go.total + off;
-    };
-  };
-
-  // A: nbr, the transposed weights, s_i and s_j
+  // A: nbr, s_i and s_j
   for (int e = gtid; e < E; e += gthreads)
     nbr[e] = (e / (nx * K)) * nx + p.idx[e % (nx * K)];
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    const LayerW& w = p.w[l];
-    for (int q = gtid; q < H * H; q += gthreads) {
-      const int k = q / H, n = q % H;  // element (k, n) of the transposes
-      L[l].t4[q] = w.w4[n * H + k];
-      L[l].t2[q] = w.w2[n * H + k];
-      L[l].t3[k * 2 * H + n] = w.w3[n * H + k];
-      L[l].t3[k * 2 * H + H + n] = w.w3[(H + n) * H + k];
-      L[l].thj[q] = w.w_hi[n * H + k];
-      L[l].thj[H * H + q] = w.w_hj[n * H + k];
-    }
-  }
   int base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
@@ -671,7 +732,7 @@ __device__ __forceinline__ void backward(const Params& p, float* smem) {
 #pragma unroll
   for (int l = 0; l < NL; ++l)
     base = product<EDGE_TC>(base, E, H, H, Sw{L[l].m0, H}, Mat{p.w[l].w2, H},
-                            StoreBias{L[l].z2, p.w[l].b2, H, false}, smem);
+                            StoreBias{L[l].z2, p.w[l].b2, H}, smem);
   phase_end(grid, 3);
   // B2: agg
 #pragma unroll
@@ -693,18 +754,85 @@ __device__ __forceinline__ void backward(const Params& p, float* smem) {
   for (int l = 0; l < NL; ++l)
     base = product(base, R, H, 2 * H + V,
                    UpdIn{p.h, L[l].agg, p.v, H, V}, Mat{p.w[l].w3, H},
-                   StoreBias{L[l].z3, p.w[l].b3, H, false}, smem);
+                   StoreBias{L[l].z3, p.w[l].b3, H}, smem);
   phase_end(grid, 5);
   // D: z4
   base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l)
     base = product(base, R, H, H, Sw{L[l].z3, H}, Mat{p.w[l].w4, H},
-                   StoreBias{L[l].z4, p.w[l].b4, H, false}, smem);
+                   StoreBias{L[l].z4, p.w[l].b4, H}, smem);
   phase_end(grid, 6);
+}
+
+// The whole forward; NL = 2 is the gated pair (both layers GNN_LayerLin),
+// whose stash (gn, ln) STASH writes.
+template <int NL, bool FA, bool RES, bool STASH>
+__device__ __forceinline__ void forward(const Params& p, float* smem) {
+  static_assert(NL == 1 || (!FA && !RES), "the pair's layers are LayerLin");
+  static_assert(NL == 2 || !STASH, "the stash is the pair's");
+  cg::grid_group grid = cg::this_grid();
+  if (PHASE_TIMES) phase_end(grid, 0);
+  const int R = p.B * p.nx;
+  const long per = fwd_layer_floats(R, p.H, p.K);
+  Lay L[NL];
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+    L[l] = layer_bufs(p.scratch, l, per, R, p.H, p.K);
+  int* nbr = reinterpret_cast<int*>(p.scratch + NL * per);
+  forward_phases<NL>(p, L, nbr, smem, grid);
+  // E: InstanceNorm (and the pair's combine) into out
+  norm_fwd<NL, FA, RES, STASH>(p, L, smem);
+  if (PHASE_TIMES) phase_end(grid, 7);
+}
+
+// The whole backward; NL = 2 is the gated pair (both layers GNN_LayerLin).
+template <int NL, bool FA, bool RES>
+__device__ __forceinline__ void backward(const Params& p, float* smem) {
+  static_assert(NL == 1 || (!FA && !RES), "the pair's layers are LayerLin");
+  cg::grid_group grid = cg::this_grid();
+  if (PHASE_TIMES) phase_end(grid, 0);
+  const int nx = p.nx, H = p.H, D = p.D, V = p.V, K = p.K;
+  const int R = p.B * nx, E = R * K, RH = R * H;
+  const GradOff go(H, D, V);
+  const int stride = NL * go.total;      // floats of a node chunk's partials
+  const int estride = NL * (H * H + H);  // of an edge chunk's
+  Lay L[NL];
+#pragma unroll
+  for (int l = 0; l < NL; ++l)
+    L[l] = layer_bufs(p.scratch, l, layer_floats(R, H, K), R, H, K);
+  float* npart = p.scratch + NL * layer_floats(R, H, K);
+  float* epart = npart + (long)cdiv(R, CHUNK) * stride;
+  int* nbr = reinterpret_cast<int*>(epart + (long)cdiv(R, CHUNK_E) * estride);
+  const int gthreads = gridDim.x * PT;
+  const int gtid = blockIdx.x * PT + threadIdx.x;
+  // a node chunk's partial slice of layer l's gradient at offset off
+  auto part = [&](int l, int off) {
+    return [=](int c) {
+      return npart + (long)c * stride + l * go.total + off;
+    };
+  };
+
+  // A (the backward's part): the transposed weights
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    const LayerW& w = p.w[l];
+    for (int q = gtid; q < H * H; q += gthreads) {
+      const int k = q / H, n = q % H;  // element (k, n) of the transposes
+      L[l].t4[q] = w.w4[n * H + k];
+      L[l].t2[q] = w.w2[n * H + k];
+      L[l].t3[k * 2 * H + n] = w.w3[n * H + k];
+      L[l].t3[k * 2 * H + H + n] = w.w3[(H + n) * H + k];
+      L[l].thj[q] = w.w_hi[n * H + k];
+      L[l].thj[H * H + q] = w.w_hj[n * H + k];
+    }
+  }
+  // A-D: the layers' forward
+  forward_phases<NL>(p, L, nbr, smem, grid);
   // E: InstanceNorm (and the pair's combine) forward and backward
-  norm_phase<NL, FA, RES>(p, L, smem);
+  norm_bwd<NL, FA, RES>(p, L, smem);
   phase_end(grid, 7);
+  int base;
   // F: dz3, dw4 and db4
   base = 0;
 #pragma unroll

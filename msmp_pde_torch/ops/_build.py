@@ -76,12 +76,16 @@ def build_all() -> dict:
         return {n: _finish(n, p) for n, p in procs.items()}
 
 
-def build_variant(name: str, lib, extra) -> str:
-    """Compile ``csrc/<name>.cu`` with the extra nvcc flags ``extra`` into
-    the library ``lib`` (another path than the one ``load`` uses); returns
-    nvcc's output. For measurement builds, e.g. ``-DMP_PHASE_TIMES``."""
+def build_variants(names, out_dir, extra) -> dict:
+    """Compile each ``csrc/<name>.cu`` of ``names`` with the extra nvcc
+    flags ``extra`` into ``out_dir/lib<name>.so`` (another directory than
+    the one ``load`` uses), all in parallel; returns nvcc's output per
+    source. For measurement builds, e.g. ``-DMP_PHASE_TIMES``."""
+    out_dir = Path(out_dir)
     with _lock:
-        return _finish(name, _start(name, ("-Xptxas", "-v", *extra), lib))
+        procs = {n: _start(n, ("-Xptxas", "-v", *extra),
+                           out_dir / f"lib{n}.so") for n in names}
+        return {n: _finish(n, p) for n, p in procs.items()}
 
 
 def use(name: str, lib) -> ctypes.CDLL:

@@ -128,14 +128,15 @@ def fused_mp_layer_bwd_plain(h, u, px, v, idx, mask, W, g, final_act=False,
 # pointer and int arguments of each C entry point before its stream
 _ARGS = {"mp_pair_fwd": (12, 6), "mp_pair_bwd": (14, 6),
          "mp_layer_fwd": (9, 8), "mp_layer_bwd": (13, 8)}
-# int arguments of <name>_scratch_floats, where the source has one
-_SCRATCH_ARGS = {"mp_pair_bwd": 6, "mp_layer_fwd": 3, "mp_layer_bwd": 6}
-# int arguments of <name>_grid, the backwards' cooperative grid
-_GRID_ARGS = {"mp_pair_bwd": 0, "mp_layer_bwd": 1}
+# int arguments of <name>_grid, the kernel's cooperative grid
+_GRID_ARGS = {"mp_pair_fwd": 1, "mp_pair_bwd": 0, "mp_layer_fwd": 1,
+              "mp_layer_bwd": 1}
 
 
 def _lib(name):
-    """The typed library of one of the message-passing sources."""
+    """The typed library of one of the message-passing sources: the kernel's
+    entry point, ``<name>_scratch_floats(B, nx, H, D, V, K)`` (its
+    workspace) and ``<name>_grid`` (its cooperative grid)."""
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -143,16 +144,20 @@ def _lib(name):
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
         fn.restype = i
-        if name in _SCRATCH_ARGS:
-            sf = getattr(lib, f"{name}_scratch_floats")
-            sf.argtypes = [i] * _SCRATCH_ARGS[name]
-            sf.restype = ctypes.c_long
-        if name in _GRID_ARGS:
-            gr = getattr(lib, f"{name}_grid")
-            gr.argtypes = [i] * _GRID_ARGS[name]
-            gr.restype = i
+        sf = getattr(lib, f"{name}_scratch_floats")
+        sf.argtypes = [i] * 6
+        sf.restype = ctypes.c_long
+        gr = getattr(lib, f"{name}_grid")
+        gr.argtypes = [i] * _GRID_ARGS[name]
+        gr.restype = i
         lib._typed = True
     return lib
+
+
+def _scratch(lib, name, B, nx, H, D, V, K, device):
+    """The kernel's float32 workspace for this shape."""
+    n = getattr(lib, f"{name}_scratch_floats")(B, nx, H, D, V, K)
+    return torch.empty(n, device=device, dtype=torch.float32)
 
 
 def inverse_neighbors(idx, mask):
@@ -196,13 +201,16 @@ def _inverse_of(idx, mask):
     return lists
 
 
-def bwd_grid_blocks(name, final_act=False):
-    """The blocks of the cooperative launch of ``mp_pair_bwd`` or
-    ``mp_layer_bwd`` on the current card (its SMs times the blocks that fit
-    on one at once); raises where it cannot be formed."""
+def grid_blocks(name, variant=False):
+    """The blocks of the cooperative launch of one of the message-passing
+    kernels (``mp_pair_fwd``, ``mp_pair_bwd``, ``mp_layer_fwd``,
+    ``mp_layer_bwd``) on the current card: its SMs times the blocks that
+    fit on one at once. ``variant`` picks the template: ``stash`` for
+    ``mp_pair_fwd``, ``final_act`` for the single layer's kernels. Raises
+    where the grid cannot be formed."""
     lib = _lib(name)
-    n = (lib.mp_layer_bwd_grid(int(final_act)) if name == "mp_layer_bwd"
-         else lib.mp_pair_bwd_grid())
+    args = (int(variant),) * _GRID_ARGS[name]
+    n = getattr(lib, f"{name}_grid")(*args)
     if n <= 0:
         raise RuntimeError(f"{name}: no cooperative grid (CUDA error {-n})")
     return n
@@ -273,16 +281,15 @@ def _switches(final_act, residual):
 
 def fused_mp_layer_kernel(h, u, px, v, idx, mask, W, final_act=False,
                           residual=False):
-    """Launch ``csrc/mp_layer_fwd.cu``; raises on anything it does not
-    take."""
+    """Launch ``csrc/mp_layer_fwd.cu``, one cooperative kernel over the
+    whole batch; raises on anything it does not take."""
     global launches
     switches = _switches(final_act, residual)
     (h, u, px, v, idx, mask), (w,), (B, nx, H, D, V, K) = _kernel_inputs(
         "fused_mp_layer", h, u, px, v, idx, mask, W)
     lib = _lib("mp_layer_fwd")
     out = torch.empty_like(h)
-    scratch = torch.empty(B * lib.mp_layer_fwd_scratch_floats(nx, H, K),
-                          device=h.device, dtype=torch.float32)
+    scratch = _scratch(lib, "mp_layer_fwd", B, nx, H, D, V, K, h.device)
     # The tensors freed on return (scratch, contiguous copies) are reused
     # only by later work on this stream, which runs after the kernel.
     stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -313,8 +320,7 @@ def fused_mp_layer_bwd_kernel(h, u, px, v, idx, mask, W, g, final_act=False,
     per_layer = sum(torch.Size(s).numel() for s in _weight_shapes(H, D, V))
     dh = torch.empty_like(h)
     dw = torch.empty(per_layer, **f32)
-    scratch = torch.empty(
-        lib.mp_layer_bwd_scratch_floats(B, nx, H, D, V, K), **f32)
+    scratch = _scratch(lib, "mp_layer_bwd", B, nx, H, D, V, K, h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         err = lib.mp_layer_bwd(

@@ -31,6 +31,7 @@ from msmp_pde_torch.ops.mp_layer import (
     _layer_forward,
     _lib,
     _ptrs,
+    _scratch,
     _split_grads,
     _weight_shapes,
     fused_mp_layer_plain,
@@ -107,22 +108,23 @@ def pair_bwd_fused_fits(B, nx, H, D, V, K, device) -> bool:
 
 
 def fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl, stash=False):
-    """Launch ``csrc/mp_pair_fwd.cu``; raises on anything it does not take.
-    With ``stash`` returns (out, gn, ln)."""
+    """Launch ``csrc/mp_pair_fwd.cu``, one cooperative kernel over the whole
+    batch; raises on anything it does not take. With ``stash`` returns
+    (out, gn, ln)."""
     global launches, stash_launches
     (h, u, px, v, idx, mask), (wg, wl), (B, nx, H, D, V, K) = \
         _kernel_inputs("fused_gated_pair", h, u, px, v, idx, mask, Wg, Wl)
+    lib = _lib("mp_pair_fwd")
     out = torch.empty_like(h)
     gn, ln = (torch.empty_like(h), torch.empty_like(h)) if stash else (
         None, None)
-    scratch = torch.empty(B * (6 * nx + nx * K) * H, device=h.device,
-                          dtype=torch.float32)
+    scratch = _scratch(lib, "mp_pair_fwd", B, nx, H, D, V, K, h.device)
     # The launch copies the pointer arrays into the kernel's arguments. The
     # tensors freed on return (scratch, contiguous copies) are reused only by
     # later work on this stream, which runs after the kernel.
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
-        err = _lib("mp_pair_fwd").mp_pair_fwd(
+        err = lib.mp_pair_fwd(
             h.data_ptr(), u.data_ptr(), px.data_ptr(), v.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), _ptrs(wg), _ptrs(wl),
             out.data_ptr(), gn.data_ptr() if stash else None,
@@ -151,8 +153,7 @@ def fused_gated_pair_bwd_kernel(h, u, px, v, idx, mask, Wg, Wl, g):
     f32 = dict(device=h.device, dtype=torch.float32)
     dh = torch.empty_like(h)
     dw = torch.empty(2 * per_layer, **f32)
-    scratch = torch.empty(lib.mp_pair_bwd_scratch_floats(B, nx, H, D, V, K),
-                          **f32)
+    scratch = _scratch(lib, "mp_pair_bwd", B, nx, H, D, V, K, h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         err = lib.mp_pair_bwd(

@@ -13,7 +13,8 @@ parameter gradients the scale-aware max|diff| <= max(1e-3 max|ref|, 2e-4),
 where b4's gradient, analytically zero and roundoff on both sides, takes
 its layer's w4 gradient's scale (chip_smoke.scale_aware); a step's loss
 relative 1e-4. The single-layer kernels take the pair's tolerances: the
-forward 1e-4, the backward the scale-aware bound, bitwise repeatable.
+forward 1e-4, the backward the scale-aware bound. Every message-passing
+kernel, forward and backward, is bitwise repeatable.
 """
 import numpy as np
 import pytest
@@ -66,9 +67,12 @@ def test_lem_kernel_matches_plain(cuda_device, N, H):
 @pytest.mark.parametrize("B,nx,H,V,n", [(1, 100, 128, 1, 3),
                                          (4, 100, 128, 1, 3),
                                          (16, 100, 128, 1, 3),
-                                         (2, 40, 96, 3, 2)])
+                                         (48, 100, 128, 1, 3),
+                                         (2, 40, 96, 3, 2),
+                                         (3, 37, 96, 2, 2)])
 def test_pair_kernel_matches_plain(cuda_device, B, nx, H, V, n):
-    """The last case has a width that no 64-column tile divides."""
+    """Bitwise repeatable; the last cases have a width that no 64-column
+    tile divides and node counts no 32-row tile divides."""
     rng = np.random.default_rng(B)
     D = 25
     idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
@@ -83,8 +87,10 @@ def test_pair_kernel_matches_plain(cuda_device, B, nx, H, V, n):
     with torch.no_grad():
         before = mp_pair.launches
         got = mp_pair.fused_gated_pair(*args)
-        assert mp_pair.launches == before + 1
+        again = mp_pair.fused_gated_pair(*args)
+        assert mp_pair.launches == before + 2
         want = mp_pair.fused_gated_pair_plain(*args)
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -226,6 +232,8 @@ def test_layer_kernels_match_plain(cuda_device, B, nx, H, V, n, switch):
     args = _layer_args(cuda_device, B, nx, H, V, n, switch, 300 + B)
     before = (mp_layer.launches, mp_layer.bwd_launches)
     got = mp_layer.fused_mp_layer_kernel(*args, switch, switch)
+    assert torch.equal(got, mp_layer.fused_mp_layer_kernel(*args, switch,
+                                                           switch))
     want = mp_layer.fused_mp_layer_plain(*args, switch, switch)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     g = _rand(np.random.default_rng(B), cuda_device, *got.shape)
@@ -234,7 +242,7 @@ def test_layer_kernels_match_plain(cuda_device, B, nx, H, V, n, switch):
     k2 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
     p = flat(mp_layer.fused_mp_layer_bwd_plain(*args, g, switch, switch))
     assert (mp_layer.launches, mp_layer.bwd_launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
     for k, (a, b, c) in enumerate(zip(k1, k2, p)):
         assert torch.equal(a, b), k
         # without final_act, b4's gradient (output 12) is roundoff only
@@ -247,12 +255,25 @@ def test_layer_kernels_match_plain(cuda_device, B, nx, H, V, n, switch):
                                             ("mp_layer_bwd", False)])
 def test_bwd_cooperative_grid_fills_every_sm(cuda_device, name, final_act):
     """The backwards launch as many blocks as fit on every SM at once."""
-    n = mp_layer.bwd_grid_blocks(name, final_act)
+    n = mp_layer.grid_blocks(name, final_act)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert n >= sms and n % sms == 0, (n, sms)
 
 
-@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("name,variant", [("mp_pair_fwd", False),
+                                          ("mp_pair_fwd", True),
+                                          ("mp_layer_fwd", True),
+                                          ("mp_layer_fwd", False)])
+def test_fwd_cooperative_grid_fills_every_sm(cuda_device, name, variant):
+    """The forwards (the pair's with and without the stash, the layer's
+    GNN_Layer and GNN_LayerLin) launch as many blocks as fit on every SM at
+    once, whatever the batch."""
+    n = mp_layer.grid_blocks(name, variant)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert n >= sms and n % sms == 0, (n, sms)
+
+
+@pytest.mark.parametrize("B", [1, 4, 16, 48])
 def test_pair_stash_matches_no_stash(cuda_device, B):
     args = _layer_args(cuda_device, B, 100, 128, 1, 3, False, 400 + B)
     Wl = _layer_args(cuda_device, B, 100, 128, 1, 3, False, 500 + B)[-1]

@@ -1,7 +1,8 @@
 """PyTorch port, serving (serving/engine.py, serving/serve.py) against the
 JAX RolloutEngine on the same weights: E1 and E2 at nx=40 with 2 gated
-pairs at hidden 128. Both engines run float32 on the CPU; the bound is
-1e-4 after two autoregressive windows (summation order only)."""
+pairs (MSMP-PDE) or 2 ungated layers (MP-PDE) at hidden 128. Both engines
+run float32 on the CPU; the bound is 1e-4 after two autoregressive windows
+(summation order only)."""
 import threading
 
 import jax
@@ -25,13 +26,12 @@ RES = (250, 40)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _pair(experiment, buckets):
-    jt = jbuild(experiment, "MSMP-PDE", base_resolution=RES,
-                n_graph_layers=2)
+def _pair(experiment, buckets, model="MSMP-PDE"):
+    jt = jbuild(experiment, model, base_resolution=RES, n_graph_layers=2)
     params = jt.init_params(jax.random.PRNGKey(0), batch_size=2)
     jeng = JEngine(jt, params, batch_buckets=buckets)
     state = params_from_flax(np_tree(params, np.float32))
-    tt = build_serving_trainer(experiment, "MSMP-PDE", base_resolution=RES,
+    tt = build_serving_trainer(experiment, model, base_resolution=RES,
                                n_graph_layers=2, device="cpu")
     return jeng, state, RolloutEngine(tt, state, batch_buckets=buckets)
 
@@ -46,8 +46,16 @@ def _windows(B, seed):
         np.float32)
 
 
-def test_rollout_matches_jax(e1):
-    jeng, _, eng = e1
+ROLLOUT_CASES = [("MSMP-PDE", (4,)), ("MSMP-PDE", (1,)), ("MP-PDE", (4,)),
+                 ("MP-PDE", (1,))]
+
+
+@pytest.mark.parametrize("model,buckets", ROLLOUT_CASES)
+def test_rollout_matches_jax(e1, model, buckets):
+    """The gated and the ungated serving path, with the four windows in one
+    bucket of 4 and one at a time in buckets of 1."""
+    jeng, _, eng = (e1 if (model, buckets) == ROLLOUT_CASES[0]
+                    else _pair("E1", buckets, model))
     w = _windows(4, 0)
     got = eng.rollout(w, start_step=25, n_windows=2)
     assert got.shape == (4, 2, 40, 25) and np.isfinite(got).all()
