@@ -5,8 +5,10 @@
 
 Phases, each of which fails the run on error:
   1. build every CUDA kernel (serving and training) from
-     msmp_pde_torch/csrc, printing ptxas's registers and spills;
-  2. LEM-scan kernel vs its plain PyTorch version, N in {100, 400, 1600, 37};
+     msmp_pde_torch/csrc, printing ptxas's registers and spills and the
+     LEM kernels' shared memory a CTA;
+  2. LEM-scan kernel vs its plain PyTorch version, N in {100, 400, 1600, 37}
+     at hidden 128 and 96; two runs give bitwise equal outputs;
   3. fused gated-pair kernel vs its plain version, B in {1, 4, 16, 48} at
      the model's weights and one width no 64-column tile divides; two runs
      give bitwise equal outputs;
@@ -24,7 +26,9 @@ Phases, each of which fails the run on error:
      and 16 beside the host's time to enqueue it, and request latency per
      bucket;
   7. the LEM-scan stash variant and backward kernel vs their plain
-     versions, N in {100, 400, 1600, 37};
+     versions, N in {100, 400, 1600, 37} at hidden 128 and 96; two runs of
+     each give bitwise equal outputs, and the stash variant's yT, zT are
+     bitwise the other variant's;
   8. the fused-pair backward kernel vs its plain version, B in {1, 4, 16,
      48} with the model's weights and one width no 64-column tile divides;
      two runs give bitwise equal gradients;
@@ -35,8 +39,9 @@ Phases, each of which fails the run on error:
      [16, 250, 100], i.e. 250 optimizer steps, each with the expected
      kernel launches, finite losses, and a falling loss;
  11. timings of the three training kernels beside their plain versions and
-     bounds, and of one train step at unrolled 0 and 1 (CUDA events and the
-     host's enqueue time);
+     bounds, the LEM forward's own card time (torch.profiler) at buckets 1,
+     4 and 16 and the LEM backward's by launch, and one train step at
+     unrolled 0 and 1 (CUDA events and the host's enqueue time);
  12. the single-layer kernels (forward and backward) vs their plain
      versions, B in {1, 4, 16, 48} at MP-PDE's weights and one width no
      64-column tile divides, for both (final_act, residual) in {(T, T),
@@ -73,9 +78,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks: HBM bytes/s, float32 FLOP/s outside tensor cores
+# H100 SXM published peaks: HBM bytes/s, float32 FLOP/s outside the tensor
+# cores, dense TF32 FLOP/s on them
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
 N_WINDOWS = 8
 BUCKETS = (1, 4, 16)
 ROLLOUT_SAMPLES = 100  # per bucket: p90 has 10 samples beyond it
@@ -222,8 +229,13 @@ def timed_graph(fn, reps=20, rounds=11):
     return timed(graph.replay, reps=reps, rounds=rounds)
 
 
-def bound(nbytes, flops):
-    t_mem, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+def bound(nbytes, flops, tc_flops=0):
+    """The least time in ms for a kernel that moves ``nbytes`` and does
+    ``flops`` float32 operations on the CUDA cores and ``tc_flops`` in
+    3xTF32 on the tensor cores (three TF32 products for each), and which
+    of the two bounds it."""
+    t_mem = nbytes / HBM_BYTES_S
+    t_ops = flops / F32_FLOP_S + 3 * tc_flops / TF32_FLOP_S
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -336,40 +348,80 @@ def smooth_trajectories(n, t_grid, x, L, seed):
     return u.sum(-1).astype(np.float32)
 
 
-def check_lem_training_kernels(rand, T, H):
+# (hidden, rows) of phases 2 and 7: buckets 1, 4, 16 of nx 100 and a ragged
+# tile, at the model's width and one more
+LEM_CASES = [(H, N) for H in (128, 96) for N in (100, 400, 1600, 37)]
+
+
+def check_lem_training_kernels(rand, T):
     """Phase 7: returns (stash max error, backward max error)."""
     import torch
 
     from msmp_pde_torch.ops import lem_scan
+    from msmp_pde_torch.tools.lem_times import lem_args
 
     e_stash = e_bwd = 0.0
     names = ("dgx", "dzx", "dy0", "dz0", "dwy", "dwzz")
-    for N in (100, 400, 1600, 37):
-        args = (rand(T, N, 3 * H), rand(T, N, H), rand(N, H, scale=.5),
-                rand(N, H, scale=.5), rand(H, 3 * H, scale=H ** -.5),
-                rand(H, H, scale=H ** -.5))
+    for H, N in LEM_CASES:
+        args = lem_args(rand, T, N, H)
         k = lem_scan.lem_scan_kernel(*args, stash=True)
+        k2 = lem_scan.lem_scan_kernel(*args, stash=True)
+        plain_k = lem_scan.lem_scan_kernel(*args)
         p = lem_scan.lem_scan_plain(*args, stash=True)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(k, k2)),
+              f"lem_fwd_stash N={N} H={H}: two runs differ")
+        check(all(torch.equal(a, b) for a, b in zip(k[:2], plain_k)),
+              f"lem_fwd_stash N={N} H={H}: yT, zT differ from lem_fwd's")
         e = max((a - b).abs().max().item() for a, b in zip(k, p))
         e_stash = max(e_stash, e)
-        print(f"lem_fwd_stash N={N}: max |kernel - plain| = {e:.3e}")
-        check(e <= TOL_LEM, f"lem_fwd_stash N={N} differs by {e:.3e}")
+        print(f"lem_fwd_stash N={N} H={H}: max |kernel - plain| = {e:.3e}; "
+              "two runs bitwise equal, yT and zT bitwise lem_fwd's")
+        check(e <= TOL_LEM, f"lem_fwd_stash N={N} H={H} differs by {e:.3e}")
         cot = (rand(N, H), rand(N, H))
         gk = lem_scan.lem_scan_bwd_kernel(*args, *p[2:], *cot)
+        gk2 = lem_scan.lem_scan_bwd_kernel(*args, *p[2:], *cot)
         gp = lem_scan.lem_scan_bwd_plain(*args, *p[2:], *cot)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(gk, gk2)),
+              f"lem_bwd N={N} H={H}: two runs differ")
+        worst = 0.0
         for name, a, b in zip(names, gk, gp):
             atol = LEM_BWD_ATOL
             if name.startswith("dw"):
                 atol *= b.abs().max().item()
             e = (a - b).abs().max().item()
-            e_bwd = max(e_bwd, e)
+            worst = max(worst, e)
             check(bool(torch.allclose(a, b, rtol=LEM_BWD_RTOL, atol=atol)),
-                  f"lem_bwd N={N} {name}: max |diff| {e:.3e}, atol {atol}")
-        print(f"lem_bwd N={N}: all six outputs within rtol {LEM_BWD_RTOL} "
-              f"(max |kernel - plain| {e_bwd:.3e})")
+                  f"lem_bwd N={N} H={H} {name}: max |diff| {e:.3e}, atol "
+                  f"{atol}")
+        e_bwd = max(e_bwd, worst)
+        print(f"lem_bwd N={N} H={H}: all six outputs within rtol "
+              f"{LEM_BWD_RTOL} (max |kernel - plain| {worst:.3e}); two runs "
+              "bitwise equal")
     return e_stash, e_bwd
+
+
+def lem_card_times(rand, T, H):
+    """Phase 11: the LEM kernels' own card time from torch.profiler, ms a
+    call: lem_fwd at buckets 1, 4 and 16 (N = 100, 400, 1600), and
+    lem_bwd's launches one by one at 16."""
+    from msmp_pde_torch.ops import lem_scan
+    from msmp_pde_torch.tools.lem_times import kernels_us, lem_args, short
+
+    for N in (100, 400, 1600):
+        args = lem_args(rand, T, N, H)
+        ks = kernels_us(lambda: lem_scan.lem_scan_kernel(*args))
+        ev = timed(lambda: lem_scan.lem_scan_kernel(*args))
+        own = (" + ".join(f"{short(k)} {us / 1e3:.4f}" for k, us in ks)
+               if ks else "not measured")
+        print(f"lem_fwd @N={N}: card {own} ms; CUDA events {ev:.4f} ms")
+    _, _, ys, zs = lem_scan.lem_scan_plain(*args, stash=True)
+    bargs = (*args, ys, zs, rand(N, H), rand(N, H))
+    ks = kernels_us(lambda: lem_scan.lem_scan_bwd_kernel(*bargs))
+    own = (" + ".join(f"{short(k)} {us / 1e3:.4f}" for k, us in ks)
+           if ks else "not measured")
+    print(f"lem_bwd @N={N}: card by launch {own} ms")
 
 
 def check_pair_bwd(rand, model, spec, T, H, V):
@@ -833,6 +885,7 @@ def main():
         RolloutEngine,
         build_serving_trainer,
     )
+    from msmp_pde_torch.tools.lem_times import lem_args
     from msmp_pde_torch.training.setup import build_trainer
     from msmp_pde_torch.utils.convert import params_from_flax
 
@@ -854,21 +907,31 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    for H in (128, 96):
+        fwd = {N: lem_scan.lem_launch_shape(N, H) for N in (100, 1600)}
+        bwd = lem_scan.lem_launch_shape(1600, H, backward=True)
+        print(f"  LEM clusters at hidden {H} (rows a cluster, CTAs a cluster, "
+              f"CTAs, dynamic shared bytes a CTA): lem_fwd N=100 {fwd[100]}, "
+              f"N=1600 {fwd[1600]}; lem_bwd N=1600 {bwd}")
 
     # 2. LEM-scan kernel vs plain ----------------------------------------
-    T, H = 25, 128
+    T = 25
     err = {"lem_fwd": 0.0, "mp_pair_fwd": 0.0}
-    for N in (100, 400, 1600, 37):
-        args = (rand(T, N, 3 * H), rand(T, N, H), rand(N, H, scale=.5),
-                rand(N, H, scale=.5), rand(H, 3 * H, scale=H ** -.5),
-                rand(H, H, scale=H ** -.5))
+    for H, N in LEM_CASES:
+        args = lem_args(rand, T, N, H)
         yk, zk = lem_scan.lem_scan(*args)
+        again = lem_scan.lem_scan(*args)
         yp, zp = lem_scan.lem_scan_plain(*args)
         torch.cuda.synchronize()
+        check(torch.equal(yk, again[0]) and torch.equal(zk, again[1]),
+              f"lem_fwd N={N} H={H}: two runs differ")
         e = max((yk - yp).abs().max().item(), (zk - zp).abs().max().item())
         err["lem_fwd"] = max(err["lem_fwd"], e)
-        print(f"lem_fwd N={N}: max |kernel - plain| = {e:.3e}")
-        check(e <= TOL_LEM, f"lem_fwd N={N} differs by {e:.3e} > {TOL_LEM}")
+        print(f"lem_fwd N={N} H={H}: max |kernel - plain| = {e:.3e}; two "
+              "runs bitwise equal")
+        check(e <= TOL_LEM,
+              f"lem_fwd N={N} H={H} differs by {e:.3e} > {TOL_LEM}")
+    H = 128
 
     # 4 (set-up). full-width serving trainer and converted weights -------
     trainer = build_serving_trainer("E1", "MSMP-PDE", device=dev)
@@ -933,16 +996,19 @@ def main():
     lem_plain_ms = timed_graph(lambda: lem_scan.lem_scan_plain(*largs))
     lem_bytes = 4 * (T * N * 4 * H + 4 * N * H + 4 * H * H)
     lem_flops = T * N * (2 * H * 3 * H + 2 * H * H)
-    lem_bound, lem_by = bound(lem_bytes, lem_flops)
+    # every LEM product runs in 3xTF32 on the tensor cores
+    lem_bound, lem_by = bound(lem_bytes, 0, lem_flops)
 
     D = T
     w_elems = sum(w.numel() for w in Wg) + sum(w.numel() for w in Wl)
     e_valid = float(spec.mask.sum().item())
     # i side with mix (u w_du + px w_dx, counted once), j side h w_hj,
-    # edge w2 over the valid edges, update w3 and w4
+    # edge w2 over the valid edges, update w3 and w4. The edge products
+    # (w2 here; dw2 and dm1 in the backward) run in 3xTF32 on the tensor
+    # cores (csrc/mp_phases.cuh), the rest as float32 FMAs.
+    edge = 2 * e_valid * H * H
     per_layer = (2 * nx * (H + D + 1 + V) * H + 2 * nx * H * H
-                 + 2 * e_valid * H * H + 2 * nx * (2 * H + V) * H
-                 + 2 * nx * H * H)
+                 + edge + 2 * nx * (2 * H + V) * H + 2 * nx * H * H)
     print(f"lem_fwd @bucket 16: kernel {lem_ms:.4f} ms, plain "
           f"{lem_plain_ms:.4f} ms (CUDA graph; {lem_eager_ms:.4f} ms eager), "
           f"bound {lem_bound:.4f} ms ({lem_by})")
@@ -955,7 +1021,7 @@ def main():
             pms = timed_graph(lambda: mp_pair.fused_gated_pair_plain(*pargs))
         bms, by = bound(
             4 * (B * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_elems),
-            B * 2 * per_layer)
+            B * 2 * (per_layer - edge), B * 2 * edge)
         pair_times[B] = (ms, pms, ems, bms, by)
         print(f"mp_pair_fwd @bucket {B}: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms (CUDA graph; {ems:.4f} ms eager), bound "
@@ -968,7 +1034,7 @@ def main():
     time_rollouts(engine, "MSMP-PDE")
 
     # 7-10. training: kernels vs plain, one step, the main path ----------
-    e_stash, e_lbwd = check_lem_training_kernels(rand, T, H)
+    e_stash, e_lbwd = check_lem_training_kernels(rand, T)
     train_tr = build_trainer("E1", "MSMP-PDE", device=dev)
     train_tr.model.load_state_dict(params, strict=True)
     e_pbwd, pbwd_args = check_pair_bwd(rand, train_tr.model, train_tr.spec, T,
@@ -985,7 +1051,8 @@ def main():
         lambda: lem_scan.lem_scan_plain(*largs, stash=True))
     stash_plain_ms = timed_graph(
         lambda: lem_scan.lem_scan_plain(*largs, stash=True))
-    stash_bound, stash_by = bound(lem_bytes + 4 * 2 * T * N * H, lem_flops)
+    stash_bound, stash_by = bound(lem_bytes + 4 * 2 * T * N * H, 0,
+                                  lem_flops)
     _, _, ys, zs = lem_scan.lem_scan_plain(*largs, stash=True)
     bargs = (*largs, ys, zs, rand(N, H), rand(N, H))
     lbwd_ms = timed(lambda: lem_scan.lem_scan_bwd_kernel(*bargs))
@@ -994,8 +1061,9 @@ def main():
     # reads gx, zx, ys, zs, y0, z0, dyT, dzT, Wy, Wzz; writes dgx, dzx, dy0,
     # dz0, dWy, dWzz. Operations: the sweep's four recurrent products
     # (16 H^2 a row-step) and the two weight gradients (8 H^2 a row-step).
+    lbwd_flops = 24 * T * N * H * H
     lbwd_bound, lbwd_by = bound(
-        4 * (10 * T * N * H + 6 * N * H + 8 * H * H), 24 * T * N * H * H)
+        4 * (10 * T * N * H + 6 * N * H + 8 * H * H), 0, lbwd_flops)
     pbwd_ms = timed(lambda: mp_pair.fused_gated_pair_bwd_kernel(*pbwd_args))
     pbwd_eager_ms = timed(
         lambda: mp_pair.fused_gated_pair_bwd_plain(*pbwd_args))
@@ -1005,12 +1073,23 @@ def main():
     # dw4, da3, dw3, dh|dagg, dw2 and dm1 over the valid edges, dh from
     # ds_i|ds_j, dw_hi|dw_hj, dw_du|dw_dx|dw_v
     bwd_layer = (2 * nx * H * H * 2 + 2 * nx * (2 * H + V) * H
-                 + 2 * nx * H * 2 * H + 2 * 2 * e_valid * H * H
+                 + 2 * nx * H * 2 * H + 2 * edge
                  + 2 * nx * 2 * H * H + 2 * nx * H * 2 * H
                  + 2 * nx * (D + 1 + V) * H)
+    # a layer's forward and backward: three edge products on the tensor
+    # cores, the rest on the CUDA cores
+    fb_core = per_layer + bwd_layer - 3 * edge
     pbwd_bound, pbwd_by = bound(
         4 * (16 * nx * (3 * H + D + 1 + V) + 2 * nx * K + 2 * w_elems),
-        16 * 2 * (per_layer + bwd_layer))
+        16 * 2 * fb_core, 16 * 2 * 3 * edge)
+    lem_card_times(rand, T, H)
+    # the LEM bounds take every product as 3xTF32 (the kernels' type);
+    # the same products as float32 FMAs on the CUDA cores, beside them
+    for name, flops in (("lem_fwd", lem_flops), ("lem_bwd", lbwd_flops)):
+        print(f"{name} @N={N}: {flops:.3e} FLOP as float32 on the CUDA "
+              f"cores (67 TFLOP/s) {flops / F32_FLOP_S * 1e3:.4f} ms, in "
+              f"3xTF32 (495/3 TFLOP/s) {3 * flops / TF32_FLOP_S * 1e3:.4f} "
+              "ms")
     for name, ms, pms, ems, bms, by in (
             ("lem_fwd_stash", stash_ms, stash_plain_ms, stash_eager_ms,
              stash_bound, stash_by),
@@ -1108,16 +1187,17 @@ def main():
     # final swish, elementwise); the backward as the pair's, for one layer
     lf_bound, lf_by = bound(
         4 * (16 * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_one),
-        16 * per_layer)
+        16 * (per_layer - edge), 16 * edge)
     lf1_bound, lf1_by = bound(
-        4 * (nx * (2 * H + D + 1 + V) + 2 * nx * K + w_one), per_layer)
+        4 * (nx * (2 * H + D + 1 + V) + 2 * nx * K + w_one),
+        per_layer - edge, edge)
     lb_bound, lb_by = bound(
         4 * (16 * nx * (3 * H + D + 1 + V) + 2 * nx * K + 2 * w_one),
-        16 * (per_layer + bwd_layer))
+        16 * fb_core, 16 * 3 * edge)
     # the pair forward at batch 48 with gn and ln written too
     st_bound, st_by = bound(
         4 * (48 * nx * (4 * H + D + 1 + V) + 2 * nx * K + w_elems),
-        48 * 2 * per_layer)
+        48 * 2 * (per_layer - edge), 48 * 2 * edge)
     for name, at, ms, pms, ems, bms, by in (
             ("mp_layer_fwd", "batch 1", lf1_ms, lf1_plain_ms, lf1_eager_ms,
              lf1_bound, lf1_by),

@@ -1,9 +1,9 @@
-// One message-passing layer: its weights and the operand loaders and stores
-// that the phases of mp_phases.cuh fuse into their products. All four
-// message-passing kernels (mp_pair_fwd.cu, mp_layer_fwd.cu, mp_pair_bwd.cu,
-// mp_layer_bwd.cu) run those phases; each source builds into a library of
-// its own. Layouts: node rows r of h, s_i, s_j, agg [R, H]; u [R, D];
-// px [R]; v [R, V].
+// One message-passing layer: its activations, its weights and the operand
+// loaders and stores that the phases of mp_phases.cuh fuse into their
+// products. All four message-passing kernels (mp_pair_fwd.cu,
+// mp_layer_fwd.cu, mp_pair_bwd.cu, mp_layer_bwd.cu) run those phases; each
+// source builds into a library of its own. Layouts: node rows r of h, s_i,
+// s_j, agg [R, H]; u [R, D]; px [R]; v [R, V].
 //
 // The layer (mp_pallas.py::_forward_math, then _instnorm):
 //   mix = u w_du + px w_dx,  s_i = h w_hi + mix + v w_v + b1,  s_j = h w_hj - mix
@@ -15,9 +15,28 @@
 // neither for GNN_LayerLin (the gated pair's two layers). They are template
 // parameters, so the pair's <false, false> code has no branch on them.
 #pragma once
-#include "block_gemm.cuh"
+#include <cuda_runtime.h>
 
 namespace mp {
+
+__device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
+__device__ __forceinline__ float swish(float x) { return x * sigm(x); }
+__device__ __forceinline__ float dswish(float x) {
+  const float s = sigm(x);
+  return s * (1.0f + x * (1.0f - s));
+}
+
+struct Mat {  // row-major w[k, n] with leading dimension ld
+  const float* w;
+  int ld;
+  __device__ float operator()(int k, int n) const { return w[k * ld + n]; }
+};
+
+struct MatT {  // the transpose of row-major w: (k, n) -> w[n, k]
+  const float* w;
+  int ld;
+  __device__ float operator()(int k, int n) const { return w[n * ld + k]; }
+};
 
 struct LayerW {  // the 12 weights in the flax layout, biases [H]
   const float *w_hi, *w_hj, *w_du, *w_dx, *w_v, *b1, *w2, *b2, *w3, *b3,

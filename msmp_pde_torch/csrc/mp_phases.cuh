@@ -54,6 +54,7 @@
 #include <cstdint>
 
 #include "mp_layer.cuh"
+#include "tf32_mma.cuh"
 
 namespace mp {
 namespace phases {
@@ -323,26 +324,6 @@ struct Col {  // column sums of the W operand, columns [0, n) into out
     if (c < n) out[c] = s;
   }
 };
-
-// 3xTF32 on the tensor cores: x = big + small, both TF32 (10 mantissa
-// bits each), and a b ~ a_big b_big + a_big b_small + a_small b_big, which
-// keeps float32's accuracy (the dropped a_small b_small is ~2^-22 of a b).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));
-}
-
-// d += a b for one m16n8k8 TF32 tile (a row-major, b column-major)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // One 32 x 64 output tile of C = A @ W over rows [m0, m0 + TM) of M and
 // columns [n0, n0 + TN) of N, with the sum over k in [k0, k1) in steps of

@@ -79,17 +79,50 @@ def lem_scan_bwd_plain(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
 
 
 # ---- the kernels ---------------------------------------------------------
+CLUSTER = 4        # CTAs of a thread-block cluster (csrc/lem_step.cuh: C)
+ONE_WAVE_N = 1600  # rows up to which every CTA must be resident at once
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def lem_launch_shape(N: int, H: int, *, backward: bool = False):
+    """The grid of ``csrc/lem_fwd.cu`` (or, with ``backward``,
+    ``csrc/lem_bwd.cu``) over N rows at hidden H: (rows_per_cluster, C,
+    ctas, smem_bytes). A cluster of C CTAs owns 64 rows (a wgmma tile of
+    the forward, whose CTA is one warpgroup; the backward holds its weight
+    gradients in 16 warps), CTA i the hidden columns [i H/C, (i + 1) H/C);
+    at N = 1600 that is 100 CTAs, one wave on an H100. Raises for an H the
+    kernels do not take: they are built for 96 and 128 (the forward's
+    wgmma tiles are 3 H/C and H/C wide)."""
+    if H not in (96, 128):
+        raise ValueError(f"lem_scan kernel: hidden {H} must be 96 or 128")
+    if N < 1:
+        raise ValueError(f"lem_scan kernel: {N} rows")
+    C, HC, rows = CLUSTER, H // CLUSTER, 64
+    # the C functions lem_fwd_smem_bytes / lem_bwd_smem_bytes (csrc/
+    # lem_fwd.cu, lem_bwd.cu) compute the same; _shape checks the two agree
+    if backward:
+        floats = 4 * H * HC + 3 * rows * H + rows * (HC + 4) \
+            + rows * (3 * HC + 4)
+    else:
+        floats = 8 * H * HC + 2 * rows * H  # the weights split in two
+    return rows, C, _cdiv(N, rows) * C, 4 * floats
+
+
 def _lib(name):
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "lem_fwd":
             lib.lem_fwd.argtypes = [p] * 10 + [i, i, i, ctypes.c_float, p]
+            lib.lem_fwd_max_clusters.argtypes = [i, i]
         else:
-            lib.lem_bwd.argtypes = [p] * 18 + [i, i, i, ctypes.c_float, p]
-            lib.lem_bwd_partial_floats.argtypes = [i, i, i]
-            lib.lem_bwd_partial_floats.restype = ctypes.c_long
+            lib.lem_bwd.argtypes = [p] * 17 + [i, i, i, ctypes.c_float, p]
+            lib.lem_bwd_max_clusters.argtypes = [i]
         getattr(lib, name).restype = i
+        getattr(lib, f"{name}_max_clusters").restype = i
         smem = getattr(lib, f"{name}_smem_bytes")
         smem.argtypes = [i]
         smem.restype = i
@@ -108,28 +141,51 @@ def _check(named, T, N, H):
         if not x.is_cuda or x.dtype != torch.float32:
             raise ValueError(f"lem_scan kernel: {name} must be a float32 "
                              "CUDA tensor")
-    if H % 32 or H > 1024:
-        raise ValueError(f"lem_scan kernel: hidden {H} must be a multiple "
-                         "of 32 and at most 1024")
     return [x.contiguous() for x in named.values()]
 
 
-def _smem_ok(lib, name, H):
-    if getattr(lib, f"{name}_smem_bytes")(H) > 232448:
-        raise ValueError(f"lem_scan kernel: hidden {H} needs more shared "
-                         "memory than a block has")
+_fits = {}  # (kernel, device, H, stash): clusters the card holds at once
+
+
+def _shape(lib, name, device, N, H, stash=False):
+    """The clusters of lem_launch_shape for this call. The first call of
+    each shape asks the library for its shared memory, which must match,
+    and the card for the clusters it holds at once; every call raises where
+    the card cannot schedule a cluster, or where it cannot hold all of them
+    at once up to ONE_WAVE_N rows."""
+    _, C, ctas, smem = lem_launch_shape(N, H, backward=name == "lem_bwd")
+    key = (name, device.index, H, stash)
+    if key not in _fits:
+        if getattr(lib, f"{name}_smem_bytes")(H) != smem:
+            raise RuntimeError(f"{name}: lem_launch_shape's shared memory "
+                               "disagrees with the kernel's")
+        with torch.cuda.device(device):
+            fit = (lib.lem_fwd_max_clusters(H, int(stash))
+                   if name == "lem_fwd" else lib.lem_bwd_max_clusters(H))
+        if fit < 0:
+            _build.check(-fit, f"{name}: cudaOccupancyMaxActiveClusters")
+        _fits[key] = fit
+    fit, clusters = _fits[key], ctas // C
+    if fit == 0:
+        raise RuntimeError(f"{name}: the card cannot schedule a cluster of "
+                           f"{C} CTAs with {smem} bytes of shared memory each")
+    if N <= ONE_WAVE_N and clusters > fit:
+        raise RuntimeError(f"{name}: {clusters} clusters at {N} rows, but "
+                           f"the card holds {fit} at once")
+    return clusters
 
 
 def lem_scan_kernel(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0,
                     stash: bool = False):
-    """Launch ``csrc/lem_fwd.cu``; raises on anything it does not take.
-    Returns (yT, zT), and with ``stash`` also (ys, zs)."""
+    """Launch ``csrc/lem_fwd.cu`` on thread-block clusters
+    (``lem_launch_shape``); raises on anything it does not take. Returns
+    (yT, zT), and with ``stash`` also (ys, zs)."""
     global launches, stash_launches
     T, N, H3 = gx.shape
     H = H3 // 3
     args = _check(dict(gx=gx, zx=zx, y0=y0, z0=z0, wy=wy, wzz=wzz), T, N, H)
     lib = _lib("lem_fwd")
-    _smem_ok(lib, "lem_fwd", H)
+    _shape(lib, "lem_fwd", gx.device, N, H, stash)
     yT = torch.empty_like(args[2])
     zT = torch.empty_like(args[3])
     outs = [yT, zT]
@@ -148,28 +204,26 @@ def lem_scan_kernel(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0,
 
 def lem_scan_bwd_kernel(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
                         dt: float = 1.0):
-    """Launch ``csrc/lem_bwd.cu`` (the reverse sweep, then the weight
-    gradients as per-chunk partials reduced in a fixed order); raises on
-    anything it does not take. Returns (dgx, dzx, dy0, dz0, dwy, dwzz)."""
+    """Launch ``csrc/lem_bwd.cu`` (the reverse sweep on thread-block
+    clusters, accumulating each cluster's weight gradients, then their sum
+    in cluster order); raises on anything it does not take. Returns (dgx,
+    dzx, dy0, dz0, dwy, dwzz)."""
     global bwd_launches
     T, N, H3 = gx.shape
     H = H3 // 3
     args = _check(dict(gx=gx, zx=zx, y0=y0, z0=z0, wy=wy, wzz=wzz, ys=ys,
                        zs=zs, dyT=dyT, dzT=dzT), T, N, H)
     lib = _lib("lem_bwd")
-    _smem_ok(lib, "lem_bwd", H)
-    # the sweep reads wy's rows for dg @ wy^T: a transposed copy keeps those
-    # reads coalesced
-    wyT = args[4].t().contiguous()
+    clusters = _shape(lib, "lem_bwd", gx.device, N, H)
     dgx, dzx = torch.empty_like(args[0]), torch.empty_like(args[1])
     dy0, dz0 = torch.empty_like(args[2]), torch.empty_like(args[3])
     dwy, dwzz = torch.empty_like(args[4]), torch.empty_like(args[5])
-    partial = torch.empty(lib.lem_bwd_partial_floats(T, N, H),
-                          device=gx.device, dtype=torch.float32)
+    partial = torch.empty(clusters * 4 * H * H, device=gx.device,
+                          dtype=torch.float32)
     stream = torch.cuda.current_stream(gx.device).cuda_stream
     outs = (dgx, dzx, dy0, dz0, dwy, dwzz)
     with torch.cuda.device(gx.device):
-        err = lib.lem_bwd(*[x.data_ptr() for x in args], wyT.data_ptr(),
+        err = lib.lem_bwd(*[x.data_ptr() for x in args],
                           *[x.data_ptr() for x in outs], partial.data_ptr(),
                           T, N, H, float(dt), stream)
     _build.check(err, "lem_bwd")

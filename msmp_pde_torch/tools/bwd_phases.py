@@ -19,7 +19,6 @@ cooperative grids, and the card's name and power limit. Needs a CUDA card.
 """
 import ctypes
 import statistics
-import subprocess
 import sys
 
 import numpy as np
@@ -28,6 +27,7 @@ import torch
 from msmp_pde_torch.data.graph import build_neighbors_radius
 from msmp_pde_torch.models.gnn import GNNLayer
 from msmp_pde_torch.ops import _build, mp_layer, mp_pair
+from msmp_pde_torch.tools.lem_times import card, seeded
 
 FWD_PHASES = ("A", "A2", "B", "B2", "C", "D", "E")
 BWD_PHASES = FWD_PHASES + ("F", "G", "H", "I", "J", "K")
@@ -86,14 +86,8 @@ def main():
                     .weights()) for _ in "gl"]
     W1 = tuple(w.detach() for w in GNNLayer(128, 25, 1, gen, True, True)
                .to(dev).weights())
-    rng = np.random.default_rng(0)
-    rand = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32,
-                                   device=dev)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-          else torch.cuda.get_device_name(0))
+    rand = seeded(0, dev)
+    print(card())
     print("cooperative grid (blocks): " + ", ".join(
         f"{n} {mp_layer.grid_blocks(n, n.startswith('mp_layer'))}"
         for n in KERNELS))

@@ -13,8 +13,8 @@ parameter gradients the scale-aware max|diff| <= max(1e-3 max|ref|, 2e-4),
 where b4's gradient, analytically zero and roundoff on both sides, takes
 its layer's w4 gradient's scale (chip_smoke.scale_aware); a step's loss
 relative 1e-4. The single-layer kernels take the pair's tolerances: the
-forward 1e-4, the backward the scale-aware bound. Every message-passing
-kernel, forward and backward, is bitwise repeatable.
+forward 1e-4, the backward the scale-aware bound. Every kernel, forward and
+backward, is bitwise repeatable.
 """
 import numpy as np
 import pytest
@@ -49,7 +49,8 @@ def _rand(rng, dev, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize("N,H", [(100, 128), (400, 128), (1600, 128),
-                                 (37, 128), (37, 96)])
+                                 (37, 128), (37, 96), (100, 96), (400, 96),
+                                 (1600, 96)])
 def test_lem_kernel_matches_plain(cuda_device, N, H):
     rng = np.random.default_rng(N)
     T = 25
@@ -108,10 +109,12 @@ def test_model_kernel_path_matches_plain_path(cuda_device):
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
 
 
-@pytest.mark.parametrize("N", [100, 400, 1600, 37])
-def test_lem_stash_and_bwd_match_plain(cuda_device, N):
+@pytest.mark.parametrize("N,H", [(100, 128), (400, 128), (1600, 128),
+                                 (37, 128), (37, 96), (100, 96), (400, 96),
+                                 (1600, 96)])
+def test_lem_stash_and_bwd_match_plain(cuda_device, N, H):
     rng = np.random.default_rng(100 + N)
-    T, H = 25, 128
+    T = 25
     r = lambda *s, scale=1.0: _rand(rng, cuda_device, *s, scale=scale)
     args = (r(T, N, 3 * H), r(T, N, H), r(N, H, scale=.5), r(N, H, scale=.5),
             r(H, 3 * H, scale=H ** -.5), r(H, H, scale=H ** -.5))
@@ -130,6 +133,28 @@ def test_lem_stash_and_bwd_match_plain(cuda_device, N):
     for k, (a, b) in enumerate(zip(got, want)):
         atol = 1e-5 * (b.abs().max().item() if k >= 4 else 1.0)
         torch.testing.assert_close(a, b, rtol=5e-4, atol=atol)
+
+
+@pytest.mark.parametrize("N,H", [(37, 96), (100, 128), (1600, 128)])
+def test_lem_kernels_bitwise_repeatable(cuda_device, N, H):
+    """Two launches of each LEM kernel give bitwise equal outputs (no
+    atomics; the cluster sums its partials in rank order), and the stash
+    variant's yT, zT are bitwise the no-stash variant's."""
+    rng = np.random.default_rng(200 + N)
+    T = 25
+    r = lambda *s, scale=1.0: _rand(rng, cuda_device, *s, scale=scale)
+    args = (r(T, N, 3 * H), r(T, N, H), r(N, H, scale=.5), r(N, H, scale=.5),
+            r(H, 3 * H, scale=H ** -.5), r(H, H, scale=H ** -.5))
+    fwd = [lem_scan.lem_scan_kernel(*args) for _ in range(2)]
+    stash = [lem_scan.lem_scan_kernel(*args, stash=True) for _ in range(2)]
+    cot = (r(N, H), r(N, H))
+    bwd = [lem_scan.lem_scan_bwd_kernel(*args, *stash[0][2:], *cot)
+           for _ in range(2)]
+    for one, two in (fwd, stash, bwd):
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+    for a, b in zip(fwd[0], stash[0][:2]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B,nx,H,V,n", [(1, 100, 128, 1, 3),
