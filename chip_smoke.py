@@ -60,7 +60,21 @@ Phases, each of which fails the run on error:
  16. timings of the single-layer kernels at batch 16 (the forward at batch
      1 too), of the stash and of both pair-backward routes at batches 16
      and 48, the four message-passing kernels' cooperative grids, and
-     MP-PDE's forward, train step and rollouts.
+     MP-PDE's forward, train step and rollouts;
+ 17. E1 datagen on the card: the port's generate CLI (32 train, 16 valid,
+     16 test samples, chunk 32, seed 0, float64) into a temporary
+     directory; the four resolutions, the schema's keys and attributes,
+     finite values, the first train chunk at pde_250-100 against the
+     port's CPU solve of the same draws, and PDEDataset reading it;
+ 18. the train CLI's fit on that data: MSMP-PDE at full width (hidden 128,
+     six gated pairs), batch 16, unrolling 1, lr 1e-4, two epochs, each
+     step with its expected kernel launches and the metrics' forwards with
+     theirs, finite losses falling within epoch 0; the best-val
+     checkpoint restores parameters, AdamW's state, the schedule and the
+     epoch bitwise, and --resume starts after it; compute_l2_norms on the
+     valid set, kernel path vs plain path; the HTTP server started with
+     the checkpoint and --data_dir answers one request equal to
+     RolloutEngine.rollout.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -95,6 +109,12 @@ TOL_MODEL = 5e-4  # six pairs and the LEM compound the pair's rounding
 LEM_BWD_RTOL, LEM_BWD_ATOL = 5e-4, 1e-5
 TRAIN_BATCH = 16
 TRAIN_LOSS_RTOL = 1e-4
+# phase 17: the card's and the CPU's float64 solves of one chunk take the
+# same steps and differ by rounding only
+TOL_DATAGEN = 1e-9
+E1_SAMPLES = {"train": 32, "valid": 16, "test": 16}
+# phase 18, relative: an 8-window rollout compounds TOL_MODEL's rounding
+TOL_L2 = 1e-3
 
 
 def scale_aware(got, want, scale=None):
@@ -317,10 +337,8 @@ def reference_forward(model, window, pos_x, var_vec, idx, mask):
     return model._decode(h, window)
 
 
-def reference_step_loss(trainer, u_all, idx_batch, steps, unrolled):
-    """``Trainer.step_loss`` with every forward through
-    ``reference_forward``: autograd then differentiates the plain versions,
-    the on-card reference of the kernel path's training step."""
+def plain_forward(trainer):
+    """``trainer.forward`` through ``reference_forward``."""
     model, spec = trainer.model, trainer.spec
 
     def forward(window, steps, variables, lem_state=None):
@@ -329,8 +347,15 @@ def reference_step_loss(trainer, u_all, idx_batch, steps, unrolled):
             model, window, spec.x.expand(window.shape[0], spec.nx), var_vec,
             spec.idx, spec.mask), None
 
+    return forward
+
+
+def reference_step_loss(trainer, u_all, idx_batch, steps, unrolled):
+    """``Trainer.step_loss`` with every forward through
+    ``reference_forward``: autograd then differentiates the plain versions,
+    the on-card reference of the kernel path's training step."""
     return trainer.step_loss(u_all, {}, idx_batch, steps, unrolled,
-                             forward=forward)
+                             forward=plain_forward(trainer))
 
 
 def smooth_trajectories(n, t_grid, x, L, seed):
@@ -868,7 +893,294 @@ def time_train_steps(trainer, u_all, name):
               f"enqueue {hms:.4f} ms)")
 
 
+def card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def datagen_phase(data_dir, on):
+    """Phase 17: E1 datagen on the card through the generate CLI."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.data.dataset import PDEDataset
+    from msmp_pde_torch.datagen import generate, hdf5_io
+    from msmp_pde_torch.equations import CE
+
+    argv = ["--experiment=E1", "--chunk=32", "--seed=0", "--device=cuda",
+            "--dtype=float64", f"--data_dir={data_dir}"]
+    argv += [f"--{m}_samples={n}" for m, n in E1_SAMPLES.items()]
+    args = generate.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    seconds = generate.main(args)
+    took = time.perf_counter() - t0
+    for (mode, key), sec in seconds.items():
+        print(f"E1 datagen {mode} {key}, {E1_SAMPLES[mode]} samples: "
+              f"{sec:.3f} s ({on})")
+    print(f"E1 datagen in all (float64, the CLI's wall clock): {took:.3f} s "
+          f"({on})")
+    npz = Path(data_dir) / "CE_E1.npz"
+    check(npz.is_file(), f"datagen wrote no {npz}")
+    with hdf5_io.open_dataset(str(npz)) as f:
+        for mode, n in E1_SAMPLES.items():
+            for nt, nx in generate.RES_CE:
+                name = f"{mode}/pde_{nt}-{nx}"
+                u, a = f.array(name), f.attrs(name)
+                pde = CE(tmax=4.0, grid_size=(nt, nx))
+                check(u.shape == (n, nt, nx) and u.dtype == np.float64,
+                      f"{name}: {u.shape} {u.dtype}")
+                check(bool(np.isfinite(u).all()), f"{name}: not finite")
+                check(int(a["nt"]) == nt and int(a["nx"]) == nx
+                      and float(a["dt"]) == pde.dt
+                      and float(a["dx"]) == pde.dx
+                      and float(a["tmin"]) == 0.0
+                      and float(a["tmax"]) == 4.0
+                      and np.array_equal(a["x"], np.linspace(0, 16.0, nx)),
+                      f"{name}: attributes {a}")
+            for name, v in (("alpha", 1.0), ("beta", 0.0), ("gamma", 0.0)):
+                check(np.array_equal(f.array(f"{mode}/{name}"),
+                                     np.full(n, v)), f"{mode}/{name}")
+        chunk = f.array("train/pde_250-100")[:32]
+    # the first train chunk again, on the CPU, from the same draws
+    pde = CE(tmin=0.0, tmax=4.0, grid_size=(250, 100))
+    draws = generate.draw_chunk(np.random.default_rng(0), 32, args.batch_size,
+                                *generate.CE_EXPERIMENTS["E1"][1:], pde)
+    t0 = time.perf_counter()
+    cpu = generate.ce_solver(pde, torch.float64, "cpu")(
+        *(torch.as_tensor(a) for a in draws)).reshape(32, 250, 100).numpy()
+    e = float(np.abs(cpu - chunk).max())
+    print(f"E1 train chunk 0 at pde_250-100: max |card - CPU| = {e:.3e} "
+          f"(max |u| {np.abs(cpu).max():.3f}; the CPU solve took "
+          f"{time.perf_counter() - t0:.3f} s)")
+    check(e <= TOL_DATAGEN, f"E1 datagen: the card's chunk differs from the "
+          f"CPU's by {e:.3e} > {TOL_DATAGEN}")
+    ds = PDEDataset(str(npz), pde, "train")
+    check(ds.u_super.shape == (32, 250, 100) and ds.u_super.dtype == np.float32
+          and bool(np.isfinite(ds.u_super).all()), "PDEDataset on E1")
+    print(f"PDEDataset: train u_super {ds.u_super.shape} {ds.u_super.dtype}, "
+          f"u_base {ds.u_base.shape}, x {ds.x.shape}")
+
+
+def fit_phase(data_dir, work_dir, on):
+    """Phase 18: fit, the checkpoint and resume, the L2 norms on both
+    paths, and the server on the checkpoint."""
+    import contextlib
+    import copy
+    import io
+    import types
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.data.graph import slice_windows
+    from msmp_pde_torch.serving import serve
+    from msmp_pde_torch.training import metrics, train
+    from msmp_pde_torch.training.setup import build_trainer, setup_experiment
+    from msmp_pde_torch.utils import checkpoint
+
+    args = train.build_parser().parse_args([
+        "--experiment=E1", "--model=MSMP-PDE", "--num_epochs=2",
+        "--batch_size=16", "--unrolling=1", "--lr=1e-4",
+        "--print_interval=100", "--device=cuda", f"--data_dir={data_dir}"])
+    exp = setup_experiment(args, data_dir=data_dir)
+    trainer, t_res = exp.trainer, exp.t_res
+    model = trainer.model
+    check(model.hidden == 128 and model.layers == 6 and model.gated
+          and model.encoder == "lem", "fit: not MSMP-PDE at full width")
+    data = {m: train.device_arrays(exp.datasets[m], trainer.device)
+            for m in E1_SAMPLES}
+    save_path = str(Path(work_dir) / "models" / "MSMP-PDE_E1.pt")
+
+    # each optimizer step's launches, and the state each checkpoint saved
+    per_step, saved = [], []
+    step_fn, save = trainer.train_step_fn, checkpoint.save_checkpoint
+
+    def counted(tx, unrolled):
+        fn = step_fn(tx, unrolled)
+
+        def step(*a):
+            before = launch_counts()
+            loss = fn(*a)
+            per_step.append((unrolled, diff_counts(launch_counts(), before)))
+            return loss
+
+        return step
+
+    def snapshot(path, model, tx=None, epoch=None):
+        save(path, model, tx, epoch)
+        saved.append(({k: v.detach().clone()
+                       for k, v in model.state_dict().items()},
+                      copy.deepcopy(tx[0].state_dict()), tx[1].state_dict(),
+                      epoch))
+
+    trainer.train_step_fn, checkpoint.save_checkpoint = counted, snapshot
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = train.fit(args, exp, data, save_path)
+    finally:
+        checkpoint.save_checkpoint = save
+        del trainer.train_step_fn
+    took = time.perf_counter() - t0
+    totals = launch_counts()
+    print(f"fit: 2 epochs in {took:.3f} s, launches {nonzero(totals)}")
+
+    n_batches = E1_SAMPLES["train"] // TRAIN_BATCH
+    hist = res["history"]
+    check(len(per_step) == 2 * t_res * n_batches, "fit: step count")
+    for i, (f, d) in enumerate(per_step):
+        want = expected_launches(model, f + 1, 1)
+        check(d == want, f"fit step {i} (unrolled {f}): launches "
+              f"{nonzero(d)}, expected {nonzero(want)}")
+    # the metrics' forwards: the one-step losses at 9 steps and the 8-window
+    # rollout of the unrolled loss, on one batch of the valid set; where
+    # the validation loss improved, the same on the test set and the two
+    # sets' L2 norms
+    steps_at, windows = 9, 8
+    fwd = sum(steps_at + windows
+              + (steps_at + 3 * windows if h["improved"] else 0)
+              for h in hist)
+    summed = dict.fromkeys(COUNTERS, 0)
+    for _, d in per_step:
+        summed = {k: summed[k] + d[k] for k in COUNTERS}
+    want = expected_launches(model, fwd)
+    check(diff_counts(totals, summed) == want, "fit metrics: launches "
+          f"{nonzero(diff_counts(totals, summed))}, expected {nonzero(want)}")
+    for k in ("lem_fwd", "lem_fwd_stash", "lem_bwd", "mp_pair_fwd",
+              "mp_pair_bwd"):
+        check(totals[k] > 0, f"fit launched no {k}")
+    flags = [f for f, _ in per_step]
+    check(set(flags[:t_res * n_batches]) == {0}
+          and set(flags[t_res * n_batches:]) == {0, 1},
+          "fit: pushforward depths per epoch")
+    for h in hist:
+        check(bool(np.isfinite(h["losses"]).all()),
+              f"fit epoch {h['epoch']}: a loss is not finite")
+        print(f"fit epoch {h['epoch']}: {h['losses'].size} steps in "
+              f"{h['train_s']:.3f} s, metrics {h['metric_s']:.3f} s, train "
+              f"loss {h['train_loss']:.5f}, valid loss {h['val_loss']:.5f}"
+              f"{' (best)' if h['improved'] else ''} ({on})")
+    first = hist[0]["losses"].reshape(-1)
+    check(first[-50:].mean() < first[:50].mean(),
+          "fit: the loss did not fall within epoch 0")
+    print(f"fit epoch 0 mean loss, first 50 steps {first[:50].mean():.4f}, "
+          f"last 50 {first[-50:].mean():.4f}")
+    print(f"fit: valid rel-L2 {100 * res['valid_rel_L2']:.3f} %, test rel-L2 "
+          f"{100 * res['test_rel_L2']:.3f} % (32 training samples, 2 epochs; "
+          f"{on})")
+
+    # the best-val checkpoint, restored into a model of other weights
+    check(Path(save_path).is_file() and saved, "fit wrote no checkpoint")
+    sd, opt_sd, sched_sd, epoch = saved[-1]
+    check(epoch == max(h["epoch"] for h in hist if h["improved"]),
+          "the checkpoint is not the best epoch's")
+    fresh = build_trainer("E1", "MSMP-PDE", device=trainer.device, seed=1,
+                          grid=exp.datasets["train"])
+    tx = fresh.make_optimizer(args.lr, args.lr_decay, [args.unrolling, 5, 10,
+                                                       15], t_res * n_batches)
+    check(checkpoint.restore_checkpoint(save_path, fresh.model, tx) == epoch,
+          "restored epoch")
+    check(all(torch.equal(v, sd[k])
+              for k, v in fresh.model.state_dict().items()),
+          "restored parameters differ")
+    got = tx[0].state_dict()
+    check(got["state"].keys() == opt_sd["state"].keys() and all(
+        torch.equal(got["state"][i][k], st[k])
+        for i, st in opt_sd["state"].items() for k in st),
+        "restored AdamW state differs")
+    check(tx[1].state_dict() == sched_sd, "restored schedule differs")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        again = train.fit(train.build_parser().parse_args([
+            "--experiment=E1", "--model=MSMP-PDE", "--batch_size=16",
+            f"--num_epochs={epoch + 1}", f"--resume={save_path}"]),
+            types.SimpleNamespace(trainer=fresh, t_res=t_res), data,
+            str(Path(work_dir) / "models" / "resumed.pt"))
+    check(f"at epoch {epoch + 1}" in out.getvalue() and not again["history"],
+          "--resume did not start after the checkpoint's epoch")
+    print(f"checkpoint of epoch {epoch}: parameters, AdamW's moments and "
+          f"steps (step {int(next(iter(got['state'].values()))['step'])}), "
+          f"the schedule (count {sched_sd['last_epoch']}) and the epoch "
+          "restored bitwise; --resume starts at epoch "
+          f"{epoch + 1}")
+
+    # the paper's metric on the valid set, kernel path vs plain path
+    u_v, _, var_v = data["valid"]
+    quiet = dict(log=lambda *a: None)
+    plain = types.SimpleNamespace(tw=trainer.tw, d=trainer.d,
+                                  forward=plain_forward(trainer))
+    reset_counts()
+    t0 = time.perf_counter()
+    lk = metrics.compute_l2_norms(trainer, u_v, var_v, TRAIN_BATCH,
+                                  args.nr_gt_steps, t_res, **quiet)
+    k_s = time.perf_counter() - t0
+    d = launch_counts()
+    check(d == expected_launches(model, windows),
+          f"compute_l2_norms launches {nonzero(d)}")
+    t0 = time.perf_counter()
+    lp = metrics.compute_l2_norms(plain, u_v, var_v, TRAIN_BATCH,
+                                  args.nr_gt_steps, t_res, **quiet)
+    p_s = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    print(f"compute_l2_norms valid: kernel path L2 {lk[0]:.6f}, rel "
+          f"{100 * lk[1]:.4f} % ({k_s:.3f} s); plain path L2 {lp[0]:.6f}, "
+          f"rel {100 * lp[1]:.4f} % ({p_s:.3f} s); max relative difference "
+          f"{rel:.3e}")
+    check(rel <= TOL_L2, f"compute_l2_norms: kernel vs plain {rel:.3e} > "
+          f"{TOL_L2}")
+
+    # the server on the checkpoint and the dataset's grid
+    sargs = serve.build_parser().parse_args([
+        "--experiment=E1", "--model=MSMP-PDE", f"--checkpoint={save_path}",
+        f"--data_dir={data_dir}", "--port=0", "--warmup_windows=0",
+        "--device=cuda"])
+    srv, engine = serve.build_server(sargs)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+    u_t = data["test"][0]
+    steps = torch.full((4,), trainer.tw, dtype=torch.int64,
+                       device=trainer.device)
+    w = slice_windows(u_t[:4], steps, trainer.tw)[0].cpu().numpy()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        reset_counts()
+        got = serve.request_rollout("127.0.0.1", port, w,
+                                    n_windows=N_WINDOWS)
+        d = launch_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    check(not th.is_alive(), "the server thread did not stop")
+    check(health["grid"] == str(Path(data_dir) / "CE_E1.npz"),
+          f"served grid {health['grid']}")
+    check(all(torch.equal(v.cpu(), sd[k].cpu())
+              for k, v in engine.trainer.model.state_dict().items()),
+          "the served weights are not the checkpoint's")
+    check(d == expected_launches(model, N_WINDOWS),
+          f"served request: launches {nonzero(d)}")
+    check(got.shape == (4, N_WINDOWS, 100, trainer.tw)
+          and bool(np.isfinite(got).all()), f"served {got.shape}")
+    check(np.array_equal(got, engine.rollout(w, n_windows=N_WINDOWS)),
+          "the served rollout differs from engine.rollout")
+    print(f"served the checkpoint on the grid of {health['grid']}: B=4, "
+          f"{N_WINDOWS} windows, {got.shape}, equal to engine.rollout, "
+          f"launches {nonzero(d)}")
+    return totals
+
+
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1230,6 +1542,17 @@ def main():
     time_train_steps(mp_train, u_all, "MP-PDE")
     print(f"MP-PDE train_epoch (250 steps): {mp_epoch_s:.3f} s")
 
+    # 17-18. E1 datagen on the card, fit, resume and serve --------------
+    on = card()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        t0 = time.perf_counter()
+        datagen_phase(str(Path(work) / "data"), on)
+        t1 = time.perf_counter()
+        fit_counts = fit_phase(str(Path(work) / "data"), work, on)
+        print(f"phases 17 and 18: {t1 - t0:.3f} s and "
+              f"{time.perf_counter() - t1:.3f} s")
+    print(f"fit main path launches: {nonzero(fit_counts)}")
+
     kernels = [
         {"name": "lem_fwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/lem_fwd.cu",
@@ -1281,12 +1604,7 @@ def main():
          "bound_by": st_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(on)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

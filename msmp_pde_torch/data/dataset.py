@@ -1,0 +1,86 @@
+"""Dataset reader with super -> base down-projection (counterpart of
+msmp_pde_tpu/data/dataset.py, the CE family).
+
+Reads one mode of a dataset file, the port's ``.npz`` or, where ``h5py``
+imports, an ``.h5`` in the reference schema (datagen/hdf5_io.py), and
+holds as numpy arrays:
+
+* ``u_base``: the coarse numerical trajectories [N, nt, nx];
+* ``u_super``: the super-resolution trajectories down-projected to the
+  base resolution, the training target: temporal stride ``ratio_nt``, the
+  periodic duplicated-endpoint pad (u[-3:-1] left, u[1:3] right), then
+  the 5-tap averaging kernel [0.2] * 5 with spatial stride ``ratio_nx``;
+* ``x``: the base coordinates, and the equation's scalar ``variables``.
+
+The other families (KF, KS, WE, AD) come with their datagen (ROADMAP.md
+Queue 1 item 15).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from msmp_pde_torch.datagen.hdf5_io import open_dataset
+
+
+def _avg_downproject(u: np.ndarray, ratio_nx: int) -> np.ndarray:
+    """5-tap [0.2] * 5 stride-``ratio_nx`` averaging along the last axis,
+    periodic duplicated-endpoint pad (the JAX package's numpy path)."""
+    up = np.concatenate([u[..., -3:-1], u, u[..., 1:3]], axis=-1)
+    n_out = u.shape[-1] // ratio_nx
+    idx = np.arange(n_out) * ratio_nx
+    out = np.zeros(u.shape[:-1] + (n_out,), dtype=u.dtype)
+    for j in range(5):
+        out += 0.2 * up[..., idx + j]
+    return out
+
+
+class PDEDataset:
+    """One mode (train/valid/test) of a dataset file."""
+
+    VAR_NAMES = {"CE": ("alpha", "beta", "gamma")}
+    n_components = 1
+
+    def __init__(self, path: str, pde, mode: str, base_resolution=None,
+                 super_resolution=None, dtype=np.float32):
+        family = f"{pde}"
+        if family not in self.VAR_NAMES:
+            raise NotImplementedError(
+                f"{family} datasets are not ported yet (ROADMAP.md Queue 1 "
+                "item 15)")
+        self.pde = pde
+        self.mode = mode
+        self.base_resolution = tuple(base_resolution or (250, 100))
+        self.super_resolution = tuple(super_resolution or (250, 200))
+        key_base = "pde_%d-%d" % self.base_resolution
+        key_super = "pde_%d-%d" % self.super_resolution
+
+        with open_dataset(path) as f:
+            u_base = f.array(f"{mode}/{key_base}")
+            u_super = f.array(f"{mode}/{key_super}")
+            attrs = f.attrs(f"{mode}/{key_base}")
+            self.variables: Dict[str, np.ndarray] = {
+                name: f.array(f"{mode}/{name}")
+                for name in self.VAR_NAMES[family]}
+        if u_super.shape[-2] % u_base.shape[-2] or \
+                u_super.shape[-1] % u_base.shape[-1]:
+            raise ValueError(
+                f"{path}: super resolution {u_super.shape[-2:]} is not a "
+                f"multiple of the base resolution {u_base.shape[-2:]}")
+        ratio_nt = u_super.shape[-2] // u_base.shape[-2]
+        ratio_nx = u_super.shape[-1] // u_base.shape[-1]
+        self.nt = int(attrs["nt"])
+        self.dt = float(attrs["dt"])
+        self.dx = float(attrs["dx"])
+        self.tmin = float(attrs["tmin"])
+        self.tmax = float(attrs["tmax"])
+        x = np.asarray(attrs["x"], np.float64)
+
+        u = _avg_downproject(u_super[:, ::ratio_nt], ratio_nx)
+        self.u_base = u_base.astype(dtype)
+        self.u_super = u.astype(dtype)
+        self.x = x.astype(dtype)
+
+    def __len__(self):
+        return self.u_super.shape[0]

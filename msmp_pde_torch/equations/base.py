@@ -1,8 +1,7 @@
-"""PDE grid metadata (counterpart of msmp_pde_tpu/equations/base.py).
-
-Only the grid bookkeeping is ported; the right-hand sides wait for the
-data-generation slice (ROADMAP.md Queue 1 item 15).
-"""
+"""PDE grid metadata (counterpart of msmp_pde_tpu/equations/base.py): the
+grid and domain bookkeeping that datagen, the dataset reader, the graph
+and the models read. The right-hand sides are functions each family's
+class builds (``CE.make_rhs``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +14,11 @@ class PDE:
     tmax: float = 0.5
     grid_size: Tuple[int, int] = (16, 64)  # (nt, nx)
     L: float = 16.0
+
+    # sum-of-sines IC frequency band and wave count (per-family overrides)
+    lmin: int = 1
+    lmax: int = 3
+    n_waves: int = 5
 
     @property
     def nt(self) -> int:
@@ -30,7 +34,7 @@ class PDE:
 
     @property
     def dx(self) -> float:
-        # duplicated-endpoint periodic convention: dx = L / nx
+        # duplicated-endpoint periodic convention: dx = L / nx (ops/fd.py)
         return self.L / self.grid_size[1]
 
     def __repr__(self):

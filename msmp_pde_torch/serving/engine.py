@@ -19,18 +19,45 @@ import torch
 from msmp_pde_torch.data.graph import advance_windows
 
 
+def grid_from_h5(path: str, pde, mode: str, base_resolution,
+                 super_resolution):
+    """Attrs-only read of the grid metadata (no trajectories are loaded)
+    from a dataset file, the port's ``.npz`` or an ``.h5``, as
+    ``PDEDataset`` reads it. ``super_resolution`` is read by the WE
+    family's grid only, which is not ported: only CE is."""
+    from msmp_pde_torch.datagen.hdf5_io import open_dataset
+    from msmp_pde_torch.training.setup import GridInfo
+
+    family = f"{pde}"
+    if family != "CE":
+        raise NotImplementedError(
+            f"{family} grids are not ported yet (ROADMAP.md Queue 1 item 15)")
+    with open_dataset(path) as f:
+        a = f.attrs("%s/pde_%d-%d" % (mode, *base_resolution))
+    return GridInfo(x=np.asarray(a["x"], np.float64).astype(np.float32),
+                    nt=int(a["nt"]), dt=float(a["dt"]),
+                    tmin=float(a["tmin"]), tmax=float(a["tmax"]),
+                    n_components=1)
+
+
 def build_serving_trainer(experiment: str, model: str, *,
-                          data_path: Optional[str] = None, **kw):
-    """The (trainer) a server needs, from grid metadata alone
-    (training/setup.py::build_trainer, whose keywords it takes). The model's
-    weights are random from ``seed`` until a checkpoint is loaded.
-    ``device`` defaults to CUDA and raises without it."""
-    from msmp_pde_torch.training.setup import build_trainer
+                          data_path: Optional[str] = None,
+                          super_resolution=(250, 200), **kw):
+    """The trainer a server needs, from grid metadata alone: the uniform
+    grid, or the test mode's of ``data_path`` (``grid_from_h5``), with
+    training/setup.py::build_trainer's keywords. The model's weights are
+    random from ``seed`` until a checkpoint is loaded. ``device`` defaults
+    to CUDA and raises without it."""
+    from msmp_pde_torch.training.setup import (
+        build_trainer,
+        pde_for_experiment,
+    )
 
     if data_path is not None:
-        raise NotImplementedError(
-            "grid metadata from a dataset file is not ported yet "
-            "(ROADMAP.md Queue 1 item 6)")
+        base = tuple(kw.get("base_resolution", (250, 100)))
+        kw["grid"] = grid_from_h5(data_path,
+                                  pde_for_experiment(experiment, base),
+                                  "test", base, tuple(super_resolution))
     trainer = build_trainer(experiment, model, **kw)
     trainer.model.eval()
     return trainer

@@ -5,7 +5,8 @@
 
 Protocol (stdlib only, npz over HTTP):
 
-* ``GET /healthz`` -> JSON {status, backend, experiment, model, buckets}.
+* ``GET /healthz`` -> JSON {status, backend, experiment, model, buckets,
+  grid} (grid: the dataset file the grid came from, or "uniform").
 * ``GET /metrics`` -> request counters and latency quantiles.
 * ``POST /v1/rollout?n_windows=8[&format=trajectory]`` with an ``.npz``
   body containing ``window`` [B, nx, d*tw] float32, optional ``steps`` [B]
@@ -15,8 +16,11 @@ Protocol (stdlib only, npz over HTTP):
   d, nx] when ``format=trajectory``.
 
 ``--model`` is a ported registry name (MSMP-PDE, Gated, MP-PDE, LEM).
-``--checkpoint`` is an ``.npz`` keyed by ``/``-joined flax paths
-(utils/convert.py). Device work is serialized through a lock (one card).
+``--checkpoint`` is the train CLI's checkpoint (utils/checkpoint.py) or an
+``.npz`` keyed by ``/``-joined flax paths (utils/convert.py). The grid
+comes from the test mode of ``--data_dir``'s dataset file where there is
+one, else the uniform grid is rebuilt from the PDE. Device work is
+serialized through a lock (one card).
 """
 from __future__ import annotations
 
@@ -239,30 +243,45 @@ def request_rollout(host: str, port: int, window, *, steps=None,
         return z["trajectory" if as_trajectory else "preds"]
 
 
-def main(args):
+def load_checkpoint(path: str):
+    """State dict from an ``.npz`` of flax paths or a ``torch.save``
+    checkpoint of the train CLI."""
+    from msmp_pde_torch.utils.checkpoint import restore_params
+    from msmp_pde_torch.utils.convert import load_npz
+
+    return load_npz(path) if path.endswith(".npz") else restore_params(path)
+
+
+def build_server(args):
+    """(the HTTP server bound to ``args.host:args.port``, its engine) of
+    the CLI's arguments; ``main`` serves it until interrupted."""
+    import os
+
     from msmp_pde_torch.serving.engine import (
         RolloutEngine,
         build_serving_trainer,
     )
-    from msmp_pde_torch.utils.convert import load_npz
+    from msmp_pde_torch.training.setup import data_family, resolve_data_path
 
-    if args.data_dir:
-        raise NotImplementedError(
-            "grid metadata from a dataset file is not ported yet "
-            "(ROADMAP.md Queue 1 item 6); pass --data_dir ''")
     if args.dp > 1:
         raise NotImplementedError(
             "serving data parallelism is not ported yet (ROADMAP.md Queue 1 "
             "item 13)")
+    data_path = None
+    if args.data_dir:
+        p = resolve_data_path(args.data_dir, data_family(args.experiment),
+                              args.experiment, args.data_suffix, "test")
+        data_path = p if os.path.exists(p) else None
     trainer = build_serving_trainer(
-        args.experiment, args.model,
+        args.experiment, args.model, data_path=data_path,
+        super_resolution=tuple(args.super_resolution),
         base_resolution=tuple(args.base_resolution),
         neighbors=args.neighbors, time_window=args.time_window,
         n_graph_layers=args.n_graph_layers,
         mp_precision=args.mp_precision, device=args.device,
     )
     buckets = tuple(args.batch_buckets)
-    engine = RolloutEngine(trainer, load_npz(args.checkpoint),
+    engine = RolloutEngine(trainer, load_checkpoint(args.checkpoint),
                            batch_buckets=buckets)
     if args.warmup_windows:
         print(f"warming up buckets {buckets} at {args.warmup_windows} "
@@ -273,6 +292,7 @@ def main(args):
         "experiment": args.experiment,
         "model": args.model,
         "buckets": list(buckets),
+        "grid": data_path or "uniform",
     }
     srv = ThreadingHTTPServer(
         (args.host, args.port),
@@ -280,8 +300,14 @@ def main(args):
                      max_batch=args.max_batch,
                      max_body_mb=args.max_body_mb),
     )
+    return srv, engine
+
+
+def main(args):
+    srv, engine = build_server(args)
     print(f"serving {args.model} on {args.experiment} at "
-          f"http://{args.host}:{args.port} (device {trainer.device})")
+          f"http://{args.host}:{srv.server_address[1]} (device "
+          f"{engine.trainer.device})")
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
@@ -297,10 +323,12 @@ def build_parser():
     p.add_argument("--experiment", type=str, required=True)
     p.add_argument("--model", type=str, default="MSMP-PDE")
     p.add_argument("--checkpoint", type=str, required=True,
-                   help=".npz of the flax params, keys '/'-joined paths")
+                   help="the train CLI's checkpoint, or an .npz of the flax "
+                        "params keyed by '/'-joined paths")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8476)
     p.add_argument("--base_resolution", type=int, nargs=2, default=[250, 100])
+    p.add_argument("--super_resolution", type=int, nargs=2, default=[250, 200])
     p.add_argument("--neighbors", type=int, default=3)
     p.add_argument("--time_window", type=int, default=25)
     p.add_argument("--n_graph_layers", type=int, default=6)
@@ -315,9 +343,11 @@ def build_parser():
                         "chunks)")
     p.add_argument("--max_body_mb", type=int, default=256,
                    help="reject request bodies larger than this many MiB")
-    p.add_argument("--data_dir", type=str, default="",
-                   help="grid metadata source; only '' (the uniform grid "
-                        "rebuilt from the PDE) is ported")
+    p.add_argument("--data_dir", type=str, default="data",
+                   help="grid metadata source (attrs-only read); '' or a "
+                        "directory without the dataset rebuilds the "
+                        "uniform grid from the PDE")
+    p.add_argument("--data_suffix", type=str, default="")
     p.add_argument("--mp_precision", type=str, default="float32")
     p.add_argument("--dp", type=int, default=0,
                    help="serving data-parallel devices (only 0 or 1)")

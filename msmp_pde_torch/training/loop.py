@@ -14,6 +14,7 @@ pass as one jitted scan; here it is a Python loop over eager steps.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -136,13 +137,17 @@ class Trainer:
 def train_epoch(trainer: Trainer, tx, u_all, var_all, epoch: int,
                 batch_size: int, t_res: int, unrolling: int,
                 rng: np.random.Generator, print_interval: int = 20,
-                log=print, on_step: Optional[Callable] = None):
+                log=print, on_step: Optional[Callable] = None,
+                profile_dir: Optional[str] = None):
     """One reference epoch: t_res passes over the shuffled loader
     (train.py:233-244 + train_helper.py:89-147), drawing from ``rng`` in
     the JAX package's order (a permutation, then one unroll flag per batch,
     then the start steps per flag), so that one seed draws the same batches
-    there and here. ``on_step(flag)`` runs after each step. Returns
-    (mean loss / batch_size, the losses [t_res, n_batches] as numpy)."""
+    there and here. ``on_step(flag)`` runs after each step. With
+    ``profile_dir`` the second pass is traced with ``torch.profiler`` into
+    ``profile_dir/pass1.json`` (the JAX package traces the same pass).
+    Returns (mean loss / batch_size, the losses [t_res, n_batches] as
+    numpy)."""
     tw = trainer.tw
     dev = trainer.device
     n = int(u_all.shape[0])
@@ -151,7 +156,13 @@ def train_epoch(trainer: Trainer, tx, u_all, var_all, epoch: int,
     max_unrolling = min(epoch, unrolling)
     unroll_choices = list(range(max_unrolling + 1))
     losses = []
+    prof = None
     for i in range(t_res):
+        if profile_dir and i == 1:
+            prof = _start_profile(dev)
+        if prof is not None and i == 2:
+            _stop_profile(prof, profile_dir, log)
+            prof = None
         perm = rng.permutation(n)[: n_batches * batch_size]
         perm = perm.reshape(n_batches, batch_size)
         flags = [int(rng.choice(unroll_choices)) for _ in range(n_batches)]
@@ -171,5 +182,28 @@ def train_epoch(trainer: Trainer, tx, u_all, var_all, epoch: int,
             recent = float(losses[-1].mean())
             log(f"Training Loss (progress: {i / t_res:.2f}): "
                 f"{recent / batch_size}")
+    if prof is not None:
+        _stop_profile(prof, profile_dir, log)
     losses = torch.stack(losses).cpu().numpy()
     return float(losses.mean()) / batch_size, losses
+
+
+def _start_profile(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, log):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "pass1.json")
+    prof.export_chrome_trace(path)
+    log(f"Profiler trace written to {path}")

@@ -1,10 +1,13 @@
-"""Experiment -> PDE, equation-variable norms, grid and the model's
-trainer (counterpart of msmp_pde_tpu/training/setup.py). Only the CE family
-is ported. ``build_trainer`` serves both training and serving; it reads no
-dataset."""
+"""Experiment -> PDE, equation-variable norms, datasets, grid and the
+model's trainer (counterpart of msmp_pde_tpu/training/setup.py). Only the
+CE family is ported. ``build_trainer`` serves training and serving, on the
+uniform grid or on a dataset's; ``setup_experiment`` reads the datasets
+the train CLI needs."""
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Dict
 
 import numpy as np
 
@@ -43,6 +46,34 @@ def eq_variable_norms(experiment: str, parameter_ablation: bool = False):
     }.get(experiment, {})
 
 
+def data_family(experiment: str) -> str:
+    for fam, exps in {
+        "CE": ("E1", "E2", "E3", "kdv"),
+        "WE": ("WE1", "WE2", "WE3"),
+        "KF": ("KF",),
+        "KS": ("KS",),
+        "AD": ("RP", "RPU", "MSWG", "MSWG3"),
+    }.items():
+        if experiment in exps:
+            return fam
+    raise ValueError(experiment)
+
+
+def resolve_data_path(data_dir: str, fam: str, experiment: str, suffix: str,
+                      mode: str) -> str:
+    """The dataset file of one mode: the port's ``{fam}_{experiment}.npz``
+    first, then the merged ``{fam}_{experiment}.h5`` (all three modes in
+    one file), then the reference's one file a mode,
+    ``{fam}_{mode}_{experiment}.h5``. Where none exists, the ``.npz``'s
+    name, for the error message."""
+    stem = f"{data_dir}/{fam}_{experiment}{suffix}"
+    for path in (f"{stem}.npz", f"{stem}.h5",
+                 f"{data_dir}/{fam}_{mode}_{experiment}{suffix}.h5"):
+        if os.path.exists(path):
+            return path
+    return f"{stem}.npz"
+
+
 @dataclasses.dataclass
 class GridInfo:
     """The slice of dataset metadata a trainer needs."""
@@ -74,10 +105,10 @@ def build_trainer(experiment: str, model: str, *,
                   base_resolution=(250, 100), neighbors: int = 3,
                   time_window: int = 25, n_graph_layers: int = 6,
                   mp_precision: str = "float32", device=None,
-                  seed: int = 0):
-    """The ``Trainer`` of ``model`` on ``experiment``'s uniform grid, with
-    weights random from ``seed``. ``device`` defaults to CUDA and raises
-    without it."""
+                  seed: int = 0, grid=None, parameter_ablation: bool = False):
+    """The ``Trainer`` of ``model`` on ``experiment``'s uniform grid, or on
+    ``grid`` (a ``PDEDataset`` or ``GridInfo``), with weights random from
+    ``seed``. ``device`` defaults to CUDA and raises without it."""
     from msmp_pde_torch.data.graph import build_graph_spec
     from msmp_pde_torch.device import resolve_device
     from msmp_pde_torch.models.registry import get_model
@@ -89,8 +120,9 @@ def build_trainer(experiment: str, model: str, *,
             f"mp_precision={mp_precision!r} is not ported yet (ROADMAP.md "
             "Queue 2 item 7)")
     pde = pde_for_experiment(experiment, tuple(base_resolution))
-    eq_norms = eq_variable_norms(experiment)
-    grid = uniform_grid(pde, tuple(base_resolution))
+    eq_norms = eq_variable_norms(experiment, parameter_ablation)
+    if grid is None:
+        grid = uniform_grid(pde, tuple(base_resolution))
     spec = build_graph_spec(pde, grid, neighbors, time_window, dev)
     m, kind = get_model(
         model, tw=time_window, n_eq_vars=len(eq_norms),
@@ -98,3 +130,42 @@ def build_trainer(experiment: str, model: str, *,
         n_layers=n_graph_layers, seed=seed,
     )
     return Trainer(model=m.to(dev), kind=kind, spec=spec, eq_norms=eq_norms)
+
+
+@dataclasses.dataclass
+class Experiment:
+    pde: object
+    datasets: Dict[str, object]
+    trainer: object
+
+    @property
+    def t_res(self) -> int:
+        return self.datasets["train"].nt
+
+
+def setup_experiment(args, modes=("train", "valid", "test"),
+                     data_dir: str = "data") -> Experiment:
+    """The datasets of ``modes`` and the trainer on their grid, from the
+    train CLI's arguments; ``args.device`` defaults to CUDA."""
+    from msmp_pde_torch.data.dataset import PDEDataset
+
+    base = tuple(args.base_resolution)
+    pde = pde_for_experiment(args.experiment, base)
+    ablation = getattr(args, "parameter_ablation", False)
+    fam = data_family(args.experiment)
+    suffix = getattr(args, "data_suffix", "")
+    datasets = {
+        m: PDEDataset(resolve_data_path(data_dir, fam, args.experiment,
+                                        suffix, m),
+                      pde, m, base_resolution=base,
+                      super_resolution=tuple(args.super_resolution))
+        for m in modes
+    }
+    trainer = build_trainer(
+        args.experiment, args.model, base_resolution=base,
+        neighbors=args.neighbors, time_window=args.time_window,
+        n_graph_layers=args.n_graph_layers,
+        mp_precision=getattr(args, "mp_precision", "float32"),
+        device=getattr(args, "device", None), seed=args.seed,
+        grid=datasets[modes[0]], parameter_ablation=ablation)
+    return Experiment(pde=pde, datasets=datasets, trainer=trainer)

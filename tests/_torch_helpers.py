@@ -23,3 +23,13 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one intra-op thread for a module: its tensors are tiny, and
+    several test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
