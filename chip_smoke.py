@@ -5,13 +5,14 @@
 
 Phases, each of which fails the run on error:
   1. build every CUDA kernel (serving and training) from
-     msmp_pde_torch/csrc, printing ptxas's registers and spills and the
-     LEM kernels' shared memory a CTA;
+     msmp_pde_torch/csrc, printing ptxas's registers and spills of each
+     kernel and the LEM kernels' grid and shared memory a CTA;
   2. LEM-scan kernel vs its plain PyTorch version, N in {100, 400, 1600, 37}
-     at hidden 128 and 96; two runs give bitwise equal outputs;
+     at hidden 128 and 96 (the clusters) and 164 (the generic route), from
+     a random non-zero (y0, z0); two runs give bitwise equal outputs;
   3. fused gated-pair kernel vs its plain version, B in {1, 4, 16, 48} at
-     the model's weights and one width no 64-column tile divides; two runs
-     give bitwise equal outputs;
+     the model's weights, one width no 64-column tile divides, and hidden
+     164 at B in {1, 16, 48}; two runs give bitwise equal outputs;
   4. the full-width MSMP-PDE forward (E1: nx=100, tw=25, hidden 128, six
      gated pairs) with weights made from a numpy seed in the flax layout
      and carried across by params_from_flax: kernel path vs
@@ -26,12 +27,13 @@ Phases, each of which fails the run on error:
      and 16 beside the host's time to enqueue it, and request latency per
      bucket;
   7. the LEM-scan stash variant and backward kernel vs their plain
-     versions, N in {100, 400, 1600, 37} at hidden 128 and 96; two runs of
+     versions, N in {100, 400, 1600, 37} at hidden 128, 96 and 164, from a
+     non-zero (y0, z0) (dy0, dz0 held with the other outputs); two runs of
      each give bitwise equal outputs, and the stash variant's yT, zT are
      bitwise the other variant's;
   8. the fused-pair backward kernel vs its plain version, B in {1, 4, 16,
-     48} with the model's weights and one width no 64-column tile divides;
-     two runs give bitwise equal gradients;
+     48} with the model's weights, one width no 64-column tile divides and
+     hidden 164 at B in {1, 16}; two runs give bitwise equal gradients;
   9. one training step at batch 16, kernel path vs plain path (the loss
      and every parameter's gradient, unrolled 0 and 1);
  10. the training main path: one train_epoch (epoch 1, unrolling 1, batch
@@ -74,7 +76,23 @@ Phases, each of which fails the run on error:
      epoch bitwise, and --resume starts after it; compute_l2_norms on the
      valid set, kernel path vs plain path; the HTTP server started with
      the checkpoint and --data_dir answers one request equal to
-     RolloutEngine.rollout.
+     RolloutEngine.rollout;
+ 19. the five models of the slice at full width (E1, nx 100, tw 25, six
+     layers or pairs, weights from a numpy seed in the flax layout):
+     MSSMP-PDE (two towers), MSGMP-PDE (hidden 164, GLU decoder),
+     SaveMSMP-PDE (also from a non-zero state, and its new state),
+     LSTMGated and LSTM: one forward at batch 16 vs reference_apply with
+     its launches, and one train step at batch 16, kernel path vs plain
+     path, unrolled 0 and 1 (the state threaded);
+ 20. the slice's main path: the train CLI's fit of MSGMP-PDE at hidden 164
+     on phase 17's data (batch 16, unrolling 1, one epoch), each step with
+     its expected launches, finite losses falling; the HTTP server answers
+     SaveMSMP-PDE and MSSMP-PDE requests at 8 windows from start steps of
+     which three cross nt - tw, equal to RolloutEngine.rollout, each window
+     within TOL_MODEL of the plain path's from the same window with the
+     same reset, which fires; timings of the
+     hidden-164 kernels beside their bounds, MSGMP-PDE's train step and
+     rollouts.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -171,14 +189,20 @@ def diff_counts(now, before):
 
 def expected_launches(model, forwards, grad_steps=0):
     """The launches of ``forwards`` model forwards, of which ``grad_steps``
-    with grad and a backward (on the fused pair route)."""
+    with grad and a backward (on the fused pair route): a LEM scan a
+    forward with the LEM encoder (none with the MLP or the LSTM), a pair
+    or a layer kernel a layer; the twin-tower model runs two towers."""
     want = dict.fromkeys(COUNTERS, 0)
-    if model.encoder == "lem":
-        want.update(lem_fwd=forwards, lem_fwd_stash=grad_steps,
-                    lem_bwd=grad_steps)
-    kind = "mp_pair" if model.gated else "mp_layer"
-    want[f"{kind}_fwd"] = model.layers * forwards
-    want[f"{kind}_bwd"] = model.layers * grad_steps
+    towers = ((model.diff_tower, model.scale_tower) if model.twin_scale
+              else (model,))
+    for m in towers:
+        if m.encoder == "lem":
+            want["lem_fwd"] += forwards
+            want["lem_fwd_stash"] += grad_steps
+            want["lem_bwd"] += grad_steps
+        kind = "mp_pair" if m.gated else "mp_layer"
+        want[f"{kind}_fwd"] += m.layers * forwards
+        want[f"{kind}_bwd"] += m.layers * grad_steps
     return want
 
 
@@ -260,10 +284,29 @@ def bound(nbytes, flops, tc_flops=0):
                                      else "operations")
 
 
+def layer_ops(nx, H, D, V, e_valid):
+    """(forward, edge product, backward) FLOP of one message-passing layer
+    on one graph. Forward: the i side with mix (u w_du + px w_dx, counted
+    once), the j side h w_hj, the edge product w2 over the valid edges, the
+    update w3 and w4. The edge products (w2; dw2 and dm1 in the backward)
+    run in 3xTF32 on the tensor cores (csrc/mp_phases.cuh), the rest as
+    float32 FMAs. Backward: dw4, da3, dw3, dh|dagg, dw2 and dm1 over the
+    valid edges, dh from ds_i|ds_j, dw_hi|dw_hj, dw_du|dw_dx|dw_v."""
+    edge = 2 * e_valid * H * H
+    fwd = (2 * nx * (H + D + 1 + V) * H + 2 * nx * H * H
+           + edge + 2 * nx * (2 * H + V) * H + 2 * nx * H * H)
+    bwd = (2 * nx * H * H * 2 + 2 * nx * (2 * H + V) * H
+           + 2 * nx * H * 2 * H + 2 * edge
+           + 2 * nx * 2 * H * H + 2 * nx * H * 2 * H
+           + 2 * nx * (D + 1 + V) * H)
+    return fwd, edge, bwd
+
+
 def flax_tree(model, seed):
     """Random weights for every leaf of ``model``, as a nested numpy dict
     under flax paths, each U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with the
-    fan-in of the flax initializer."""
+    fan-in of the flax initializer (the LEM's and the LSTM's: the hidden
+    width; a twin tower's leaves as its own model's)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -273,8 +316,8 @@ def flax_tree(model, seed):
     for key, val in sd.items():
         parts = key.split(".")
         mod, leaf = parts[-2], parts[-1]
-        if parts[0] == "embedding_lem":
-            fan = H
+        if "embedding_lem" in parts or "lstm" in parts:
+            fan = H  # every recurrent parameter: U(+-1/sqrt(H))
         elif mod == "FactorizedEdgeDense_0":
             f = ".".join(parts[:-1])
             fan = (2 * H + sd[f + ".w_du"].shape[0] + 1
@@ -293,12 +336,15 @@ def flax_tree(model, seed):
     return tree
 
 
-def reference_forward(model, window, pos_x, var_vec, idx, mask):
+def reference_apply(model, window, pos_x, var_vec, idx, mask,
+                    lem_state=None):
     """MPSolver.forward written out through the plain versions of the
     kernels (``lem_scan_plain``, ``fused_mp_layer_plain``,
-    ``fused_gated_pair_plain``) on the model's own parameters, for either
-    encoder (mlp, lem) and either processor (ungated layers, gated pairs):
-    the on-card reference of the kernel path."""
+    ``fused_gated_pair_plain``) on the model's own parameters, for every
+    encoder (mlp, lem, lstm), processor (ungated layers, gated pairs) and
+    decoder (cnn, glu, diff_only), the twin towers and the LEM's state:
+    the on-card reference of the kernel path. Returns (out, the LEM's new
+    state or None)."""
     import torch
 
     from msmp_pde_torch.models.common import swish
@@ -306,10 +352,17 @@ def reference_forward(model, window, pos_x, var_vec, idx, mask):
     from msmp_pde_torch.ops.mp_layer import fused_mp_layer_plain
     from msmp_pde_torch.ops.mp_pair import fused_gated_pair_plain
 
+    if model.twin_scale:
+        diff, _ = reference_apply(model.diff_tower, window, pos_x, var_vec,
+                                  idx, mask)
+        scale, _ = reference_apply(model.scale_tower, window, pos_x,
+                                   var_vec, idx, mask)
+        return model._compose_scale_diff(window, scale, diff), None
     B, nx, tw = window.shape
     V, H = var_vec.shape[-1], model.hidden
     px_n = pos_x / model.L
     variables = var_vec[:, None, :].expand(B, nx, V)
+    state = None
     if model.encoder == "mlp":
         node_in = torch.cat([window, px_n[..., None], variables], -1)
         h = swish(model.embed_2(swish(model.embed_1(node_in))))
@@ -317,13 +370,20 @@ def reference_forward(model, window, pos_x, var_vec, idx, mask):
         seq = torch.stack([
             torch.cat([px_n[..., None], window[..., k:k + 1], variables], -1)
             for k in range(tw)]).reshape(tw, B * nx, 2 + V)
-        lem = model.embedding_lem
-        W, Wz, I = lem.weights, lem.weights_lin_z, 2 + V
-        gx = seq @ W[:, :I].T + lem.bias
-        zx = seq @ Wz[:, :I].T + lem.bias_lin_z
-        zeros = window.new_zeros((B * nx, H))
-        y, _ = lem_scan_plain(gx, zx, zeros, zeros, W[:, I:].T, Wz[:, I:].T,
-                              dt=float(lem.dt))
+        if model.encoder == "lstm":  # plain torch ops: no kernel
+            y = model.lstm(seq)
+        else:
+            lem = model.embedding_lem
+            W, Wz, I = lem.weights, lem.weights_lin_z, 2 + V
+            gx = seq @ W[:, :I].T + lem.bias
+            zx = seq @ Wz[:, :I].T + lem.bias_lin_z
+            zeros = window.new_zeros((B * nx, H))
+            y0, z0 = ((zeros, zeros) if lem_state is None else
+                      (s.reshape(B * nx, H) for s in lem_state))
+            y, z = lem_scan_plain(gx, zx, y0, z0, W[:, I:].T, Wz[:, I:].T,
+                                  dt=float(lem.dt))
+            if model.save_state:
+                state = (y.reshape(B, nx, H), z.reshape(B, nx, H))
         h = swish(model.lemout_2(swish(model.lemout_1(y.reshape(B, nx, H)))))
     for i in range(model.layers):
         layer = getattr(model, f"gnn_{i}")
@@ -334,7 +394,12 @@ def reference_forward(model, window, pos_x, var_vec, idx, mask):
         else:
             h = fused_mp_layer_plain(h, window, px_n[..., None], variables,
                                      idx, mask, layer.weights(), True, True)
-    return model._decode(h, window)
+    return model._decode(h, window), state
+
+
+def reference_forward(model, window, pos_x, var_vec, idx, mask):
+    """``reference_apply``'s output alone, from a zero LEM state."""
+    return reference_apply(model, window, pos_x, var_vec, idx, mask)[0]
 
 
 def plain_forward(trainer):
@@ -343,9 +408,9 @@ def plain_forward(trainer):
 
     def forward(window, steps, variables, lem_state=None):
         var_vec = trainer.graph_vars(spec.t_grid[steps], variables)
-        return reference_forward(
+        return reference_apply(
             model, window, spec.x.expand(window.shape[0], spec.nx), var_vec,
-            spec.idx, spec.mask), None
+            spec.idx, spec.mask, lem_state)
 
     return forward
 
@@ -374,18 +439,26 @@ def smooth_trajectories(n, t_grid, x, L, seed):
 
 
 # (hidden, rows) of phases 2 and 7: buckets 1, 4, 16 of nx 100 and a ragged
-# tile, at the model's width and one more
-LEM_CASES = [(H, N) for H in (128, 96) for N in (100, 400, 1600, 37)]
+# tile, at MSMP-PDE's width, one more of the clusters and MSGMP-PDE's 164
+# (the generic route); y0, z0 random, non-zero (lem_times.lem_args)
+LEM_CASES = [(H, N) for H in (128, 96, 164) for N in (100, 400, 1600, 37)]
+GLU_H = 164  # MSGMP-PDE's hidden width
+
+
+def by_route(errs):
+    """{hidden: max error} -> (the clusters' max, the generic route's)."""
+    return (max(e for H, e in errs.items() if H != GLU_H), errs[GLU_H])
 
 
 def check_lem_training_kernels(rand, T):
-    """Phase 7: returns (stash max error, backward max error)."""
+    """Phase 7: returns ({H: stash max error}, {H: backward max error});
+    dy0 and dz0 are held with the other outputs."""
     import torch
 
     from msmp_pde_torch.ops import lem_scan
     from msmp_pde_torch.tools.lem_times import lem_args
 
-    e_stash = e_bwd = 0.0
+    e_stash, e_bwd = {}, {}
     names = ("dgx", "dzx", "dy0", "dz0", "dwy", "dwzz")
     for H, N in LEM_CASES:
         args = lem_args(rand, T, N, H)
@@ -399,7 +472,7 @@ def check_lem_training_kernels(rand, T):
         check(all(torch.equal(a, b) for a, b in zip(k[:2], plain_k)),
               f"lem_fwd_stash N={N} H={H}: yT, zT differ from lem_fwd's")
         e = max((a - b).abs().max().item() for a, b in zip(k, p))
-        e_stash = max(e_stash, e)
+        e_stash[H] = max(e_stash.get(H, 0.0), e)
         print(f"lem_fwd_stash N={N} H={H}: max |kernel - plain| = {e:.3e}; "
               "two runs bitwise equal, yT and zT bitwise lem_fwd's")
         check(e <= TOL_LEM, f"lem_fwd_stash N={N} H={H} differs by {e:.3e}")
@@ -420,10 +493,10 @@ def check_lem_training_kernels(rand, T):
             check(bool(torch.allclose(a, b, rtol=LEM_BWD_RTOL, atol=atol)),
                   f"lem_bwd N={N} H={H} {name}: max |diff| {e:.3e}, atol "
                   f"{atol}")
-        e_bwd = max(e_bwd, worst)
-        print(f"lem_bwd N={N} H={H}: all six outputs within rtol "
-              f"{LEM_BWD_RTOL} (max |kernel - plain| {worst:.3e}); two runs "
-              "bitwise equal")
+        e_bwd[H] = max(e_bwd.get(H, 0.0), worst)
+        print(f"lem_bwd N={N} H={H}: all six outputs (dy0, dz0 from a "
+              f"non-zero y0, z0) within rtol {LEM_BWD_RTOL} (max |kernel - "
+              f"plain| {worst:.3e}); two runs bitwise equal")
     return e_stash, e_bwd
 
 
@@ -449,9 +522,10 @@ def lem_card_times(rand, T, H):
     print(f"lem_bwd @N={N}: card by launch {own} ms")
 
 
-def check_pair_bwd(rand, model, spec, T, H, V):
-    """Phase 8: returns (max error, {B: args}) with the bucket-16 args for
-    the timings."""
+def check_pair_bwd(rand, model, spec, T, H, V, W164):
+    """Phase 8: returns ({hidden: max error}, {hidden: the batch-16 args}),
+    the latter for the timings. ``W164``: a gate's and a layer's weights at
+    hidden 164, MSGMP-PDE's width, checked at batches 1 and 16."""
     import numpy as np
     import torch
 
@@ -471,8 +545,11 @@ def check_pair_bwd(rand, model, spec, T, H, V):
     odd = [detach(GNNLayer(96, T, 3, g).to(dev).weights()) for _ in "gl"]
     cases.append((2, 40, 96, 3, torch.as_tensor(idx, device=dev),
                   torch.as_tensor(mask, device=dev), *odd))
-    err, args16 = 0.0, None
+    cases += [(B, nx, GLU_H, V, spec.idx, spec.mask, *map(detach, W164))
+              for B in (1, 16)]
+    errs, args16 = {}, {}
     for B, n, h, v, idx, mask, wg, wl in cases:
+        err = errs.get(h, 0.0)
         args = (rand(B, n, h), rand(B, n, T),
                 torch.linspace(0, 1, n, device=dev).expand(B, n)[..., None],
                 rand(B, n, v, scale=.5), idx, mask, wg, wl, rand(B, n, h))
@@ -490,17 +567,97 @@ def check_pair_bwd(rand, model, spec, T, H, V):
             ok, e = scale_aware(a, b, scale)
             err = max(err, e)
             check(ok, f"mp_pair_bwd B={B} H={h} output {i}: {e:.3e}")
+        errs[h] = err
         print(f"mp_pair_bwd B={B} nx={n} H={h}: dh and 24 grads within the "
               f"scale-aware bound (max |kernel - plain| {err:.3e}); two runs "
               "bitwise equal")
         if B == 16:
-            args16 = args
-    return err, args16
+            args16[h] = args
+    return errs, args16
 
 
-def check_train_step(trainer, u_all, rng, name="MSMP-PDE"):
-    """Phases 9 and 15: one step's loss and gradients, kernel path vs plain
-    path."""
+def kernel_push(trainer):
+    """A forward for ``Trainer.step_loss`` that runs the pushforward (no
+    grad) on the kernel path and the step's forward (with grad) through
+    ``plain_forward``: the plain path's step on the kernel path's pushed
+    window and LEM state."""
+    import torch
+
+    plain = plain_forward(trainer)
+
+    def forward(window, steps, variables, lem_state=None):
+        fwd = plain if torch.is_grad_enabled() else trainer.forward
+        return fwd(window, steps, variables, lem_state=lem_state)
+
+    return forward
+
+
+def double_trainer(trainer):
+    """A float64 copy of ``trainer`` (its model and its graph), for the
+    plain path in float64: the yardstick of float32's rounding."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    tr = copy.deepcopy(trainer)
+    tr.model = tr.model.double()
+    tr.spec = dataclasses.replace(trainer.spec, **{
+        f.name: getattr(trainer.spec, f.name).double()
+        for f in dataclasses.fields(trainer.spec)
+        if torch.is_tensor(getattr(trainer.spec, f.name))
+        and getattr(trainer.spec, f.name).is_floating_point()})
+    return tr
+
+
+def step_drift(trainer, u_all, name):
+    """Phase 19: where one train step's gradients at batch 16 lie from the
+    plain path's in float64, on the kernel path and on the plain path in
+    float32: over the parameters, the largest max |error| relative to the
+    gradient's scale (``grad_scales``), at unrolled 0 and 1. Printed, not
+    held: it shows how far float32 itself carries a step."""
+    import numpy as np
+    import torch
+
+    tr64 = double_trainer(trainer)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    rng = np.random.default_rng(2)
+    for unrolled in (0, 1):
+        idx = torch.as_tensor(rng.permutation(len(u_all))[:TRAIN_BATCH],
+                              device=u_all.device)
+        steps = torch.as_tensor(
+            rng.integers(25, 250 - 25 * (unrolled + 1) + 1, TRAIN_BATCH),
+            device=u_all.device)
+        grads = {}
+        for path, tr, loss in (
+                ("kernel", trainer, lambda t: t.step_loss(
+                    u_all, {}, idx, steps, unrolled)),
+                ("plain32", trainer, lambda t: reference_step_loss(
+                    t, u_all, idx, steps, unrolled)),
+                ("plain64", tr64, lambda t: reference_step_loss(
+                    t, u_all.double(), idx, steps, unrolled))):
+            grads[path] = torch.autograd.grad(loss(tr),
+                                              list(tr.model.parameters()))
+        scales = grad_scales(zip(names, grads["plain64"]))
+        worst = {p: max((a.double() - b).abs().max().item() / scales[n]
+                        for n, a, b in zip(names, grads[p],
+                                           grads["plain64"]))
+                 for p in ("kernel", "plain32")}
+        print(f"{name} train step unrolled={unrolled}: from the plain path "
+              f"in float64, the kernel path {worst['kernel']:.2e} and the "
+              f"plain path in float32 {worst['plain32']:.2e} of a "
+              "gradient's scale (the largest over parameters)")
+
+
+def check_train_step(trainer, u_all, rng, name="MSMP-PDE", same_push=False):
+    """Phases 9, 15 and 19: one step's loss and gradients, kernel path vs
+    plain path. With ``same_push`` the plain path's step at unrolled 1
+    starts from the kernel path's pushed window and state
+    (``kernel_push``): the pushforward amplifies float32's rounding, so
+    that at unrolled 1 both paths lie ~10x farther from the plain path in
+    float64 than at unrolled 0, past the scale-aware bound (``step_drift``
+    prints it for MSSMP-PDE and MSGMP-PDE), and only the same inputs hold
+    the kernels to that bound."""
     import torch
 
     params = list(trainer.model.parameters())
@@ -514,7 +671,12 @@ def check_train_step(trainer, u_all, rng, name="MSMP-PDE"):
             device=dev)
         loss_k = trainer.step_loss(u_all, {}, idx, steps, unrolled)
         grads_k = torch.autograd.grad(loss_k, params)  # every one is used
-        loss_p = reference_step_loss(trainer, u_all, idx, steps, unrolled)
+        if same_push and unrolled:
+            loss_p = trainer.step_loss(u_all, {}, idx, steps, unrolled,
+                                       forward=kernel_push(trainer))
+        else:
+            loss_p = reference_step_loss(trainer, u_all, idx, steps,
+                                         unrolled)
         grads_p = torch.autograd.grad(loss_p, params)
         torch.cuda.synchronize()
         rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -529,9 +691,12 @@ def check_train_step(trainer, u_all, rng, name="MSMP-PDE"):
             worst = max(worst, e)
             check(ok, f"{name} train step unrolled={unrolled}: {pname} grad "
                   f"differs by {e:.3e}")
-        print(f"{name} train step B={TRAIN_BATCH} unrolled={unrolled}: loss "
-              f"{loss_k.item():.6f} (plain {loss_p.item():.6f}, rel "
-              f"{rel:.2e}); {len(params)} grads within the scale-aware "
+        push = (" (the plain step from the kernel path's pushforward)"
+                if same_push and unrolled else "")
+        print(f"{name} train step B={TRAIN_BATCH} unrolled={unrolled}"
+              f"{push}: loss {loss_k.item():.6f} (plain "
+              f"{loss_p.item():.6f}, rel {rel:.2e}); {len(params)} grads "
+              "within the scale-aware "
               f"bound (max |diff| {worst:.3e})")
 
 
@@ -740,19 +905,7 @@ def check_pair_fallback(rand, model, spec, T, H, V):
     nx, K = spec.idx.shape
     Wg = tuple(w.detach() for w in model.gate_0.weights())
     Wl = tuple(w.detach() for w in model.gnn_0.weights())
-    fits = lambda B: mp_pair.pair_bwd_fused_fits(B, nx, H, T, V, K,
-                                                 spec.x.device)
-    top, over = 1, 2  # the largest batch that fits, the least that does not
-    while fits(over):
-        top, over = over, 2 * over
-    while over - top > 1:
-        mid = (top + over) // 2
-        top, over = (mid, over) if fits(mid) else (top, mid)
-    print(f"fused pair backward up to batch {top} (its workspace in a "
-          f"quarter of {torch.cuda.get_device_properties(0).total_memory} "
-          "bytes); the fallback takes larger batches, and is forced here")
-    check(all(fits(B) for B in (1, 16, 48)) and not fits(top + 1),
-          "pair_bwd_fused_fits switch")
+    fused_limit(spec, H, T, V)
     e_stash = 0.0
     for B in BUCKETS + (48,):
         args = (rand(B, nx, H), rand(B, nx, T),
@@ -795,6 +948,32 @@ def check_pair_fallback(rand, model, spec, T, H, V):
     print(f"pair fallback at batch 48: launches {nonzero(counts)}; dh and 24 "
           f"grads within the scale-aware bound (max |diff| {e_fb:.3e})")
     return e_stash, e_fb, (args, gn, ln, g)
+
+
+def fused_limit(spec, H, T, V):
+    """Phases 13 and 20: the largest batch whose pair backward takes the
+    fused kernel at hidden H (``pair_bwd_fused_fits``), checked to take
+    batches 1, 16 and 48 and to switch right after the limit."""
+    import torch
+
+    from msmp_pde_torch.ops import mp_pair
+
+    nx, K = spec.idx.shape
+    fits = lambda B: mp_pair.pair_bwd_fused_fits(B, nx, H, T, V, K,
+                                                 spec.x.device)
+    top, over = 1, 2  # the largest batch that fits, the least that does not
+    while fits(over):
+        top, over = over, 2 * over
+    while over - top > 1:
+        mid = (top + over) // 2
+        top, over = (mid, over) if fits(mid) else (top, mid)
+    print(f"fused pair backward at hidden {H} up to batch {top} (its "
+          f"workspace in a quarter of "
+          f"{torch.cuda.get_device_properties(0).total_memory} bytes); the "
+          "fallback takes larger batches")
+    check(all(fits(B) for B in (1, 16, 48)) and not fits(top + 1),
+          f"pair_bwd_fused_fits switch at hidden {H}")
+    return top
 
 
 @contextlib.contextmanager
@@ -966,6 +1145,98 @@ def datagen_phase(data_dir, on):
           f"u_base {ds.u_base.shape}, x {ds.x.shape}")
 
 
+def counted_fit(args, exp, data, save_path, on, snapshot=None):
+    """Phases 18 and 20: ``train.fit`` with each optimizer step's launches
+    counted, and what every fit is held to: each step's expected launches,
+    the metrics' forwards' launches, the pushforward depths of each epoch,
+    finite losses, a loss falling within epoch 0. ``snapshot(save, path,
+    model, tx, epoch)`` runs in place of each checkpoint save. Returns
+    (fit's result, the run's launch counts, its seconds)."""
+    import numpy as np
+
+    from msmp_pde_torch.training import train
+    from msmp_pde_torch.utils import checkpoint
+
+    trainer, t_res = exp.trainer, exp.t_res
+    model, name = trainer.model, args.model
+    per_step = []
+    step_fn, save = trainer.train_step_fn, checkpoint.save_checkpoint
+
+    def counted(tx, unrolled):
+        fn = step_fn(tx, unrolled)
+
+        def step(*a):
+            before = launch_counts()
+            loss = fn(*a)
+            per_step.append((unrolled, diff_counts(launch_counts(), before)))
+            return loss
+
+        return step
+
+    trainer.train_step_fn = counted
+    if snapshot is not None:
+        checkpoint.save_checkpoint = lambda *a: snapshot(save, *a)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = train.fit(args, exp, data, save_path)
+    finally:
+        checkpoint.save_checkpoint = save
+        del trainer.train_step_fn
+    took = time.perf_counter() - t0
+    totals = launch_counts()
+    epochs = args.num_epochs
+    print(f"{name} fit: {epochs} epoch(s) in {took:.3f} s, launches "
+          f"{nonzero(totals)}")
+
+    n_batches = E1_SAMPLES["train"] // TRAIN_BATCH
+    per_epoch = t_res * n_batches
+    hist = res["history"]
+    check(len(per_step) == epochs * per_epoch, f"{name} fit: step count")
+    for i, (f, d) in enumerate(per_step):
+        want = expected_launches(model, f + 1, 1)
+        check(d == want, f"{name} fit step {i} (unrolled {f}): launches "
+              f"{nonzero(d)}, expected {nonzero(want)}")
+    # the metrics' forwards: the one-step losses at 9 steps and the 8-window
+    # rollout of the unrolled loss, on one batch of the valid set; where
+    # the validation loss improved, the same on the test set and the two
+    # sets' L2 norms
+    steps_at, windows = 9, 8
+    fwd = sum(steps_at + windows
+              + (steps_at + 3 * windows if h["improved"] else 0)
+              for h in hist)
+    summed = dict.fromkeys(COUNTERS, 0)
+    for _, d in per_step:
+        summed = {k: summed[k] + d[k] for k in COUNTERS}
+    want = expected_launches(model, fwd)
+    check(diff_counts(totals, summed) == want, f"{name} fit metrics: "
+          f"launches {nonzero(diff_counts(totals, summed))}, expected "
+          f"{nonzero(want)}")
+    for k, n in expected_launches(model, 1, 1).items():
+        check(totals[k] > 0 or n == 0, f"{name} fit launched no {k}")
+    flags = [f for f, _ in per_step]
+    for e in range(epochs):
+        depths = set(range(min(e, args.unrolling) + 1))
+        check(set(flags[e * per_epoch:(e + 1) * per_epoch]) == depths,
+              f"{name} fit: pushforward depths of epoch {e}")
+    for h in hist:
+        check(bool(np.isfinite(h["losses"]).all()),
+              f"{name} fit epoch {h['epoch']}: a loss is not finite")
+        print(f"{name} fit epoch {h['epoch']}: {h['losses'].size} steps in "
+              f"{h['train_s']:.3f} s, metrics {h['metric_s']:.3f} s, train "
+              f"loss {h['train_loss']:.5f}, valid loss {h['val_loss']:.5f}"
+              f"{' (best)' if h['improved'] else ''} ({on})")
+    first = hist[0]["losses"].reshape(-1)
+    check(first[-50:].mean() < first[:50].mean(),
+          f"{name} fit: the loss did not fall within epoch 0")
+    print(f"{name} fit epoch 0 mean loss, first 50 steps "
+          f"{first[:50].mean():.4f}, last 50 {first[-50:].mean():.4f}")
+    print(f"{name} fit: valid rel-L2 {100 * res['valid_rel_L2']:.3f} %, test "
+          f"rel-L2 {100 * res['test_rel_L2']:.3f} % (32 training samples, "
+          f"{epochs} epoch(s); {on})")
+    return res, totals, took
+
+
 def fit_phase(data_dir, work_dir, on):
     """Phase 18: fit, the checkpoint and resume, the L2 norms on both
     paths, and the server on the checkpoint."""
@@ -997,83 +1268,20 @@ def fit_phase(data_dir, work_dir, on):
             for m in E1_SAMPLES}
     save_path = str(Path(work_dir) / "models" / "MSMP-PDE_E1.pt")
 
-    # each optimizer step's launches, and the state each checkpoint saved
-    per_step, saved = [], []
-    step_fn, save = trainer.train_step_fn, checkpoint.save_checkpoint
+    # the state each checkpoint saved
+    saved = []
 
-    def counted(tx, unrolled):
-        fn = step_fn(tx, unrolled)
-
-        def step(*a):
-            before = launch_counts()
-            loss = fn(*a)
-            per_step.append((unrolled, diff_counts(launch_counts(), before)))
-            return loss
-
-        return step
-
-    def snapshot(path, model, tx=None, epoch=None):
+    def snapshot(save, path, model, tx=None, epoch=None):
         save(path, model, tx, epoch)
         saved.append(({k: v.detach().clone()
                        for k, v in model.state_dict().items()},
                       copy.deepcopy(tx[0].state_dict()), tx[1].state_dict(),
                       epoch))
 
-    trainer.train_step_fn, checkpoint.save_checkpoint = counted, snapshot
-    reset_counts()
-    t0 = time.perf_counter()
-    try:
-        res = train.fit(args, exp, data, save_path)
-    finally:
-        checkpoint.save_checkpoint = save
-        del trainer.train_step_fn
-    took = time.perf_counter() - t0
-    totals = launch_counts()
-    print(f"fit: 2 epochs in {took:.3f} s, launches {nonzero(totals)}")
-
-    n_batches = E1_SAMPLES["train"] // TRAIN_BATCH
+    res, totals, _ = counted_fit(args, exp, data, save_path, on, snapshot)
     hist = res["history"]
-    check(len(per_step) == 2 * t_res * n_batches, "fit: step count")
-    for i, (f, d) in enumerate(per_step):
-        want = expected_launches(model, f + 1, 1)
-        check(d == want, f"fit step {i} (unrolled {f}): launches "
-              f"{nonzero(d)}, expected {nonzero(want)}")
-    # the metrics' forwards: the one-step losses at 9 steps and the 8-window
-    # rollout of the unrolled loss, on one batch of the valid set; where
-    # the validation loss improved, the same on the test set and the two
-    # sets' L2 norms
-    steps_at, windows = 9, 8
-    fwd = sum(steps_at + windows
-              + (steps_at + 3 * windows if h["improved"] else 0)
-              for h in hist)
-    summed = dict.fromkeys(COUNTERS, 0)
-    for _, d in per_step:
-        summed = {k: summed[k] + d[k] for k in COUNTERS}
-    want = expected_launches(model, fwd)
-    check(diff_counts(totals, summed) == want, "fit metrics: launches "
-          f"{nonzero(diff_counts(totals, summed))}, expected {nonzero(want)}")
-    for k in ("lem_fwd", "lem_fwd_stash", "lem_bwd", "mp_pair_fwd",
-              "mp_pair_bwd"):
-        check(totals[k] > 0, f"fit launched no {k}")
-    flags = [f for f, _ in per_step]
-    check(set(flags[:t_res * n_batches]) == {0}
-          and set(flags[t_res * n_batches:]) == {0, 1},
-          "fit: pushforward depths per epoch")
-    for h in hist:
-        check(bool(np.isfinite(h["losses"]).all()),
-              f"fit epoch {h['epoch']}: a loss is not finite")
-        print(f"fit epoch {h['epoch']}: {h['losses'].size} steps in "
-              f"{h['train_s']:.3f} s, metrics {h['metric_s']:.3f} s, train "
-              f"loss {h['train_loss']:.5f}, valid loss {h['val_loss']:.5f}"
-              f"{' (best)' if h['improved'] else ''} ({on})")
-    first = hist[0]["losses"].reshape(-1)
-    check(first[-50:].mean() < first[:50].mean(),
-          "fit: the loss did not fall within epoch 0")
-    print(f"fit epoch 0 mean loss, first 50 steps {first[:50].mean():.4f}, "
-          f"last 50 {first[-50:].mean():.4f}")
-    print(f"fit: valid rel-L2 {100 * res['valid_rel_L2']:.3f} %, test rel-L2 "
-          f"{100 * res['test_rel_L2']:.3f} % (32 training samples, 2 epochs; "
-          f"{on})")
+    n_batches = E1_SAMPLES["train"] // TRAIN_BATCH
+    windows = 8  # of a rollout from nr_gt_steps to the data horizon
 
     # the best-val checkpoint, restored into a model of other weights
     check(Path(save_path).is_file() and saved, "fit wrote no checkpoint")
@@ -1178,6 +1386,232 @@ def fit_phase(data_dir, work_dir, on):
     return totals
 
 
+# the TPU kernel each CUDA kernel replaces
+REPLACES = {"lem_fwd": "msmp_pde_tpu/ops/lem_pallas.py:41",
+            "lem_fwd_stash": "msmp_pde_tpu/ops/lem_pallas.py:41",
+            "lem_bwd": "msmp_pde_tpu/ops/lem_pallas.py:73",
+            "mp_pair_fwd": "msmp_pde_tpu/ops/mp_pallas.py:260",
+            "mp_pair_bwd": "msmp_pde_tpu/ops/mp_pallas.py:291",
+            "mp_pair_fwd_stash": "msmp_pde_tpu/ops/mp_pallas.py:260",
+            "mp_layer_fwd": "msmp_pde_tpu/ops/mp_pallas.py:156",
+            "mp_layer_bwd": "msmp_pde_tpu/ops/mp_pallas.py:228"}
+VARIANTS = ("MSSMP-PDE", "MSGMP-PDE", "SaveMSMP-PDE", "LSTMGated", "LSTM")
+# phase 20's request: samples starting at 200, 225 and 150 cross nt - tw
+# = 225 within 8 windows, the one at 25 does not
+STATEFUL_STEPS = (25, 200, 150, 225)
+
+
+def variants_phase(rand, u_all, T):
+    """Phase 19: the five models at full width (E1, nx 100, tw 25, six
+    layers or pairs, weights from a numpy seed in the flax layout through
+    params_from_flax): one forward at batch 16 against reference_apply
+    with its launches, SaveMSMP-PDE also from a non-zero state (the output
+    and the new state), and one train step at batch 16, kernel path vs
+    plain path, unrolled 0 and 1 (SaveMSMP-PDE's state threaded through
+    the pushforward; at unrolled 1 both steps from the kernel path's
+    pushforward, ``check_train_step``). Returns {name: trainer}."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.training.setup import build_trainer
+    from msmp_pde_torch.utils.convert import params_from_flax
+
+    trainers = {}
+    for i, name in enumerate(VARIANTS):
+        tr = build_trainer("E1", name, device=u_all.device)
+        params = params_from_flax(flax_tree(tr.model, seed=10 + i))
+        tr.model.load_state_dict(params, strict=True)
+        m, spec = tr.model, tr.spec
+        n_params = sum(v.numel() for v in params.values())
+        B, nx = TRAIN_BATCH, spec.nx
+        window = rand(B, nx, T)
+        steps = torch.full((B,), T, dtype=torch.int64, device=u_all.device)
+        H = m.diff_tower.hidden if m.twin_scale else m.hidden
+        states = [None]
+        if m.save_state:
+            states.append(tuple(rand(B, nx, H, scale=.5) for _ in "yz"))
+        for state in states:
+            with torch.no_grad():
+                reset_counts()
+                out, new = tr.forward(window, steps, {}, lem_state=state)
+                counts = launch_counts()
+                ref, ref_new = plain_forward(tr)(window, steps, {},
+                                                 lem_state=state)
+            torch.cuda.synchronize()
+            want = expected_launches(m, 1)
+            check(counts == want, f"{name} forward: launches "
+                  f"{nonzero(counts)}, expected {nonzero(want)}")
+            check(out.shape == (B, nx, T)
+                  and bool(torch.isfinite(out).all()),
+                  f"{name} output {tuple(out.shape)}")
+            e = (out - ref).abs().max().item()
+            if m.save_state:
+                check(len(new) == 2 and all(
+                    a.shape == (B, nx, H) for a in new), f"{name} state")
+                e = max([e] + [(a - b).abs().max().item()
+                               for a, b in zip(new, ref_new)])
+            else:
+                check(new is None and ref_new is None, f"{name}: a state")
+            tag = ("" if state is None else
+                   " from a non-zero state (output and new state)")
+            print(f"{name} (hidden {H}, {n_params} parameters) forward "
+                  f"B={B}{tag}: max |kernel path - plain path| = {e:.3e} "
+                  f"(output max |.| {ref.abs().max().item():.3e}); launches "
+                  f"{nonzero(counts)}")
+            check(e <= TOL_MODEL, f"{name} differs by {e:.3e} > "
+                  f"{TOL_MODEL}")
+        check_train_step(tr, u_all, np.random.default_rng(1), name,
+                         same_push=True)
+        if name in ("MSSMP-PDE", "MSGMP-PDE"):
+            step_drift(tr, u_all, name)
+        trainers[name] = tr
+    return trainers
+
+
+def plain_rollout(trainer, window, steps, n_windows, follow=None):
+    """The engine's rollout written out through ``plain_forward``: the
+    windows advance by the pushforward rule, the time feature clamps to
+    [tw, nt - tw], and the LEM state of each sample whose window starts
+    past nt - tw is zeroed. With ``follow`` (another rollout [B, S, nx,
+    tw]) each window advances by that rollout's prediction instead of its
+    own, the plain path's LEM state carried as its own."""
+    import torch
+
+    from msmp_pde_torch.data.graph import advance_windows
+
+    tw, dev = trainer.tw, trainer.device
+    nt = int(trainer.spec.t_grid.shape[0])
+    forward = plain_forward(trainer)
+    w = torch.as_tensor(window, device=dev)
+    s = torch.as_tensor(steps, device=dev, dtype=torch.int64)
+    preds, state = [], None
+    with torch.no_grad():
+        for i in range(n_windows):
+            if i:
+                last = (preds[-1] if follow is None else
+                        torch.as_tensor(follow[:, i - 1], device=dev))
+                w = advance_windows(w, last, trainer.d, tw)
+                s = s + tw
+                if state is not None:
+                    keep = (s <= nt - tw).to(w.dtype)[:, None, None]
+                    state = tuple(x * keep for x in state)
+            pred, state = forward(w, torch.clamp(s, tw, nt - tw), {},
+                                  lem_state=state)
+            preds.append(pred)
+    return torch.stack(preds, dim=1).cpu().numpy()
+
+
+def serve_stateful(engine, name):
+    """Phase 20, serving: the HTTP server answers a request of four
+    samples at STATEFUL_STEPS and N_WINDOWS windows, equal to
+    RolloutEngine.rollout, with its expected launches; each of its windows
+    within TOL_MODEL (scaled by the window's largest value where that
+    passes 1) of the plain path's forward from the same window
+    (``plain_rollout`` following it, the same reset); for a stateful model
+    the per-sample reset past nt - tw fires. The free-running plain
+    rollout's distance is printed, not held, with each path's distance
+    from the plain path in float64 window by window: at random weights
+    a rollout amplifies float32's rounding from window to window, on
+    either path. Returns the launch counts of the request."""
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from msmp_pde_torch.serving import engine as engine_mod
+    from msmp_pde_torch.serving import serve
+
+    tr = engine.trainer
+    nx, T = tr.spec.nx, tr.tw
+    meta = {"backend": "cuda", "experiment": "E1", "model": name,
+            "buckets": list(BUCKETS)}
+    srv = ThreadingHTTPServer(("127.0.0.1", 0),
+                              serve.make_handler(engine, meta))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    w = np.random.default_rng(20).normal(size=(4, nx, T)).astype(np.float32)
+    steps = list(STATEFUL_STEPS)
+    resets, reset = [], engine_mod.reset_past_horizon
+
+    def counting(state, s, last):
+        resets.append(int((s > last).sum()))
+        return reset(state, s, last)
+
+    engine_mod.reset_past_horizon = counting
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        got = serve.request_rollout("127.0.0.1", srv.server_address[1], w,
+                                    steps=steps, n_windows=N_WINDOWS)
+        lat = time.perf_counter() - t0
+        counts = launch_counts()
+        direct = engine.rollout(w, start_step=steps, n_windows=N_WINDOWS)
+    finally:
+        engine_mod.reset_past_horizon = reset
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    check(not th.is_alive(), f"{name}: the server thread did not stop")
+    want = expected_launches(tr.model, N_WINDOWS)
+    check(counts == want, f"{name} served: launches {nonzero(counts)}, "
+          f"expected {nonzero(want)}")
+    check(got.shape == (4, N_WINDOWS, nx, T)
+          and bool(np.isfinite(got).all()), f"{name} served {got.shape}")
+    check(np.array_equal(got, direct),
+          f"{name}: the served rollout differs from engine.rollout")
+    plain = plain_rollout(tr, w, steps, N_WINDOWS, follow=got)
+    errs = [float(np.abs(got[:, i] - plain[:, i]).max())
+            / max(1.0, float(np.abs(plain[:, i]).max()))
+            for i in range(N_WINDOWS)]
+    e = max(errs)
+    check(e <= TOL_MODEL, f"{name}: served vs the plain path's windows "
+          f"{['%.2e' % x for x in errs]}")
+    free = plain_rollout(tr, w, steps, N_WINDOWS)
+    drift = float(np.linalg.norm(got - free) / np.linalg.norm(free))
+    truth = plain_rollout(double_trainer(tr), w.astype(np.float64), steps,
+                          N_WINDOWS)
+    top = float(np.abs(truth).max())
+    for label, r in (("served", got), ("plain path in float32", free)):
+        per = " ".join("%.1e" % (float(np.abs(r[:, i] - truth[:, i]).max())
+                                 / top) for i in range(N_WINDOWS))
+        print(f"{name} {label}: max |error| / max |value| from the plain "
+              f"path in float64, window by window: {per}")
+    stateful = tr.model.save_state
+    fired = sum(resets)
+    check(fired > 0 if stateful else not resets,
+          f"{name}: the state reset fired {resets}")
+    print(f"{name} served B=4 from steps {steps}, {N_WINDOWS} windows: "
+          f"{lat * 1e3:.3f} ms, equal to engine.rollout, each window within "
+          f"{e:.3e} of the plain path's from the same window (the free-"
+          f"running plain rollout at rel-L2 {drift:.3e}), launches "
+          f"{nonzero(counts)}"
+          + (f"; the state reset past nt - tw fired for {fired} "
+             f"sample-windows" if stateful else ""))
+    return counts
+
+
+def msgmp_fit_phase(data_dir, work_dir, on):
+    """Phase 20, training: the train CLI's fit of MSGMP-PDE at full width
+    (hidden 164, six gated pairs, the GLU decoder) on phase 17's data,
+    batch 16, unrolling 1, lr 1e-4, one epoch. Returns (the trainer, the
+    run's launch counts, its seconds)."""
+    from msmp_pde_torch.training import train
+    from msmp_pde_torch.training.setup import setup_experiment
+
+    args = train.build_parser().parse_args([
+        "--experiment=E1", "--model=MSGMP-PDE", "--num_epochs=1",
+        "--batch_size=16", "--unrolling=1", "--lr=1e-4",
+        "--print_interval=100", "--device=cuda", f"--data_dir={data_dir}"])
+    exp = setup_experiment(args, data_dir=data_dir)
+    model = exp.trainer.model
+    check(model.hidden == GLU_H and model.layers == 6 and model.gated
+          and model.decoder == "glu", "fit: not MSGMP-PDE at full width")
+    data = {m: train.device_arrays(exp.datasets[m], exp.trainer.device)
+            for m in E1_SAMPLES}
+    save_path = str(Path(work_dir) / "models" / "MSGMP-PDE_E1.pt")
+    _, totals, took = counted_fit(args, exp, data, save_path, on)
+    return exp.trainer, totals, took
+
+
 def main():
     import tempfile
 
@@ -1216,19 +1650,18 @@ def main():
     print(f"build: {time.perf_counter() - t0:.3f} s for "
           f"{', '.join(sorted(reports))}")
     for name, text in sorted(reports.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
-    for H in (128, 96):
+        for kernel, lines in _build.resources(text):
+            print(f"  {name}: {kernel}: {'; '.join(lines)}")
+    for H in (128, 96, GLU_H):
         fwd = {N: lem_scan.lem_launch_shape(N, H) for N in (100, 1600)}
         bwd = lem_scan.lem_launch_shape(1600, H, backward=True)
-        print(f"  LEM clusters at hidden {H} (rows a cluster, CTAs a cluster, "
+        print(f"  LEM grid at hidden {H} (rows a cluster, CTAs a cluster, "
               f"CTAs, dynamic shared bytes a CTA): lem_fwd N=100 {fwd[100]}, "
               f"N=1600 {fwd[1600]}; lem_bwd N=1600 {bwd}")
 
     # 2. LEM-scan kernel vs plain ----------------------------------------
     T = 25
-    err = {"lem_fwd": 0.0, "mp_pair_fwd": 0.0}
+    err = {"lem_fwd": {}, "mp_pair_fwd": {}}  # {hidden: max error}
     for H, N in LEM_CASES:
         args = lem_args(rand, T, N, H)
         yk, zk = lem_scan.lem_scan(*args)
@@ -1238,9 +1671,9 @@ def main():
         check(torch.equal(yk, again[0]) and torch.equal(zk, again[1]),
               f"lem_fwd N={N} H={H}: two runs differ")
         e = max((yk - yp).abs().max().item(), (zk - zp).abs().max().item())
-        err["lem_fwd"] = max(err["lem_fwd"], e)
-        print(f"lem_fwd N={N} H={H}: max |kernel - plain| = {e:.3e}; two "
-              "runs bitwise equal")
+        err["lem_fwd"][H] = max(err["lem_fwd"].get(H, 0.0), e)
+        print(f"lem_fwd N={N} H={H} (y0, z0 non-zero): max |kernel - plain| "
+              f"= {e:.3e}; two runs bitwise equal")
         check(e <= TOL_LEM,
               f"lem_fwd N={N} H={H} differs by {e:.3e} > {TOL_LEM}")
     H = 128
@@ -1268,6 +1701,11 @@ def main():
                   torch.as_tensor(odd_mask, device=dev),
                   *[GNNLayer(96, T, 3, odd_gen).to(dev).weights()
                     for _ in "gl"]))
+    # MSGMP-PDE's width, 164: 36 columns in a 64-column tile's last
+    W164 = [GNNLayer(GLU_H, T, V, torch.Generator().manual_seed(5 + i)).to(
+        dev).weights() for i in range(2)]
+    cases += [(B, nx, GLU_H, V, spec.idx, spec.mask, *W164)
+              for B in (1, 16, 48)]
     with torch.no_grad():
         for B, n, h, v, idx, mask, wg, wl in cases:
             px = (spec.x.expand(B, nx)[..., None] / spec.L if n == nx else
@@ -1275,7 +1713,7 @@ def main():
             args = (rand(B, n, h), rand(B, n, T), px,
                     rand(B, n, v, scale=.5), idx, mask, wg, wl)
             if n == nx:
-                pair_args[B] = args
+                pair_args[B if h == H else (h, B)] = args
             ok = mp_pair.fused_gated_pair(*args)
             again = mp_pair.fused_gated_pair(*args)
             op = mp_pair.fused_gated_pair_plain(*args)
@@ -1283,7 +1721,7 @@ def main():
             check(torch.equal(ok, again),
                   f"mp_pair_fwd B={B} H={h}: two runs differ")
             e = (ok - op).abs().max().item()
-            err["mp_pair_fwd"] = max(err["mp_pair_fwd"], e)
+            err["mp_pair_fwd"][h] = max(err["mp_pair_fwd"].get(h, 0.0), e)
             print(f"mp_pair_fwd B={B} nx={n} H={h}: max |kernel - plain| = "
                   f"{e:.3e}; two runs bitwise equal")
             check(e <= TOL_PAIR,
@@ -1314,13 +1752,7 @@ def main():
     D = T
     w_elems = sum(w.numel() for w in Wg) + sum(w.numel() for w in Wl)
     e_valid = float(spec.mask.sum().item())
-    # i side with mix (u w_du + px w_dx, counted once), j side h w_hj,
-    # edge w2 over the valid edges, update w3 and w4. The edge products
-    # (w2 here; dw2 and dm1 in the backward) run in 3xTF32 on the tensor
-    # cores (csrc/mp_phases.cuh), the rest as float32 FMAs.
-    edge = 2 * e_valid * H * H
-    per_layer = (2 * nx * (H + D + 1 + V) * H + 2 * nx * H * H
-                 + edge + 2 * nx * (2 * H + V) * H + 2 * nx * H * H)
+    per_layer, edge, bwd_layer = layer_ops(nx, H, D, V, e_valid)
     print(f"lem_fwd @bucket 16: kernel {lem_ms:.4f} ms, plain "
           f"{lem_plain_ms:.4f} ms (CUDA graph; {lem_eager_ms:.4f} ms eager), "
           f"bound {lem_bound:.4f} ms ({lem_by})")
@@ -1349,8 +1781,9 @@ def main():
     e_stash, e_lbwd = check_lem_training_kernels(rand, T)
     train_tr = build_trainer("E1", "MSMP-PDE", device=dev)
     train_tr.model.load_state_dict(params, strict=True)
-    e_pbwd, pbwd_args = check_pair_bwd(rand, train_tr.model, train_tr.spec, T,
-                                       H, V)
+    e_pbwd, pbwd_all = check_pair_bwd(rand, train_tr.model, train_tr.spec, T,
+                                      H, V, W164)
+    pbwd_args = pbwd_all[H]
     u_all = torch.as_tensor(smooth_trajectories(
         16, spec.t_grid.cpu().numpy(), spec.x.cpu().numpy(), spec.L, seed=0),
         device=dev)
@@ -1381,13 +1814,6 @@ def main():
         lambda: mp_pair.fused_gated_pair_bwd_plain(*pbwd_args))
     pbwd_plain_ms = timed_graph(
         lambda: mp_pair.fused_gated_pair_bwd_plain(*pbwd_args))
-    # the pair's backward needs both layers' forward and backward:
-    # dw4, da3, dw3, dh|dagg, dw2 and dm1 over the valid edges, dh from
-    # ds_i|ds_j, dw_hi|dw_hj, dw_du|dw_dx|dw_v
-    bwd_layer = (2 * nx * H * H * 2 + 2 * nx * (2 * H + V) * H
-                 + 2 * nx * H * 2 * H + 2 * edge
-                 + 2 * nx * 2 * H * H + 2 * nx * H * 2 * H
-                 + 2 * nx * (D + 1 + V) * H)
     # a layer's forward and backward: three edge products on the tensor
     # cores, the rest on the CUDA cores
     fb_core = per_layer + bwd_layer - 3 * edge
@@ -1543,66 +1969,164 @@ def main():
     print(f"MP-PDE train_epoch (250 steps): {mp_epoch_s:.3f} s")
 
     # 17-18. E1 datagen on the card, fit, resume and serve --------------
+    # 19. the five models of this slice at full width
+    # 20. the slice's main path: fit MSGMP-PDE on the E1 data; serve
+    #     SaveMSMP-PDE and MSSMP-PDE across the data horizon
     on = card()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        data_dir = str(Path(work) / "data")
         t0 = time.perf_counter()
-        datagen_phase(str(Path(work) / "data"), on)
+        datagen_phase(data_dir, on)
         t1 = time.perf_counter()
-        fit_counts = fit_phase(str(Path(work) / "data"), work, on)
-        print(f"phases 17 and 18: {t1 - t0:.3f} s and "
-              f"{time.perf_counter() - t1:.3f} s")
-    print(f"fit main path launches: {nonzero(fit_counts)}")
+        fit_counts = fit_phase(data_dir, work, on)
+        t2 = time.perf_counter()
+        print(f"phases 17 and 18: {t1 - t0:.3f} s and {t2 - t1:.3f} s")
+        print(f"fit main path launches: {nonzero(fit_counts)}")
+        variant_trs = variants_phase(rand, u_all, T)
+        t3 = time.perf_counter()
+        msgmp_tr, msgmp_counts, msgmp_fit_s = msgmp_fit_phase(data_dir, work,
+                                                              on)
+    variant_params = {n: {k: v.detach() for k, v in
+                          tr.model.state_dict().items()}
+                      for n, tr in variant_trs.items()}
+    for name in ("SaveMSMP-PDE", "MSSMP-PDE"):
+        eng = RolloutEngine(build_serving_trainer("E1", name, device=dev),
+                            variant_params[name], batch_buckets=BUCKETS)
+        serve_stateful(eng, name)
+    print(f"phases 19 and 20: {t3 - t2:.3f} s and "
+          f"{time.perf_counter() - t3:.3f} s")
+    print(f"MSGMP-PDE fit main path launches (hidden {GLU_H}): "
+          f"{nonzero(msgmp_counts)}")
+
+    # 20 (timings). MSGMP-PDE's step and rollouts; the 164 kernels ------
+    Hg, N = GLU_H, 16 * nx
+    fused_limit(spec, Hg, T, V)
+    gargs = lem_args(rand, T, N, Hg)
+    glem = {}  # kernel: (ms, plain ms, eager ms)
+    _, _, gys, gzs = lem_scan.lem_scan_plain(*gargs, stash=True)
+    gbargs = (*gargs, gys, gzs, rand(N, Hg), rand(N, Hg))
+    for name, kern, plain in (
+            ("lem_fwd", lambda: lem_scan.lem_scan_kernel(*gargs),
+             lambda: lem_scan.lem_scan_plain(*gargs)),
+            ("lem_fwd_stash",
+             lambda: lem_scan.lem_scan_kernel(*gargs, stash=True),
+             lambda: lem_scan.lem_scan_plain(*gargs, stash=True)),
+            ("lem_bwd", lambda: lem_scan.lem_scan_bwd_kernel(*gbargs),
+             lambda: lem_scan.lem_scan_bwd_plain(*gbargs))):
+        glem[name] = (timed(kern), timed_graph(plain), timed(plain))
+    # every product of the generic route is a float32 FMA on the CUDA cores
+    g_bytes = 4 * (T * N * 4 * Hg + 4 * N * Hg + 4 * Hg * Hg)
+    g_bounds = {
+        "lem_fwd": bound(g_bytes, T * N * 8 * Hg * Hg),
+        "lem_fwd_stash": bound(g_bytes + 4 * 2 * T * N * Hg,
+                               T * N * 8 * Hg * Hg),
+        "lem_bwd": bound(4 * (10 * T * N * Hg + 6 * N * Hg + 8 * Hg * Hg),
+                         24 * T * N * Hg * Hg)}
+    gw = sum(w.numel() for w in W164[0]) + sum(w.numel() for w in W164[1])
+    g_fwd, g_edge, g_bwd = layer_ops(nx, Hg, D, V, e_valid)
+    gpf, gpb = pair_args[(Hg, 16)], pbwd_all[Hg]
+    with torch.no_grad():
+        gpair = {
+            "mp_pair_fwd": (
+                timed(lambda: mp_pair.fused_gated_pair(*gpf)),
+                timed_graph(lambda: mp_pair.fused_gated_pair_plain(*gpf)),
+                timed(lambda: mp_pair.fused_gated_pair_plain(*gpf))),
+            "mp_pair_bwd": (
+                timed(lambda: mp_pair.fused_gated_pair_bwd_kernel(*gpb)),
+                timed_graph(
+                    lambda: mp_pair.fused_gated_pair_bwd_plain(*gpb)),
+                timed(lambda: mp_pair.fused_gated_pair_bwd_plain(*gpb)))}
+    g_bounds["mp_pair_fwd"] = bound(
+        4 * (16 * nx * (2 * Hg + D + 1 + V) + 2 * nx * K + gw),
+        16 * 2 * (g_fwd - g_edge), 16 * 2 * g_edge)
+    g_bounds["mp_pair_bwd"] = bound(
+        4 * (16 * nx * (3 * Hg + D + 1 + V) + 2 * nx * K + 2 * gw),
+        16 * 2 * (g_fwd + g_bwd - 3 * g_edge), 16 * 2 * 3 * g_edge)
+    g_times = {**glem, **gpair}
+    for name, (ms, pms, ems) in g_times.items():
+        bms, by = g_bounds[name]
+        print(f"{name} @hidden {Hg}, batch 16: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms (CUDA graph; {ems:.4f} ms eager), bound "
+              f"{bms:.4f} ms ({by}); {msgmp_counts[name]} launches in the "
+              "MSGMP-PDE fit")
+    time_train_steps(msgmp_tr, u_all, "MSGMP-PDE")
+    print(f"MSGMP-PDE fit epoch (500 steps and its metrics): "
+          f"{msgmp_fit_s:.3f} s")
+    msgmp_engine = RolloutEngine(
+        build_serving_trainer("E1", "MSGMP-PDE", device=dev),
+        variant_params["MSGMP-PDE"], batch_buckets=BUCKETS)
+    time_rollouts(msgmp_engine, "MSGMP-PDE")
 
     kernels = [
         {"name": "lem_fwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/lem_fwd.cu",
-         "replaces": "msmp_pde_tpu/ops/lem_pallas.py:41",
-         "launches": main_lem, "max_abs_err": err["lem_fwd"],
+         "replaces": REPLACES["lem_fwd"],
+         "launches": main_lem, "max_abs_err": by_route(err["lem_fwd"])[0],
          "ms": lem_ms, "plain_ms": lem_plain_ms, "bound_ms": lem_bound,
          "bound_by": lem_by, "library_ms": None},
         {"name": "mp_pair_fwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/mp_pair_fwd.cu",
-         "replaces": "msmp_pde_tpu/ops/mp_pallas.py:260",
-         "launches": main_pair, "max_abs_err": err["mp_pair_fwd"],
+         "replaces": REPLACES["mp_pair_fwd"],
+         "launches": main_pair,
+         "max_abs_err": by_route(err["mp_pair_fwd"])[0],
          "ms": pair_ms, "plain_ms": pair_plain_ms, "bound_ms": pair_bound,
          "bound_by": pair_by, "library_ms": None},
         {"name": "lem_fwd_stash", "route": "cuda",
          "source": "msmp_pde_torch/csrc/lem_fwd.cu",
-         "replaces": "msmp_pde_tpu/ops/lem_pallas.py:41",
-         "launches": train_launches["lem_fwd_stash"], "max_abs_err": e_stash,
+         "replaces": REPLACES["lem_fwd_stash"],
+         "launches": train_launches["lem_fwd_stash"],
+         "max_abs_err": by_route(e_stash)[0],
          "ms": stash_ms, "plain_ms": stash_plain_ms, "bound_ms": stash_bound,
          "bound_by": stash_by, "library_ms": None},
         {"name": "lem_bwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/lem_bwd.cu",
-         "replaces": "msmp_pde_tpu/ops/lem_pallas.py:73",
-         "launches": train_launches["lem_bwd"], "max_abs_err": e_lbwd,
+         "replaces": REPLACES["lem_bwd"],
+         "launches": train_launches["lem_bwd"],
+         "max_abs_err": by_route(e_lbwd)[0],
          "ms": lbwd_ms, "plain_ms": lbwd_plain_ms, "bound_ms": lbwd_bound,
          "bound_by": lbwd_by, "library_ms": None},
         {"name": "mp_pair_bwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/mp_pair_bwd.cu",
-         "replaces": "msmp_pde_tpu/ops/mp_pallas.py:291",
-         "launches": train_launches["mp_pair_bwd"], "max_abs_err": e_pbwd,
+         "replaces": REPLACES["mp_pair_bwd"],
+         "launches": train_launches["mp_pair_bwd"],
+         "max_abs_err": by_route(e_pbwd)[0],
          "ms": pbwd_ms, "plain_ms": pbwd_plain_ms, "bound_ms": pbwd_bound,
          "bound_by": pbwd_by, "library_ms": None},
         {"name": "mp_layer_fwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/mp_layer_fwd.cu",
-         "replaces": "msmp_pde_tpu/ops/mp_pallas.py:156",
+         "replaces": REPLACES["mp_layer_fwd"],
          "launches": mp_counts["mp_layer_fwd"], "max_abs_err": e_lfwd,
          "ms": lf_ms, "plain_ms": lf_plain_ms, "bound_ms": lf_bound,
          "bound_by": lf_by, "library_ms": None},
         {"name": "mp_layer_bwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/mp_layer_bwd.cu",
-         "replaces": "msmp_pde_tpu/ops/mp_pallas.py:228",
+         "replaces": REPLACES["mp_layer_bwd"],
          "launches": mp_train_counts["mp_layer_bwd"],
          "max_abs_err": e_lbwd_layer, "ms": lb_ms, "plain_ms": lb_plain_ms,
          "bound_ms": lb_bound, "bound_by": lb_by, "library_ms": None},
         {"name": "mp_pair_fwd_stash", "route": "cuda",
          "source": "msmp_pde_torch/csrc/mp_pair_fwd.cu",
-         "replaces": "msmp_pde_tpu/ops/mp_pallas.py:260",
+         "replaces": REPLACES["mp_pair_fwd_stash"],
          "launches": fb_counts["mp_pair_fwd_stash"], "max_abs_err": e_pstash,
          "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": st_bound,
          "bound_by": st_by, "library_ms": None},
     ]
+    # the hidden-164 launches (MSGMP-PDE): the LEM's generic route, the
+    # pairs at 164; launches in phase 20's fit
+    g_errs = {"lem_fwd": by_route(err["lem_fwd"])[1],
+              "lem_fwd_stash": by_route(e_stash)[1],
+              "lem_bwd": by_route(e_lbwd)[1],
+              "mp_pair_fwd": by_route(err["mp_pair_fwd"])[1],
+              "mp_pair_bwd": by_route(e_pbwd)[1]}
+    for name, (ms, pms, _) in g_times.items():
+        src = name.replace("_stash", "")
+        kernels.append({
+            "name": f"{name}@hidden{Hg}", "route": "cuda",
+            "source": f"msmp_pde_torch/csrc/{src}.cu",
+            "replaces": REPLACES[name], "launches": msgmp_counts[name],
+            "max_abs_err": g_errs[name], "ms": ms, "plain_ms": pms,
+            "bound_ms": g_bounds[name][0], "bound_by": g_bounds[name][1],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(on)
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,17 @@
 // rows (cp.async: the next step's y rows load while the cluster gathers the
 // dy partials, the z rows, which receive those partials, after); the dz
 // partials that the other CTAs write; da and dg of the CTA's columns.
+//
+// At hidden 164 (MSGMP-PDE) the cluster layout does not fit (lem_step.cuh,
+// the width-generic route), and plain kernels take the launch:
+// lem_transpose writes Wy^T and Wzz^T once (so that the transposed
+// products read the weights coalesced); lem_bwd_generic runs the sweep on
+// blocks of 192 threads over 16 rows, thread j on hidden column j, with the
+// weights read from L2 each step (four products a step, float32 FMAs), and
+// writes dgx, dzx, dy0, dz0; lem_bwd_wgrad then forms dWy = sum y_prev^T
+// dgx and dWzz = sum z_t^T dzx over the T N rows as 64 x 64 output tiles,
+// the rows split in WSPLIT parts, and lem_bwd_reduce sums the parts in
+// order. No atomics: bitwise repeatable.
 #include "lem_step.cuh"
 
 namespace {
@@ -422,7 +433,188 @@ __global__ void lem_bwd_reduce(const float* __restrict__ partial,
   else dwzz[i - 3 * H * H] = s;
 }
 
-unsigned long long g_smem_set;  // allow_smem
+// ---- the generic route (hidden 164) ----------------------------------------
+namespace gen = lem::gen;
+constexpr int WSPLIT = 8;  // row parts of lem_bwd_wgrad, summed in order
+constexpr int WT = 64;     // lem_bwd_wgrad's output tile, WT x WT
+constexpr int WK = 16;     // its rows a step
+
+// wT [cols, rows] = w [rows, cols]^T, in 32 x 32 tiles through shared memory
+__global__ void lem_transpose(const float* __restrict__ w,
+                              float* __restrict__ wT, int rows, int cols) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int r = r0 + i, c = c0 + threadIdx.x;
+    if (r < rows && c < cols) tile[i][threadIdx.x] = w[(size_t)r * cols + c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int c = c0 + i, r = r0 + threadIdx.x;
+    if (r < rows && c < cols) wT[(size_t)c * rows + r] = tile[threadIdx.x][i];
+  }
+}
+
+// The sweep: block b owns rows [b GR, (b + 1) GR), thread j < H their
+// column j of dy and dz in registers. A step t: the y_prev and z_t rows
+// into shared memory (k-major); a barrier; g = gx_t + y_prev Wy and
+// a = zx_t + z_t Wzz of the thread's column, da and dg2 into their rows;
+// a barrier; dz += da Wzz^T, dg1 and dzc into their rows; a barrier;
+// dy = dy (1 - dt2) + dg Wy^T. Each buffer is written after a barrier that
+// follows its last read.
+__global__ void __launch_bounds__(gen::MAX_H, 1)
+lem_bwd_generic(const float* __restrict__ gx, const float* __restrict__ zx,
+                const float* __restrict__ y0, const float* __restrict__ z0,
+                const float* __restrict__ wy, const float* __restrict__ wzz,
+                const float* __restrict__ wyT, const float* __restrict__ wzzT,
+                const float* __restrict__ ys, const float* __restrict__ zs,
+                const float* __restrict__ dyT, const float* __restrict__ dzT,
+                float* __restrict__ dgx, float* __restrict__ dzx,
+                float* __restrict__ dy0, float* __restrict__ dz0, int T, int N,
+                int H, float dt) {
+  constexpr int GR = gen::GR, GP = gen::GP;
+  extern __shared__ float4 smem4[];
+  float* yp_s = reinterpret_cast<float*>(smem4);  // [H][GP] y_prev
+  float* zc_s = yp_s + H * GP;                    // [H][GP] z_t
+  float* da_s = zc_s + H * GP;                    // [H][GP] da
+  float* dg_s = da_s + H * GP;                    // [3H][GP] dg1 dg2 dzc
+  const int j = threadIdx.x, row0 = blockIdx.x * GR;
+  const bool on = j < H;
+  const size_t NH = (size_t)N * H;
+  float dy[GR], dz[GR];
+  if (on) {
+    gen::load_col(dy, dyT, row0, N, H, j);
+    gen::load_col(dz, dzT, row0, N, H, j);
+  }
+  for (int t = T - 1; t >= 0; --t) {
+    float yp[GR], zp[GR];
+    if (on) {
+      float zc[GR];
+      gen::load_col(yp, t > 0 ? ys + (t - 1) * NH : y0, row0, N, H, j);
+      gen::load_col(zp, t > 0 ? zs + (t - 1) * NH : z0, row0, N, H, j);
+      gen::load_col(zc, zs + t * NH, row0, N, H, j);
+      gen::put_col(yp_s, yp, j);
+      gen::put_col(zc_s, zc, j);
+    }
+    __syncthreads();  // the y_prev and z_t rows are in
+    float s1[GR], thz[GR], dt2[GR];
+    if (on) {
+      float g[3][GR] = {}, a[1][GR] = {};
+      gen::product<3>(g, yp_s, wy, 3 * H, H, j, H);
+      gen::product<1>(a, zc_s, wzz, H, 0, j, H);
+      float p[3][GR], pa[GR], da[GR], dg2[GR];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        gen::load_col(p[q], gx + t * NH * 3 + q * H, row0, N, 3 * H, j);
+      gen::load_col(pa, zx + t * NH, row0, N, H, j);
+#pragma unroll
+      for (int r = 0; r < GR; ++r) {
+        s1[r] = lem::sigm(g[0][r] + p[0][r]);
+        const float s2 = lem::sigm(g[1][r] + p[1][r]);
+        thz[r] = lem::tanh_(g[2][r] + p[2][r]);
+        const float tha = lem::tanh_(a[0][r] + pa[r]);
+        dt2[r] = dt * s2;
+        da[r] = dy[r] * dt2[r] * (1.0f - tha * tha);
+        dg2[r] = dy[r] * (tha - yp[r]) * dt * s2 * (1.0f - s2);
+      }
+      gen::store_col(dzx + t * NH, da, row0, N, H, j);
+      gen::store_col(dgx + t * NH * 3 + H, dg2, row0, N, 3 * H, j);
+      gen::put_col(da_s, da, j);
+      gen::put_col(dg_s, dg2, H + j);
+    }
+    __syncthreads();  // da complete
+    if (on) {
+      float acc[1][GR] = {}, dg1[GR], dzc[GR];
+      gen::product<1>(acc, da_s, wzzT, H, 0, j, H);
+#pragma unroll
+      for (int r = 0; r < GR; ++r) {
+        dz[r] += acc[0][r];
+        const float dt1 = dt * s1[r];
+        dg1[r] = dz[r] * (thz[r] - zp[r]) * dt * s1[r] * (1.0f - s1[r]);
+        dzc[r] = dz[r] * dt1 * (1.0f - thz[r] * thz[r]);
+        dz[r] *= 1.0f - dt1;
+      }
+      gen::store_col(dgx + t * NH * 3, dg1, row0, N, 3 * H, j);
+      gen::store_col(dgx + t * NH * 3 + 2 * H, dzc, row0, N, 3 * H, j);
+      gen::put_col(dg_s, dg1, j);
+      gen::put_col(dg_s, dzc, 2 * H + j);
+    }
+    __syncthreads();  // dg complete
+    if (on) {
+      float acc[1][GR] = {};
+      gen::product<1>(acc, dg_s, wyT, H, 0, j, 3 * H);
+#pragma unroll
+      for (int r = 0; r < GR; ++r) dy[r] = dy[r] * (1.0f - dt2[r]) + acc[0][r];
+    }
+  }
+  if (on) {
+    gen::store_col(dy0, dy, row0, N, H, j);
+    gen::store_col(dz0, dz, row0, N, H, j);
+  }
+}
+
+// The weight gradients over the M = T N rows m = t N + n: block (jt, kt, s)
+// sums rows [s M', (s + 1) M') (M' = cdiv(M, WSPLIT)) of one WT x WT tile
+// of [dWy | dWzz] into part s of `partial` ([H, 3H] then [H, H], the layout
+// lem_bwd_reduce sums). dWy's A rows are y_prev (y0 at t = 0, else
+// ys[t - 1], i.e. ys's flat row m - N), its B rows dgx; dWzz's A rows zs,
+// its B rows dzx. Thread (ty, tx) of 16 x 16 holds a 4 x 4 piece.
+__global__ void __launch_bounds__(256)
+lem_bwd_wgrad(const float* __restrict__ y0, const float* __restrict__ ys,
+              const float* __restrict__ zs, const float* __restrict__ dgx,
+              const float* __restrict__ dzx, float* __restrict__ partial,
+              int M, int N, int H) {
+  __shared__ __align__(16) float a_s[WK][WT];
+  __shared__ __align__(16) float b_s[WK][WT];
+  const int jy = (3 * H + WT - 1) / WT;  // dWy's column tiles
+  const bool zz = (int)blockIdx.x >= jy;
+  const int j0 = (zz ? (int)blockIdx.x - jy : (int)blockIdx.x) * WT;
+  const int k0 = blockIdx.y * WT, ncol = zz ? H : 3 * H;
+  const float* B = zz ? dzx : dgx;
+  const int chunk = (M + WSPLIT - 1) / WSPLIT;
+  const int m0 = blockIdx.z * chunk, m1 = min(M, m0 + chunk);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4] = {};
+  for (int mb = m0; mb < m1; mb += WK) {
+#pragma unroll
+    for (int i = 0; i < WK * WT / 256; ++i) {
+      const int e = tid + 256 * i, mm = e / WT, c = e % WT, m = mb + mm;
+      const bool row = m < m1;
+      const float* a = zz ? zs + (size_t)m * H
+                          : (m < N ? y0 + (size_t)m * H
+                                   : ys + (size_t)(m - N) * H);
+      a_s[mm][c] = row && k0 + c < H ? a[k0 + c] : 0.0f;
+      b_s[mm][c] = row && j0 + c < ncol ? B[(size_t)m * ncol + j0 + c] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int mm = 0; mm < WK; ++mm) {
+      const float4 a = *reinterpret_cast<const float4*>(&a_s[mm][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&b_s[mm][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], bv[q], acc[i][q]);
+    }
+    __syncthreads();
+  }
+  float* part = partial + (size_t)blockIdx.z * 4 * H * H +
+                (zz ? 3 * (size_t)H * H : 0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+    if (k >= H) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = j0 + tx * 4 + q;
+      if (c < ncol) part[(size_t)k * ncol + c] = acc[i][q];
+    }
+  }
+}
+
+unsigned long long g_smem_set;     // allow_smem
+unsigned long long g_generic_set;  // allow_smem, generic route
 
 }  // namespace
 
@@ -430,18 +622,34 @@ LEM_PHASE_READER(lem_bwd)
 
 // Shared memory of a CTA at hidden H
 extern "C" int lem_bwd_smem_bytes(int H) {
+  if (lem::generic_width(H))  // y_prev, z_t, da and dg rows, k-major
+    return 6 * H * gen::GP * (int)sizeof(float);
   const int HC = H / C;
   return (4 * H * HC + 3 * RT * H + RT * (HC + 4) + RT * (3 * HC + 4)) *
          (int)sizeof(float);
 }
 
 // Clusters the card holds at once (0: none can be scheduled), or -(error)
+// (the generic route: blocks of the sweep, a cluster of one)
 extern "C" int lem_bwd_max_clusters(int H) {
+  if (lem::generic_width(H))
+    return gen::max_blocks(reinterpret_cast<const void*>(lem_bwd_generic),
+                           &g_generic_set, gen::threads(H),
+                           lem_bwd_smem_bytes(H));
+  if (!lem::cluster_width(H)) return -(int)cudaErrorInvalidValue;
   return lem::max_clusters(reinterpret_cast<const void*>(lem_bwd_sweep),
                            &g_smem_set, threads(H), lem_bwd_smem_bytes(H));
 }
 
-// partial: cdiv(N, RT) * 4 H^2 floats, the clusters' weight gradients
+// Floats of lem_bwd's `partial` scratch: the clusters' weight gradients,
+// cdiv(N, RT) 4 H^2; on the generic route WSPLIT parts of 4 H^2 and the
+// transposed weights, 4 H^2.
+extern "C" long lem_bwd_scratch_floats(int N, int H) {
+  if (lem::generic_width(H)) return (long)(WSPLIT + 1) * 4 * H * H;
+  return (long)((N + RT - 1) / RT) * 4 * H * H;
+}
+
+// H is 96 or 128 (the clusters) or 164 (the generic route)
 extern "C" int lem_bwd(const float* gx, const float* zx, const float* y0,
                        const float* z0, const float* wy, const float* wzz,
                        const float* ys, const float* zs, const float* dyT,
@@ -449,6 +657,29 @@ extern "C" int lem_bwd(const float* gx, const float* zx, const float* y0,
                        float* dz0, float* dwy, float* dwzz, float* partial,
                        int T, int N, int H, float dt, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (lem::generic_width(H)) {
+    const void* kernel = reinterpret_cast<const void*>(lem_bwd_generic);
+    cudaError_t err = lem::allow_smem(kernel, &g_generic_set);
+    if (err != cudaSuccess) return (int)err;
+    float* wyT = partial + (size_t)WSPLIT * 4 * H * H;
+    float* wzzT = wyT + 3 * (size_t)H * H;
+    const dim3 tb(32, 8);
+    lem_transpose<<<dim3((3 * H + 31) / 32, (H + 31) / 32), tb, 0, st>>>(
+        wy, wyT, H, 3 * H);
+    lem_transpose<<<dim3((H + 31) / 32, (H + 31) / 32), tb, 0, st>>>(
+        wzz, wzzT, H, H);
+    lem_bwd_generic<<<(N + gen::GR - 1) / gen::GR, gen::threads(H),
+                      lem_bwd_smem_bytes(H), st>>>(
+        gx, zx, y0, z0, wy, wzz, wyT, wzzT, ys, zs, dyT, dzT, dgx, dzx, dy0,
+        dz0, T, N, H, dt);
+    const int tiles = (3 * H + WT - 1) / WT + (H + WT - 1) / WT;
+    lem_bwd_wgrad<<<dim3(tiles, (H + WT - 1) / WT, WSPLIT), 256, 0, st>>>(
+        y0, ys, zs, dgx, dzx, partial, T * N, N, H);
+    lem_bwd_reduce<<<(4 * H * H + 255) / 256, 256, 0, st>>>(partial, dwy,
+                                                            dwzz, WSPLIT, H);
+    return (int)cudaGetLastError();
+  }
+  if (!lem::cluster_width(H)) return (int)cudaErrorInvalidValue;
   const void* kernel = reinterpret_cast<const void*>(lem_bwd_sweep);
   cudaError_t err = lem::allow_smem(kernel, &g_smem_set);
   if (err != cudaSuccess) return (int)err;

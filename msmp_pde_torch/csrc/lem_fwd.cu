@@ -36,6 +36,14 @@
 // tools/lem_phases.py splits a launch: the products take about half, the
 // gates and the exchanges (bounded by distributed shared memory) most of
 // the rest.
+//
+// At hidden 164 (MSGMP-PDE) the cluster layout does not fit (lem_step.cuh,
+// the width-generic route): lem_fwd_generic runs a block of 192 threads
+// over 16 rows, thread j on hidden column j, with Wy and Wzz read from L2
+// each step and the products as float32 FMAs. At N = 1600 that is 100
+// blocks, 25 steps of 430 KB of weight reads each: ~1.1 GB from L2, and
+// each k-step's loads wait on L2's latency, which bounds it (a simple
+// kernel first; the tensor cores are a later step).
 #include "lem_step.cuh"
 
 namespace {
@@ -304,7 +312,74 @@ lem_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ zx,
     }
 }
 
+// The generic route (lem_step.cuh): block b owns rows [b GR, (b + 1) GR),
+// thread j < H their column j of y and z in registers; the y and z rows
+// k-major in shared memory for the products. A step: g = gx_t + y Wy (the
+// thread's three gate columns), z' of its column into the z rows; a
+// barrier; a = zx_t + z' Wzz, y' into the y rows; a barrier. Each buffer
+// is written between the two barriers that follow its last read.
+template <bool STASH>
+__global__ void __launch_bounds__(lem::gen::MAX_H, 1)
+lem_fwd_generic(const float* __restrict__ gx, const float* __restrict__ zx,
+                const float* __restrict__ y0, const float* __restrict__ z0,
+                const float* __restrict__ wy, const float* __restrict__ wzz,
+                float* __restrict__ yT, float* __restrict__ zT,
+                float* __restrict__ ys, float* __restrict__ zs, int T, int N,
+                int H, float dt) {
+  using namespace lem::gen;
+  extern __shared__ float4 smem4[];
+  float* y_s = reinterpret_cast<float*>(smem4);  // [H][GP]
+  float* z_s = y_s + H * GP;                     // [H][GP]
+  const int j = threadIdx.x, row0 = blockIdx.x * GR;
+  const bool on = j < H;
+  const size_t NH = (size_t)N * H;
+  float y[GR], z[GR];
+  if (on) {
+    load_col(y, y0, row0, N, H, j);
+    load_col(z, z0, row0, N, H, j);
+    put_col(y_s, y, j);
+  }
+  __syncthreads();
+  for (int s = 0; s < T; ++s) {
+    float dt2[GR];
+    if (on) {
+      float g[3][GR] = {};
+      product<3>(g, y_s, wy, 3 * H, H, j, H);
+      float p[3][GR];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        load_col(p[q], gx + (size_t)s * NH * 3 + q * H, row0, N, 3 * H, j);
+#pragma unroll
+      for (int r = 0; r < GR; ++r) {
+        const float dt1 = dt * lem::sigm(g[0][r] + p[0][r]);
+        z[r] = (1.0f - dt1) * z[r] + dt1 * lem::tanh_(g[2][r] + p[2][r]);
+        dt2[r] = dt * lem::sigm(g[1][r] + p[1][r]);
+      }
+      put_col(z_s, z, j);
+      if (STASH) store_col(zs + (size_t)s * NH, z, row0, N, H, j);
+    }
+    __syncthreads();  // the z' rows are complete
+    if (on) {
+      float a[1][GR] = {};
+      product<1>(a, z_s, wzz, H, 0, j, H);
+      float p[GR];
+      load_col(p, zx + (size_t)s * NH, row0, N, H, j);
+#pragma unroll
+      for (int r = 0; r < GR; ++r)
+        y[r] = (1.0f - dt2[r]) * y[r] + dt2[r] * lem::tanh_(a[0][r] + p[r]);
+      put_col(y_s, y, j);
+      if (STASH) store_col(ys + (size_t)s * NH, y, row0, N, H, j);
+    }
+    __syncthreads();  // the y' rows are complete
+  }
+  if (on) {
+    store_col(yT, y, row0, N, H, j);
+    store_col(zT, z, row0, N, H, j);
+  }
+}
+
 unsigned long long g_smem_set[4];  // allow_smem, per variant
+unsigned long long g_generic_set[2];  // allow_smem, generic route
 
 // the kernel for hidden H (96 or 128) with or without the stash; index its
 // flag in g_smem_set
@@ -324,25 +399,54 @@ LEM_PHASE_READER(lem_fwd)
 // Shared memory of a CTA at hidden H: the weights split in two, the y and
 // z rows
 extern "C" int lem_fwd_smem_bytes(int H) {
+  if (lem::generic_width(H))  // the y and z rows, k-major
+    return 2 * H * lem::gen::GP * (int)sizeof(float);
   return (8 * H * (H / C) + 2 * RT * H) * (int)sizeof(float);
 }
 
 // Clusters the card holds at once (0: none can be scheduled), or -(error)
+// (the generic route: blocks, a cluster of one)
 extern "C" int lem_fwd_max_clusters(int H, int stash) {
-  if (H != 96 && H != 128) return -(int)cudaErrorInvalidValue;
+  if (lem::generic_width(H)) {
+    const void* kernel =
+        stash ? reinterpret_cast<const void*>(lem_fwd_generic<true>)
+              : reinterpret_cast<const void*>(lem_fwd_generic<false>);
+    return lem::gen::max_blocks(kernel, &g_generic_set[stash ? 1 : 0],
+                                lem::gen::threads(H), lem_fwd_smem_bytes(H));
+  }
+  if (!lem::cluster_width(H)) return -(int)cudaErrorInvalidValue;
   int index;
   const void* kernel = variant(H, stash, &index);
   return lem::max_clusters(kernel, &g_smem_set[index], THREADS,
                            lem_fwd_smem_bytes(H));
 }
 
-// ys, zs: [T, N, H] stash outputs, or null for none. H is 96 or 128.
+// ys, zs: [T, N, H] stash outputs, or null for none. H is 96 or 128 (the
+// clusters) or 164 (the generic route).
 extern "C" int lem_fwd(const float* gx, const float* zx, const float* y0,
                        const float* z0, const float* wy, const float* wzz,
                        float* yT, float* zT, float* ys, float* zs, int T,
                        int N, int H, float dt, void* stream) {
-  if (H != 96 && H != 128) return (int)cudaErrorInvalidValue;
   const bool stash = ys != nullptr && zs != nullptr;
+  if (lem::generic_width(H)) {
+    const void* kernel =
+        stash ? reinterpret_cast<const void*>(lem_fwd_generic<true>)
+              : reinterpret_cast<const void*>(lem_fwd_generic<false>);
+    cudaError_t err =
+        lem::allow_smem(kernel, &g_generic_set[stash ? 1 : 0]);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((N + lem::gen::GR - 1) / lem::gen::GR);
+    const int threads = lem::gen::threads(H), smem = lem_fwd_smem_bytes(H);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (stash)
+      lem_fwd_generic<true><<<grid, threads, smem, st>>>(
+          gx, zx, y0, z0, wy, wzz, yT, zT, ys, zs, T, N, H, dt);
+    else
+      lem_fwd_generic<false><<<grid, threads, smem, st>>>(
+          gx, zx, y0, z0, wy, wzz, yT, zT, ys, zs, T, N, H, dt);
+    return (int)cudaGetLastError();
+  }
+  if (!lem::cluster_width(H)) return (int)cudaErrorInvalidValue;
   int index;
   const void* kernel = variant(H, stash, &index);
   cudaError_t err = lem::allow_smem(kernel, &g_smem_set[index]);

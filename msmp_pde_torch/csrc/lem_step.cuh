@@ -289,3 +289,108 @@ inline int max_clusters(const void* kernel, unsigned long long* done,
 }
 
 }  // namespace lem
+
+// ---- the width-generic route (hidden 164) ---------------------------------
+// The cluster layout above needs H/C to be a multiple of 8 and holds a CTA's
+// quarter of the weights in shared memory; at H = 164, H/C = 41 and the
+// forward would need 299,136 bytes a CTA. This route has no cluster: a block
+// of threads(H) = 32 cdiv(H, 32) threads owns GR rows and every hidden
+// column, thread j < H the column j of each of its rows, and reads Wy and
+// Wzz (in the backward also their transposes) from L2 at each step: 430 KB
+// at H = 164, which every block shares, so they stay L2-resident. The rows
+// a product needs live in shared memory k-major, X[k GP + r] (row r of
+// column k), so that one k's GR values are four 16-byte broadcasts; the
+// pitch GP = GR + 4 spreads a warp's column stores over the banks. The
+// products are float32 FMAs on the CUDA cores, in k order.
+namespace lem {
+namespace gen {
+
+constexpr int GR = 16;       // rows a block
+constexpr int GP = GR + 4;   // the pitch of a k-major row buffer, floats
+constexpr int MAX_H = 256;   // threads(H) <= __launch_bounds__
+
+__host__ __device__ constexpr int threads(int H) {
+  return (H + 31) / 32 * 32;
+}
+
+// acc[q][r] += sum over k < K of X[k GP + r] W[k ld + q qs + j]. Eight
+// k-steps unrolled keep 8 NQ weight loads in flight a thread: the loop is
+// bound by L2's latency (a trial build unrolled twice and four times was
+// slower on an H100).
+template <int NQ>
+__device__ __forceinline__ void product(float (&acc)[NQ][GR], const float* X,
+                                        const float* __restrict__ W, int ld,
+                                        int qs, int j, int K) {
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    float w[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      w[q] = __ldg(W + (size_t)k * ld + q * qs + j);
+    const float4* x4 = reinterpret_cast<const float4*>(X + k * GP);
+#pragma unroll
+    for (int v = 0; v < GR / 4; ++v) {
+      const float4 x = x4[v];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        acc[q][4 * v] = fmaf(x.x, w[q], acc[q][4 * v]);
+        acc[q][4 * v + 1] = fmaf(x.y, w[q], acc[q][4 * v + 1]);
+        acc[q][4 * v + 2] = fmaf(x.z, w[q], acc[q][4 * v + 2]);
+        acc[q][4 * v + 3] = fmaf(x.w, w[q], acc[q][4 * v + 3]);
+      }
+    }
+  }
+}
+
+// v[r] = x[row0 + r][j] of x [N, ld] (0 for rows past N)
+__device__ __forceinline__ void load_col(float (&v)[GR],
+                                         const float* __restrict__ x,
+                                         int row0, int N, int ld, int j) {
+#pragma unroll
+  for (int r = 0; r < GR; ++r)
+    v[r] = row0 + r < N ? x[(size_t)(row0 + r) * ld + j] : 0.0f;
+}
+
+// x[row0 + r][j] = v[r] for the rows below N
+__device__ __forceinline__ void store_col(float* __restrict__ x,
+                                          const float (&v)[GR], int row0,
+                                          int N, int ld, int j) {
+#pragma unroll
+  for (int r = 0; r < GR; ++r)
+    if (row0 + r < N) x[(size_t)(row0 + r) * ld + j] = v[r];
+}
+
+// column k = j of a k-major row buffer
+__device__ __forceinline__ void put_col(float* X, const float (&v)[GR],
+                                        int j) {
+  float4* x4 = reinterpret_cast<float4*>(X + j * GP);
+#pragma unroll
+  for (int i = 0; i < GR / 4; ++i)
+    x4[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+
+// Blocks of `threads` threads and `smem` bytes that the card holds at once
+// (0: none), or -(CUDA error): the generic route's counterpart of
+// max_clusters, a "cluster" of one block.
+inline int max_blocks(const void* kernel, unsigned long long* done,
+                      int threads, int smem) {
+  cudaError_t err = allow_smem(kernel, done);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int dev = 0, per_sm = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  return err == cudaSuccess ? per_sm * sms : -static_cast<int>(err);
+}
+
+}  // namespace gen
+
+// The route of each hidden width: the clusters at 96 and 128, the generic
+// route at 164 (MSGMP-PDE's); no other width is taken.
+inline bool cluster_width(int H) { return H == 96 || H == 128; }
+inline bool generic_width(int H) { return H == 164; }
+
+}  // namespace lem

@@ -98,6 +98,24 @@ class WindowDecoder(nn.Module):
         return self.TorchConv1d_1(swish(self.TorchConv1d_0(x)))
 
 
+class GLUConv(nn.Module):
+    """Half-hidden decoder conv of the GLU variants (flax ``GLUConv``): at
+    hidden 164, 82 -> (k 6, s 2) -> 39 -> (k 15) -> 25 outputs."""
+
+    def __init__(self, tw: int, half: int, generator: torch.Generator,
+                 out_channels: int = 1, in_channels: int = 1):
+        super().__init__()
+        if ((half - 6) // 2 + 1) - 15 + 1 != tw:
+            raise ValueError(f"the GLU decoder maps {half} features to "
+                             f"{(half - 6) // 2 - 13} outputs, not tw={tw}; "
+                             "it takes hidden 164 at tw=25")
+        self.TorchConv1d_0 = Conv1d(in_channels, 8, 6, 2, generator)
+        self.TorchConv1d_1 = Conv1d(8, out_channels, 15, 1, generator)
+
+    def forward(self, x):
+        return self.TorchConv1d_1(swish(self.TorchConv1d_0(x)))
+
+
 _VAR_ORDER = ("alpha", "beta", "gamma", "bc_left", "bc_right", "c", "D",
               "r", "a", "b")
 

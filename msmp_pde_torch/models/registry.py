@@ -1,7 +1,9 @@
 """Model registry (counterpart of msmp_pde_tpu/models/registry.py).
 
-The 1-D graph models ``MP-PDE``, ``Gated``, ``LEM`` and ``MSMP-PDE`` are
-ported; every other registry name raises.
+The nine 1-D graph models are ported: MP-PDE, Gated, LEM, MSMP-PDE,
+MSSMP-PDE, MSGMP-PDE (hidden 164 whatever ``hidden`` says, as in the JAX
+registry), SaveMSMP-PDE, LSTMGated and LSTM; every other registry name
+raises.
 """
 from __future__ import annotations
 
@@ -9,13 +11,21 @@ from typing import Tuple
 
 from msmp_pde_torch.models.gnn import MPSolver
 
-# name -> (encoder, gate) of MPSolver (msmp_pde_tpu/models/registry.py:53-56)
+# name -> MPSolver's keywords (msmp_pde_tpu/models/registry.py:53-64)
 _GRAPH = {
-    "MP-PDE": ("mlp", "none"),
-    "Gated": ("mlp", "sigmoid"),
-    "LEM": ("lem", "none"),
-    "MSMP-PDE": ("lem", "sigmoid"),
+    "MP-PDE": dict(encoder="mlp", gate="none"),
+    "Gated": dict(encoder="mlp", gate="sigmoid"),
+    "LEM": dict(encoder="lem", gate="none"),
+    "MSMP-PDE": dict(encoder="lem", gate="sigmoid"),
+    "MSSMP-PDE": dict(twin_scale=True),
+    "MSGMP-PDE": dict(encoder="lem", gate="sigmoid", decoder="glu",
+                      hidden=164),
+    "SaveMSMP-PDE": dict(encoder="lem", gate="sigmoid", save_state=True),
+    "LSTMGated": dict(encoder="lstm", gate="sigmoid"),
+    "LSTM": dict(encoder="lstm", gate="none"),
 }
+
+PORTED = tuple(_GRAPH)
 
 MODEL_REGISTRY = (
     "MP-PDE", "BaseCNN", "Gated", "LEM", "MSMP-PDE", "MSSMP-PDE", "MSGMP-PDE",
@@ -32,10 +42,9 @@ def get_model(name: str, *, tw: int, n_eq_vars: int, L: float, tmax: float,
     """(module, kind). The module takes ``1 + n_eq_vars`` model variables
     (normalized time first)."""
     if name in _GRAPH:
-        encoder, gate = _GRAPH[name]
-        return MPSolver(tw, n_vars=1 + n_eq_vars, hidden=hidden,
-                        layers=n_layers, encoder=encoder, gate=gate, L=L,
-                        tmax=tmax, dt=dt, seed=seed), "graph"
+        kw = {"hidden": hidden, **_GRAPH[name]}  # MSGMP-PDE's 164 wins
+        return MPSolver(tw, n_vars=1 + n_eq_vars, layers=n_layers, L=L,
+                        tmax=tmax, dt=dt, seed=seed, **kw), "graph"
     if name in MODEL_REGISTRY:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md Queue 1 item 11)")

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -86,6 +87,50 @@ def build_variants(names, out_dir, extra) -> dict:
         procs = {n: _start(n, ("-Xptxas", "-v", *extra),
                            out_dir / f"lib{n}.so") for n in names}
         return {n: _finish(n, p) for n, p in procs.items()}
+
+
+def demangle(names):
+    """The demangled ``names`` (cu++filt), without return type, namespace
+    and parameter list (``lem_fwd_kernel<(int)24, (bool)1>``); the names as
+    they are where cu++filt is missing."""
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        full = out.stdout.splitlines()
+    except OSError:
+        full = []
+    return [_short(n) for n in (full if len(full) == len(names) else names)]
+
+
+def _short(name: str) -> str:
+    if name.endswith(")"):  # cut the parameter list, the last (...) group
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    for junk in ("void ", "<unnamed>::", "(anonymous namespace)::"):
+        name = name.replace(junk, "")
+    return name
+
+
+def resources(report: str):
+    """[(kernel, its resource lines)] from ``-Xptxas -v``'s report (as
+    ``build_all`` returns it): registers, spills, shared memory."""
+    found, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            if m.group(1) != cur:
+                cur = m.group(1)
+                found.append((cur, []))
+        elif cur and ("registers" in line or "spill" in line):
+            found[-1][1].append(line.split(":", 1)[-1].strip())
+    names = demangle([n for n, _ in found])
+    return [(n, lines) for n, (_, lines) in zip(names, found)]
 
 
 def use(name: str, lib) -> ctypes.CDLL:

@@ -1,8 +1,10 @@
 """LEM recurrent scan, forward and backward (counterpart of
 msmp_pde_tpu/ops/lem_pallas.py).
 
-``lem_scan`` runs the hand-written kernels on CUDA tensors and the plain
-PyTorch loops on CPU tensors: ``csrc/lem_fwd.cu`` (``lem_scan_plain``),
+``lem_scan`` runs the hand-written kernels on CUDA tensors (on clusters
+at hidden 96 and 128, on the width-generic route at 164; see
+``lem_launch_shape``) and the plain PyTorch loops on CPU tensors:
+``csrc/lem_fwd.cu`` (``lem_scan_plain``),
 with the per-step stash when a gradient is needed, and ``csrc/lem_bwd.cu``
 (``lem_scan_bwd_plain``), the BPTT reverse sweep, through the
 ``torch.autograd.Function`` ``LemScan``. The input projections (``gx``,
@@ -81,6 +83,10 @@ def lem_scan_bwd_plain(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
 # ---- the kernels ---------------------------------------------------------
 CLUSTER = 4        # CTAs of a thread-block cluster (csrc/lem_step.cuh: C)
 ONE_WAVE_N = 1600  # rows up to which every CTA must be resident at once
+CLUSTER_H = (96, 128)  # hidden widths of the cluster route
+GENERIC_H = (164,)     # of the width-generic route (MSGMP-PDE's)
+GENERIC_ROWS = 16      # rows of a generic block (lem_step.cuh: gen::GR)
+GENERIC_PITCH = 20     # its k-major row buffers' pitch (gen::GP)
 
 
 def _cdiv(a, b):
@@ -90,16 +96,28 @@ def _cdiv(a, b):
 def lem_launch_shape(N: int, H: int, *, backward: bool = False):
     """The grid of ``csrc/lem_fwd.cu`` (or, with ``backward``,
     ``csrc/lem_bwd.cu``) over N rows at hidden H: (rows_per_cluster, C,
-    ctas, smem_bytes). A cluster of C CTAs owns 64 rows (a wgmma tile of
-    the forward, whose CTA is one warpgroup; the backward holds its weight
-    gradients in 16 warps), CTA i the hidden columns [i H/C, (i + 1) H/C);
-    at N = 1600 that is 100 CTAs, one wave on an H100. Raises for an H the
-    kernels do not take: they are built for 96 and 128 (the forward's
-    wgmma tiles are 3 H/C and H/C wide)."""
-    if H not in (96, 128):
-        raise ValueError(f"lem_scan kernel: hidden {H} must be 96 or 128")
+    ctas, smem_bytes). The route is chosen by H:
+    - 96 and 128, the clusters: a cluster of C CTAs owns 64 rows (a wgmma
+      tile of the forward, whose CTA is one warpgroup; the backward holds
+      its weight gradients in 16 warps), CTA i the hidden columns
+      [i H/C, (i + 1) H/C); at N = 1600 that is 100 CTAs, one wave on an
+      H100. The forward's wgmma tiles are 3 H/C and H/C wide, so H/C must
+      be a multiple of 8.
+    - 164, the width-generic route: a "cluster" of one block owns 16 rows
+      and every hidden column (one thread a column), the weights read from
+      L2 each step; at N = 1600 that is 100 blocks.
+    Raises for an H that no route takes."""
+    if H not in CLUSTER_H + GENERIC_H:
+        raise ValueError(f"lem_scan kernel: hidden {H} must be one of "
+                         f"{CLUSTER_H + GENERIC_H}")
     if N < 1:
         raise ValueError(f"lem_scan kernel: {N} rows")
+    if H in GENERIC_H:
+        # the C functions lem_fwd_smem_bytes / lem_bwd_smem_bytes agree
+        # (checked in _shape): y, z rows; y_prev, z_t, da and dg rows
+        rows = GENERIC_ROWS
+        floats = (6 if backward else 2) * H * GENERIC_PITCH
+        return rows, 1, _cdiv(N, rows), 4 * floats
     C, HC, rows = CLUSTER, H // CLUSTER, 64
     # the C functions lem_fwd_smem_bytes / lem_bwd_smem_bytes (csrc/
     # lem_fwd.cu, lem_bwd.cu) compute the same; _shape checks the two agree
@@ -121,6 +139,8 @@ def _lib(name):
         else:
             lib.lem_bwd.argtypes = [p] * 17 + [i, i, i, ctypes.c_float, p]
             lib.lem_bwd_max_clusters.argtypes = [i]
+            lib.lem_bwd_scratch_floats.argtypes = [i, i]
+            lib.lem_bwd_scratch_floats.restype = ctypes.c_long
         getattr(lib, name).restype = i
         getattr(lib, f"{name}_max_clusters").restype = i
         smem = getattr(lib, f"{name}_smem_bytes")
@@ -152,7 +172,10 @@ def _shape(lib, name, device, N, H, stash=False):
     each shape asks the library for its shared memory, which must match,
     and the card for the clusters it holds at once; every call raises where
     the card cannot schedule a cluster, or where it cannot hold all of them
-    at once up to ONE_WAVE_N rows."""
+    at once up to ONE_WAVE_N rows. On the generic route a cluster is one
+    block and the check reads: all of the sweep's blocks resident at once
+    up to ONE_WAVE_N rows (they share no memory, so it guards the time, as
+    it does for the clusters, not the result)."""
     _, C, ctas, smem = lem_launch_shape(N, H, backward=name == "lem_bwd")
     key = (name, device.index, H, stash)
     if key not in _fits:
@@ -177,9 +200,10 @@ def _shape(lib, name, device, N, H, stash=False):
 
 def lem_scan_kernel(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0,
                     stash: bool = False):
-    """Launch ``csrc/lem_fwd.cu`` on thread-block clusters
-    (``lem_launch_shape``); raises on anything it does not take. Returns
-    (yT, zT), and with ``stash`` also (ys, zs)."""
+    """Launch ``csrc/lem_fwd.cu`` on thread-block clusters at hidden 96
+    and 128, on blocks of the generic route at 164 (``lem_launch_shape``);
+    raises on anything it does not take. Returns (yT, zT), and with
+    ``stash`` also (ys, zs)."""
     global launches, stash_launches
     T, N, H3 = gx.shape
     H = H3 // 3
@@ -204,22 +228,25 @@ def lem_scan_kernel(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0,
 
 def lem_scan_bwd_kernel(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
                         dt: float = 1.0):
-    """Launch ``csrc/lem_bwd.cu`` (the reverse sweep on thread-block
-    clusters, accumulating each cluster's weight gradients, then their sum
-    in cluster order); raises on anything it does not take. Returns (dgx,
-    dzx, dy0, dz0, dwy, dwzz)."""
+    """Launch ``csrc/lem_bwd.cu``: at hidden 96 and 128 the reverse sweep
+    on thread-block clusters, accumulating each cluster's weight gradients,
+    then their sum in cluster order; at 164 the generic route's sweep, its
+    weight-gradient product and the sum of its parts. Raises on anything
+    it does not take. Returns (dgx, dzx, dy0, dz0, dwy, dwzz)."""
     global bwd_launches
     T, N, H3 = gx.shape
     H = H3 // 3
     args = _check(dict(gx=gx, zx=zx, y0=y0, z0=z0, wy=wy, wzz=wzz, ys=ys,
                        zs=zs, dyT=dyT, dzT=dzT), T, N, H)
     lib = _lib("lem_bwd")
-    clusters = _shape(lib, "lem_bwd", gx.device, N, H)
+    _shape(lib, "lem_bwd", gx.device, N, H)
     dgx, dzx = torch.empty_like(args[0]), torch.empty_like(args[1])
     dy0, dz0 = torch.empty_like(args[2]), torch.empty_like(args[3])
     dwy, dwzz = torch.empty_like(args[4]), torch.empty_like(args[5])
-    partial = torch.empty(clusters * 4 * H * H, device=gx.device,
-                          dtype=torch.float32)
+    # the clusters' weight-gradient partials (on the generic route, its
+    # row parts' and the transposed weights)
+    partial = torch.empty(lib.lem_bwd_scratch_floats(N, H),
+                          device=gx.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(gx.device).cuda_stream
     outs = (dgx, dzx, dy0, dz0, dwy, dwzz)
     with torch.cuda.device(gx.device):

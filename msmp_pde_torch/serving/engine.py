@@ -7,7 +7,10 @@ chunked over the largest), and the horizon runs as an eager loop of
 advancing by the pushforward rule (``data.graph.advance_windows``). On the
 card each forward goes through the LEM-scan kernel once (LEM encoders) and
 the fused gated-pair kernel once per pair (gated models) or the
-single-layer kernel once per layer (ungated models).
+single-layer kernel once per layer (ungated models); the twin-tower model
+(MSSMP-PDE) runs two such towers. The stateful model (SaveMSMP-PDE)
+carries its LEM state from window to window, reset per sample past the
+data horizon (``reset_past_horizon``).
 """
 from __future__ import annotations
 
@@ -63,6 +66,16 @@ def build_serving_trainer(experiment: str, model: str, *,
     return trainer
 
 
+def reset_past_horizon(state, steps, last: int):
+    """The stateful (Save*) models' LEM state with the samples whose window
+    starts past ``last`` = nt - tw set to zeros: beyond the data horizon
+    the JAX package's long rollout calls the model without accumulated
+    state (msmp_pde_tpu/serving/engine.py:196-211, metrics.rollout_store),
+    and the LEM's default state is zeros."""
+    keep = (steps <= last).reshape(-1, 1, 1)
+    return tuple(torch.where(keep, x, torch.zeros_like(x)) for x in state)
+
+
 class RolloutEngine:
     """Serve-many rollout over fixed batch buckets.
 
@@ -103,13 +116,16 @@ class RolloutEngine:
         s = torch.as_tensor(steps, device=dev, dtype=torch.int64)
         var = {k: torch.as_tensor(v, device=dev)
                for k, v in variables.items()}
-        preds = []
+        preds, state = [], None
         for i in range(n_windows):
             if i:
                 w = advance_windows(w, preds[-1], d, tw)
                 s = s + tw
+                if state is not None:
+                    state = reset_past_horizon(state, s, nt - tw)
             # the time feature freezes at the last in-horizon window
-            pred, _ = trainer.forward(w, torch.clamp(s, tw, nt - tw), var)
+            pred, state = trainer.forward(w, torch.clamp(s, tw, nt - tw),
+                                          var, lem_state=state)
             preds.append(pred)
         return torch.stack(preds, dim=1).cpu().numpy()
 

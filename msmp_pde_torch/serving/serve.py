@@ -15,7 +15,9 @@ Protocol (stdlib only, npz over HTTP):
   ``preds`` [B, n_windows, nx, d*tw], or ``trajectory`` [B, n_windows*tw,
   d, nx] when ``format=trajectory``.
 
-``--model`` is a ported registry name (MSMP-PDE, Gated, MP-PDE, LEM).
+``--model`` is a ported registry name: one of the nine 1-D graph models
+(MP-PDE, Gated, LEM, MSMP-PDE, MSSMP-PDE, MSGMP-PDE, SaveMSMP-PDE,
+LSTMGated, LSTM; models/registry.py).
 ``--checkpoint`` is the train CLI's checkpoint (utils/checkpoint.py) or an
 ``.npz`` keyed by ``/``-joined flax paths (utils/convert.py). The grid
 comes from the test mode of ``--data_dir``'s dataset file where there is
@@ -319,9 +321,12 @@ def main(args):
 def build_parser():
     import argparse
 
+    from msmp_pde_torch.models.registry import PORTED
+
     p = argparse.ArgumentParser(description="MP-PDE family rollout server")
     p.add_argument("--experiment", type=str, required=True)
-    p.add_argument("--model", type=str, default="MSMP-PDE")
+    p.add_argument("--model", type=str, default="MSMP-PDE",
+                   help="a ported registry name: " + ", ".join(PORTED))
     p.add_argument("--checkpoint", type=str, required=True,
                    help="the train CLI's checkpoint, or an .npz of the flax "
                         "params keyed by '/'-joined paths")

@@ -11,7 +11,10 @@ and unrolled losses), and where the validation loss improves: the test
 losses, the space-time L2 norms and a best-val checkpoint
 (utils/checkpoint.py, with the optimizer's state for ``--resume``).
 
-``--device`` is cuda by default and raises without it. ``--dp`` > 1,
+``--model`` is one of the nine ported 1-D graph models (MP-PDE, Gated,
+LEM, MSMP-PDE, MSSMP-PDE, MSGMP-PDE, SaveMSMP-PDE, LSTMGated, LSTM;
+models/registry.py). ``--device`` is cuda by default and raises without
+it. ``--dp`` > 1,
 ``--mp_precision`` other than float32 and ``--mp_remat`` are not ported.
 """
 from __future__ import annotations
@@ -266,9 +269,12 @@ def _ints(s: str):
 
 
 def build_parser():
+    from msmp_pde_torch.models.registry import PORTED
+
     p = argparse.ArgumentParser(description="Train a neural PDE solver")
     p.add_argument("--experiment", type=str, default="")
-    p.add_argument("--model", type=str, default="MP-PDE")
+    p.add_argument("--model", type=str, default="MP-PDE",
+                   help="a ported registry name: " + ", ".join(PORTED))
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--num_epochs", type=int, default=20)
     p.add_argument("--lr", type=float, default=1e-4)

@@ -28,9 +28,15 @@ from msmp_pde_torch.training.setup import build_trainer
 
 from _torch_helpers import cuda_device  # noqa: F401
 from chip_smoke import (
+    VARIANTS,
+    expected_launches,
     grad_scales,
+    kernel_push,
+    launch_counts,
+    plain_forward,
     reference_forward,
     reference_step_loss,
+    reset_counts,
     scale_aware,
 )
 
@@ -48,10 +54,15 @@ def _rand(rng, dev, *shape, scale=1.0):
                         device=dev)
 
 
-@pytest.mark.parametrize("N,H", [(100, 128), (400, 128), (1600, 128),
-                                 (37, 128), (37, 96), (100, 96), (400, 96),
-                                 (1600, 96)])
+LEM_CASES = [(100, 128), (400, 128), (1600, 128), (37, 128), (37, 96),
+             (100, 96), (400, 96), (1600, 96),
+             # MSGMP-PDE's width: the generic route
+             (100, 164), (400, 164), (1600, 164), (37, 164)]
+
+
+@pytest.mark.parametrize("N,H", LEM_CASES)
 def test_lem_kernel_matches_plain(cuda_device, N, H):
+    """From a random non-zero (y0, z0)."""
     rng = np.random.default_rng(N)
     T = 25
     r = lambda *s, scale=1.0: _rand(rng, cuda_device, *s, scale=scale)
@@ -70,10 +81,14 @@ def test_lem_kernel_matches_plain(cuda_device, N, H):
                                          (16, 100, 128, 1, 3),
                                          (48, 100, 128, 1, 3),
                                          (2, 40, 96, 3, 2),
-                                         (3, 37, 96, 2, 2)])
+                                         (3, 37, 96, 2, 2),
+                                         (1, 100, 164, 1, 3),
+                                         (16, 100, 164, 1, 3),
+                                         (3, 37, 164, 2, 2)])
 def test_pair_kernel_matches_plain(cuda_device, B, nx, H, V, n):
-    """Bitwise repeatable; the last cases have a width that no 64-column
-    tile divides and node counts no 32-row tile divides."""
+    """Bitwise repeatable; the later cases have a width that no 64-column
+    tile divides (96; MSGMP-PDE's 164, 36 columns in the last tile) and
+    node counts no 32-row tile divides."""
     rng = np.random.default_rng(B)
     D = 25
     idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
@@ -109,10 +124,10 @@ def test_model_kernel_path_matches_plain_path(cuda_device):
     torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
 
 
-@pytest.mark.parametrize("N,H", [(100, 128), (400, 128), (1600, 128),
-                                 (37, 128), (37, 96), (100, 96), (400, 96),
-                                 (1600, 96)])
+@pytest.mark.parametrize("N,H", LEM_CASES)
 def test_lem_stash_and_bwd_match_plain(cuda_device, N, H):
+    """From a random non-zero (y0, z0): dy0 and dz0 are held with the
+    other outputs."""
     rng = np.random.default_rng(100 + N)
     T = 25
     r = lambda *s, scale=1.0: _rand(rng, cuda_device, *s, scale=scale)
@@ -135,7 +150,8 @@ def test_lem_stash_and_bwd_match_plain(cuda_device, N, H):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=atol)
 
 
-@pytest.mark.parametrize("N,H", [(37, 96), (100, 128), (1600, 128)])
+@pytest.mark.parametrize("N,H", [(37, 96), (100, 128), (1600, 128),
+                                 (37, 164), (1600, 164)])
 def test_lem_kernels_bitwise_repeatable(cuda_device, N, H):
     """Two launches of each LEM kernel give bitwise equal outputs (no
     atomics; the cluster sums its partials in rank order), and the stash
@@ -162,7 +178,10 @@ def test_lem_kernels_bitwise_repeatable(cuda_device, N, H):
                                          (16, 100, 128, 1, 3),
                                          (48, 100, 128, 1, 3),
                                          (2, 40, 96, 3, 2),
-                                         (3, 37, 96, 2, 2)])
+                                         (3, 37, 96, 2, 2),
+                                         (1, 100, 164, 1, 3),
+                                         (16, 100, 164, 1, 3),
+                                         (3, 37, 164, 2, 2)])
 def test_pair_bwd_kernel_matches_plain(cuda_device, B, nx, H, V, n):
     """Bitwise repeatable; batch 48 calls the fused kernel directly (the
     model takes the fallback there); the last cases have a width that no
@@ -372,3 +391,48 @@ def test_mp_pde_every_parameter_gets_a_gradient(cuda_device):
     for name, p in trainer.model.named_parameters():
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_variant_kernel_path_matches_plain_path(cuda_device, name):
+    """The five models of the slice at full width: one forward (and
+    SaveMSMP-PDE's new state) against the plain path at 5e-4, with the
+    expected launches (the twin towers 2 LEM scans and 12 pairs, the LSTM
+    models no LEM scan)."""
+    trainer = build_serving_trainer("E1", name, device=cuda_device)
+    rng = np.random.default_rng(1)
+    window = _rand(rng, cuda_device, 4, 100, 25)
+    steps = torch.full((4,), 50, device=cuda_device)
+    with torch.no_grad():
+        reset_counts()
+        got, state = trainer.forward(window, steps, {})
+        counts = launch_counts()
+        want, want_state = plain_forward(trainer)(window, steps, {})
+    assert counts == expected_launches(trainer.model, 1)
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+    assert (state is None) == (want_state is None)
+    for a, b in zip(state or (), want_state or ()):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("name", ["MSGMP-PDE", "SaveMSMP-PDE"])
+def test_variant_train_step_matches_plain_path(cuda_device, name):
+    """One step at unrolled 1 (SaveMSMP-PDE's state threaded through the
+    pushforward): the loss and every gradient, kernel path vs plain path,
+    the plain step from the kernel path's pushed window and state
+    (chip_smoke.check_train_step: the pushforward amplifies float32's
+    rounding alike on both paths)."""
+    trainer = build_trainer("E1", name, device=cuda_device)
+    params = list(trainer.model.parameters())
+    batch = _train_batch(trainer, 4, 1, 5)
+    loss_k = trainer.step_loss(*batch[:1], {}, *batch[1:], 1)
+    grads_k = torch.autograd.grad(loss_k, params)
+    loss_p = trainer.step_loss(*batch[:1], {}, *batch[1:], 1,
+                               forward=kernel_push(trainer))
+    grads_p = torch.autograd.grad(loss_p, params)
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    names = [n for n, _ in trainer.model.named_parameters()]
+    scales = grad_scales(zip(names, grads_p))
+    for pname, a, b in zip(names, grads_k, grads_p):
+        ok, err = scale_aware(a, b, scales[pname])
+        assert ok, (pname, err, scales[pname])

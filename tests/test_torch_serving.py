@@ -1,8 +1,8 @@
 """PyTorch port, serving (serving/engine.py, serving/serve.py) against the
 JAX RolloutEngine on the same weights: E1 and E2 at nx=40 with 2 gated
-pairs (MSMP-PDE) or 2 ungated layers (MP-PDE) at hidden 128. Both engines
-run float32 on the CPU; the bound is 1e-4 after two autoregressive windows
-(summation order only)."""
+pairs (MSMP-PDE, SaveMSMP-PDE) or 2 ungated layers (MP-PDE) at hidden 128.
+Both engines run float32 on the CPU; the bound is 1e-4 after two or three
+autoregressive windows (summation order only)."""
 import threading
 
 import jax
@@ -26,9 +26,13 @@ RES = (250, 40)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _pair(experiment, buckets, model="MSMP-PDE"):
+def _pair(experiment, buckets, model="MSMP-PDE", edit=None):
+    """(JAX engine, the state dict, the port's engine) on one set of random
+    weights; ``edit(params)`` changes them first."""
     jt = jbuild(experiment, model, base_resolution=RES, n_graph_layers=2)
     params = jt.init_params(jax.random.PRNGKey(0), batch_size=2)
+    if edit is not None:
+        params = edit(params)
     jeng = JEngine(jt, params, batch_buckets=buckets)
     state = params_from_flax(np_tree(params, np.float32))
     tt = build_serving_trainer(experiment, model, base_resolution=RES,
@@ -61,6 +65,30 @@ def test_rollout_matches_jax(e1, model, buckets):
     assert got.shape == (4, 2, 40, 25) and np.isfinite(got).all()
     np.testing.assert_allclose(got, jeng.rollout(w, start_step=25,
                                                  n_windows=2), **TOL)
+
+
+def test_stateful_rollout_across_horizon_matches_jax():
+    """SaveMSMP-PDE carries its LEM state from window to window, and each
+    sample's state is reset to zeros once its window starts past nt - tw
+    (225): the samples starting at 200 and 225 cross it within the three
+    windows, those at 25 and 150 do not. At random weights the LEM forgets
+    its initial state within a window (its gates' step dt sigmoid(g) ~ 0.5
+    a step), so the gates' biases are set to -8 first: then it keeps ~99%
+    of the state over 25 steps, and a missing reset shows."""
+
+    def slow_gates(params):
+        p = jax.tree_util.tree_map(np.array, params)
+        H = p["params"]["embedding_lem"]["bias"].shape[0] // 3
+        p["params"]["embedding_lem"]["bias"][:2 * H] = -8.0
+        return p
+
+    jeng, _, eng = _pair("E1", (4,), "SaveMSMP-PDE", slow_gates)
+    w = _windows(4, 8)
+    steps = np.array([200, 25, 150, 225])
+    got = eng.rollout(w, start_step=steps, n_windows=3)
+    assert got.shape == (4, 3, 40, 25) and np.isfinite(got).all()
+    np.testing.assert_allclose(
+        got, jeng.rollout(w, start_step=steps, n_windows=3), **TOL)
 
 
 def test_bucket_padding_is_invisible(e1):
