@@ -8,7 +8,7 @@ Phases, each of which fails the run on error:
      msmp_pde_torch/csrc, printing ptxas's registers and spills of each
      kernel and the LEM kernels' grid and shared memory a CTA;
   2. LEM-scan kernel vs its plain PyTorch version, N in {100, 400, 1600, 37}
-     at hidden 128 and 96 (the clusters) and 164 (the generic route), from
+     at hidden 128 and 96 (the clusters) and 164 (the hidden-164 route), from
      a random non-zero (y0, z0); two runs give bitwise equal outputs;
   3. fused gated-pair kernel vs its plain version, B in {1, 4, 16, 48} at
      the model's weights, one width no 64-column tile divides, and hidden
@@ -90,9 +90,11 @@ Phases, each of which fails the run on error:
      SaveMSMP-PDE and MSSMP-PDE requests at 8 windows from start steps of
      which three cross nt - tw, equal to RolloutEngine.rollout, each window
      within TOL_MODEL of the plain path's from the same window with the
-     same reset, which fires; timings of the
-     hidden-164 kernels beside their bounds, MSGMP-PDE's train step and
-     rollouts.
+     same reset, which fires; timings of the hidden-164 kernels
+     (lem_fwd_ring, lem_bwd with lem_bwd_ring and lem_bwd_wgrad, the pairs)
+     beside their 3xTF32 bounds, each launch's own card time, torch.matmul
+     of the weight gradients as lem_bwd_wgrad's library yardstick,
+     MSGMP-PDE's train step (with the card's busy time) and rollouts.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -117,7 +119,6 @@ F32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
 N_WINDOWS = 8
 BUCKETS = (1, 4, 16)
-ROLLOUT_SAMPLES = 100  # per bucket: p90 has 10 samples beyond it
 TOL_LEM = 1e-5    # FMA order only
 TOL_PAIR = 1e-4   # FMA order, then InstanceNorm's divide by the spread
 TOL_MODEL = 5e-4  # six pairs and the LEM compound the pair's rounding
@@ -423,42 +424,28 @@ def reference_step_loss(trainer, u_all, idx_batch, steps, unrolled):
                              forward=plain_forward(trainer))
 
 
-def smooth_trajectories(n, t_grid, x, L, seed):
-    """[n, nt, nx] float32: four Fourier modes a trajectory, amplitudes
-    ~1/k, phases drifting with t, from a numpy seed."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    t, xs = t_grid[None, :, None, None], x[None, None, :, None]
-    k = np.arange(1, 5)[None, None, None, :]
-    amp = rng.uniform(0.5, 1.0, (n, 1, 1, 4)) / k
-    phase = rng.uniform(0, 2 * np.pi, (n, 1, 1, 4))
-    speed = rng.uniform(-1.0, 1.0, (n, 1, 1, 4))
-    u = amp * np.sin(2 * np.pi * k * xs / L + phase + speed * k * t)
-    return u.sum(-1).astype(np.float32)
-
-
 # (hidden, rows) of phases 2 and 7: buckets 1, 4, 16 of nx 100 and a ragged
 # tile, at MSMP-PDE's width, one more of the clusters and MSGMP-PDE's 164
-# (the generic route); y0, z0 random, non-zero (lem_times.lem_args)
+# (the hidden-164 route); y0, z0 random, non-zero (lem_times.lem_args)
 LEM_CASES = [(H, N) for H in (128, 96, 164) for N in (100, 400, 1600, 37)]
 GLU_H = 164  # MSGMP-PDE's hidden width
 
 
 def by_route(errs):
-    """{hidden: max error} -> (the clusters' max, the generic route's)."""
+    """{hidden: max error} -> (the clusters' max, the hidden-164 route's)."""
     return (max(e for H, e in errs.items() if H != GLU_H), errs[GLU_H])
 
 
 def check_lem_training_kernels(rand, T):
-    """Phase 7: returns ({H: stash max error}, {H: backward max error});
-    dy0 and dz0 are held with the other outputs."""
+    """Phase 7: returns ({H: stash max error}, {H: backward max error},
+    {H: the weight gradients' max error}); dy0 and dz0 are held with the
+    other outputs."""
     import torch
 
     from msmp_pde_torch.ops import lem_scan
     from msmp_pde_torch.tools.lem_times import lem_args
 
-    e_stash, e_bwd = {}, {}
+    e_stash, e_bwd, e_wgrad = {}, {}, {}
     names = ("dgx", "dzx", "dy0", "dz0", "dwy", "dwzz")
     for H, N in LEM_CASES:
         args = lem_args(rand, T, N, H)
@@ -490,6 +477,8 @@ def check_lem_training_kernels(rand, T):
                 atol *= b.abs().max().item()
             e = (a - b).abs().max().item()
             worst = max(worst, e)
+            if name.startswith("dw"):
+                e_wgrad[H] = max(e_wgrad.get(H, 0.0), e)
             check(bool(torch.allclose(a, b, rtol=LEM_BWD_RTOL, atol=atol)),
                   f"lem_bwd N={N} H={H} {name}: max |diff| {e:.3e}, atol "
                   f"{atol}")
@@ -497,7 +486,7 @@ def check_lem_training_kernels(rand, T):
         print(f"lem_bwd N={N} H={H}: all six outputs (dy0, dz0 from a "
               f"non-zero y0, z0) within rtol {LEM_BWD_RTOL} (max |kernel - "
               f"plain| {worst:.3e}); two runs bitwise equal")
-    return e_stash, e_bwd
+    return e_stash, e_bwd, e_wgrad
 
 
 def lem_card_times(rand, T, H):
@@ -520,6 +509,27 @@ def lem_card_times(rand, T, H):
     own = (" + ".join(f"{short(k)} {us / 1e3:.4f}" for k, us in ks)
            if ks else "not measured")
     print(f"lem_bwd @N={N}: card by launch {own} ms")
+
+
+def lem_card_times164(args, bargs):
+    """Phase 20: the hidden-164 kernels' own card time from torch.profiler,
+    ms a call, launch by launch (lem_fwd_ring without and with the stash;
+    lem_bwd's two transposes, lem_bwd_ring, lem_bwd_wgrad and the ordered
+    sum). Returns lem_bwd's {launch: ms}."""
+    from msmp_pde_torch.ops import lem_scan
+    from msmp_pde_torch.tools.lem_times import kernels_us, short
+
+    for name, fn in (
+            ("lem_fwd", lambda: lem_scan.lem_scan_kernel(*args)),
+            ("lem_fwd_stash",
+             lambda: lem_scan.lem_scan_kernel(*args, stash=True)),
+            ("lem_bwd", lambda: lem_scan.lem_scan_bwd_kernel(*bargs))):
+        ks = kernels_us(fn)
+        own = (" + ".join(f"{short(k)} {us / 1e3:.4f}" for k, us in ks)
+               if ks else "not measured")
+        print(f"{name} @hidden 164, N={args[2].shape[0]}: card by launch "
+              f"{own} ms")
+    return {short(k): us / 1e3 for k, us in ks or ()}
 
 
 def check_pair_bwd(rand, model, spec, T, H, V, W164):
@@ -1019,26 +1029,6 @@ def fallback_step(trainer, u_all):
     return counts
 
 
-def time_rollouts(engine, name):
-    """Phases 6 and 16: closed-loop rollout latency per bucket."""
-    import numpy as np
-
-    nx, T = engine.trainer.spec.nx, engine.trainer.tw
-    for B in BUCKETS:
-        w = np.random.default_rng(B).normal(size=(B, nx, T)).astype(
-            np.float32)
-        lats = []
-        for _ in range(ROLLOUT_SAMPLES):
-            t0 = time.perf_counter()
-            engine.rollout(w, n_windows=N_WINDOWS)
-            lats.append((time.perf_counter() - t0) * 1e3)
-        p50, p90 = np.percentile(lats, [50, 90])
-        print(f"{name} rollout bucket {B} x {N_WINDOWS} windows, closed "
-              f"loop, {ROLLOUT_SAMPLES} requests: p50 {p50:.3f} ms, p90 "
-              f"{p90:.3f} ms, {B * N_WINDOWS / p50 * 1e3:.1f} "
-              "sample-windows/s at p50")
-
-
 def time_forwards(trainer, window, steps, name, per_kernel):
     """Phases 6 and 16: one model forward at buckets 1 and 16, CUDA events
     beside the host's enqueue time; ``per_kernel``: {bucket: text on the
@@ -1052,24 +1042,6 @@ def time_forwards(trainer, window, steps, name, per_kernel):
             hms = host_ms(lambda: trainer.forward(w, st, {}))
         print(f"{name} forward @bucket {B}: {ms:.4f} ms (CUDA events; host "
               f"enqueue {hms:.4f} ms; {per_kernel[B]})")
-
-
-def time_train_steps(trainer, u_all, name):
-    """Phases 11 and 16: one optimizer step at batch 16, unrolled 0 and 1,
-    CUDA events beside the host's enqueue time."""
-    import torch
-
-    dev = trainer.device
-    tx = trainer.make_optimizer(1e-4, 0.4, [1, 5, 10, 15], 250)
-    idx_b = torch.arange(TRAIN_BATCH, device=dev)
-    st = torch.full((TRAIN_BATCH,), 100, dtype=torch.int64, device=dev)
-    for f in (0, 1):
-        step = trainer.train_step_fn(tx, f)
-        ms = timed(lambda: step(u_all, {}, idx_b, st), reps=5)
-        hms = host_ms(lambda: step(u_all, {}, idx_b, st), reps=3)
-        print(f"{name} train step @batch {TRAIN_BATCH} unrolled={f}: "
-              f"{ms:.4f} ms, {TRAIN_BATCH / ms * 1e3:.1f} samples/s (host "
-              f"enqueue {hms:.4f} ms)")
 
 
 def card():
@@ -1632,6 +1604,11 @@ def main():
         build_serving_trainer,
     )
     from msmp_pde_torch.tools.lem_times import lem_args
+    from msmp_pde_torch.tools.model_times import (
+        smooth,
+        time_rollouts,
+        time_train_steps,
+    )
     from msmp_pde_torch.training.setup import build_trainer
     from msmp_pde_torch.utils.convert import params_from_flax
 
@@ -1778,13 +1755,13 @@ def main():
     time_rollouts(engine, "MSMP-PDE")
 
     # 7-10. training: kernels vs plain, one step, the main path ----------
-    e_stash, e_lbwd = check_lem_training_kernels(rand, T)
+    e_stash, e_lbwd, e_wgrad = check_lem_training_kernels(rand, T)
     train_tr = build_trainer("E1", "MSMP-PDE", device=dev)
     train_tr.model.load_state_dict(params, strict=True)
     e_pbwd, pbwd_all = check_pair_bwd(rand, train_tr.model, train_tr.spec, T,
                                       H, V, W164)
     pbwd_args = pbwd_all[H]
-    u_all = torch.as_tensor(smooth_trajectories(
+    u_all = torch.as_tensor(smooth(
         16, spec.t_grid.cpu().numpy(), spec.x.cpu().numpy(), spec.L, seed=0),
         device=dev)
     check_train_step(train_tr, u_all, np.random.default_rng(1))
@@ -1852,7 +1829,7 @@ def main():
     # 13. the pair's stash variant and fallback route --------------------
     e_pstash, e_fb, (args48, gn48, ln48, g48) = check_pair_fallback(
         rand, train_tr.model, spec, T, H, V)
-    u48 = torch.as_tensor(smooth_trajectories(
+    u48 = torch.as_tensor(smooth(
         48, spec.t_grid.cpu().numpy(), spec.x.cpu().numpy(), spec.L, seed=1),
         device=dev)
     fb_counts = fallback_step(train_tr, u48)
@@ -2014,14 +1991,49 @@ def main():
             ("lem_bwd", lambda: lem_scan.lem_scan_bwd_kernel(*gbargs),
              lambda: lem_scan.lem_scan_bwd_plain(*gbargs))):
         glem[name] = (timed(kern), timed_graph(plain), timed(plain))
-    # every product of the generic route is a float32 FMA on the CUDA cores
+    # every product of the hidden-164 route runs in 3xTF32 on the tensor
+    # cores: the forward's two, the sweep's four and the weight gradients
     g_bytes = 4 * (T * N * 4 * Hg + 4 * N * Hg + 4 * Hg * Hg)
     g_bounds = {
-        "lem_fwd": bound(g_bytes, T * N * 8 * Hg * Hg),
-        "lem_fwd_stash": bound(g_bytes + 4 * 2 * T * N * Hg,
+        "lem_fwd": bound(g_bytes, 0, T * N * 8 * Hg * Hg),
+        "lem_fwd_stash": bound(g_bytes + 4 * 2 * T * N * Hg, 0,
                                T * N * 8 * Hg * Hg),
         "lem_bwd": bound(4 * (10 * T * N * Hg + 6 * N * Hg + 8 * Hg * Hg),
-                         24 * T * N * Hg * Hg)}
+                         0, 24 * T * N * Hg * Hg)}
+    # lem_bwd's weight-gradient launch alone, lem_bwd_wgrad: dWy = sum_t
+    # y_prev^T dg and dWzz = sum_t z_t^T da over the T N rows, 8 T N H^2
+    # FLOP in 3xTF32; its card time from the profiler, its plain version
+    # the plain backward's per-step products, torch.matmul of the stacked
+    # rows its yardstick (never called by the port)
+    gdgx, gdzx = lem_scan.lem_scan_bwd_plain(*gbargs)[:2]
+    yprev = torch.cat([gargs[2][None], gys[:-1]])
+
+    def wgrad_plain():
+        dwy = torch.zeros_like(gargs[4])
+        dwzz = torch.zeros_like(gargs[5])
+        for t in range(T):
+            dwzz = dwzz + gzs[t].T @ gdzx[t]
+            dwy = dwy + yprev[t].T @ gdgx[t]
+        return dwy, dwzz
+
+    wgrad_ops = (yprev.reshape(T * N, Hg).T.contiguous(),
+                 gdgx.reshape(T * N, 3 * Hg),
+                 gzs.reshape(T * N, Hg).T.contiguous(),
+                 gdzx.reshape(T * N, Hg))
+    wgrad_lib_ms = timed(lambda: (torch.matmul(*wgrad_ops[:2]),
+                                  torch.matmul(*wgrad_ops[2:])))
+    wgrad_plain_ms = timed_graph(wgrad_plain)
+    bwd_launch_ms = lem_card_times164(gargs, gbargs)
+    check("lem_bwd_wgrad" in bwd_launch_ms,
+          "torch.profiler shows no card time of lem_bwd_wgrad")
+    wgrad_ms = bwd_launch_ms["lem_bwd_wgrad"]
+    wgrad_bound = bound(4 * (6 * T * N * Hg + 4 * Hg * Hg), 0,
+                        8 * T * N * Hg * Hg)
+    print(f"lem_bwd_wgrad @hidden {Hg}, N={N}: kernel {wgrad_ms:.4f} ms "
+          f"(torch.profiler), plain {wgrad_plain_ms:.4f} ms (CUDA graph), "
+          f"torch.matmul {wgrad_lib_ms:.4f} ms (two calls; a yardstick, "
+          f"not the port's), bound {wgrad_bound[0]:.4f} ms "
+          f"({wgrad_bound[1]}); one launch a lem_bwd call")
     gw = sum(w.numel() for w in W164[0]) + sum(w.numel() for w in W164[1])
     g_fwd, g_edge, g_bwd = layer_ops(nx, Hg, D, V, e_valid)
     gpf, gpb = pair_args[(Hg, 16)], pbwd_all[Hg]
@@ -2111,22 +2123,33 @@ def main():
          "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": st_bound,
          "bound_by": st_by, "library_ms": None},
     ]
-    # the hidden-164 launches (MSGMP-PDE): the LEM's generic route, the
-    # pairs at 164; launches in phase 20's fit
+    # the hidden-164 launches (MSGMP-PDE): the LEM's hidden-164 route
+    # (lem_fwd_ring; lem_bwd, whose five launches are the two transposes,
+    # lem_bwd_ring, lem_bwd_wgrad and the ordered sum, and lem_bwd_wgrad's
+    # own row), the pairs at 164; launches in phase 20's fit
     g_errs = {"lem_fwd": by_route(err["lem_fwd"])[1],
               "lem_fwd_stash": by_route(e_stash)[1],
               "lem_bwd": by_route(e_lbwd)[1],
               "mp_pair_fwd": by_route(err["mp_pair_fwd"])[1],
               "mp_pair_bwd": by_route(e_pbwd)[1]}
+    ring_names = {"lem_fwd": "lem_fwd_ring", "lem_fwd_stash":
+                  "lem_fwd_ring_stash"}
     for name, (ms, pms, _) in g_times.items():
         src = name.replace("_stash", "")
         kernels.append({
-            "name": f"{name}@hidden{Hg}", "route": "cuda",
-            "source": f"msmp_pde_torch/csrc/{src}.cu",
+            "name": f"{ring_names.get(name, name)}@hidden{Hg}",
+            "route": "cuda", "source": f"msmp_pde_torch/csrc/{src}.cu",
             "replaces": REPLACES[name], "launches": msgmp_counts[name],
             "max_abs_err": g_errs[name], "ms": ms, "plain_ms": pms,
             "bound_ms": g_bounds[name][0], "bound_by": g_bounds[name][1],
             "library_ms": None})
+    kernels.append({
+        "name": f"lem_bwd_wgrad@hidden{Hg}", "route": "cuda",
+        "source": "msmp_pde_torch/csrc/lem_bwd.cu",
+        "replaces": REPLACES["lem_bwd"], "launches": msgmp_counts["lem_bwd"],
+        "max_abs_err": e_wgrad[Hg], "ms": wgrad_ms,
+        "plain_ms": wgrad_plain_ms, "bound_ms": wgrad_bound[0],
+        "bound_by": wgrad_bound[1], "library_ms": wgrad_lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(on)
     print(json.dumps({"ok": True, "device": {

@@ -57,15 +57,18 @@
 // partials that the other CTAs write; da and dg of the CTA's columns.
 //
 // At hidden 164 (MSGMP-PDE) the cluster layout does not fit (lem_step.cuh,
-// the width-generic route), and plain kernels take the launch:
-// lem_transpose writes Wy^T and Wzz^T once (so that the transposed
-// products read the weights coalesced); lem_bwd_generic runs the sweep on
-// blocks of 192 threads over 16 rows, thread j on hidden column j, with the
-// weights read from L2 each step (four products a step, float32 FMAs), and
-// writes dgx, dzx, dy0, dz0; lem_bwd_wgrad then forms dWy = sum y_prev^T
-// dgx and dWzz = sum z_t^T dzx over the T N rows as 64 x 64 output tiles,
-// the rows split in WSPLIT parts, and lem_bwd_reduce sums the parts in
-// order. No atomics: bitwise repeatable.
+// the hidden-164 route): lem_transpose writes Wy^T and Wzz^T once;
+// lem_bwd_ring runs the sweep on clusters of 4 CTAs, each over 16 rows and
+// every column (164 padded to 168), with Wy, Wzz and the transposes
+// streamed through a ring of shared-memory stages by bulk tensor copies
+// multicast to the cluster, four products a step in 3xTF32 on mma.sync;
+// it writes dgx, dzx, dy0, dz0. lem_bwd_wgrad then forms dWy = sum y_prev^T
+// dgx and dWzz = sum z_t^T dzx over the T N rows on the tensor cores
+// (3xTF32), the rows split in WSPLIT parts, and lem_bwd_reduce sums the
+// parts in order. No atomics: bitwise repeatable. What bounds it:
+// operations, 17.2 GFLOP in the sweep and 8.6 in the weight gradients at
+// N = 1600, T = 25, against ~260 MB of reads and writes; mma.sync's TF32
+// issue rate (tools/lem_phases.py --hidden 164).
 #include "lem_step.cuh"
 
 namespace {
@@ -433,11 +436,20 @@ __global__ void lem_bwd_reduce(const float* __restrict__ partial,
   else dwzz[i - 3 * H * H] = s;
 }
 
-// ---- the generic route (hidden 164) ----------------------------------------
+// ---- the hidden-164 route (lem_step.cuh, lem::gen) -------------------------
 namespace gen = lem::gen;
-constexpr int WSPLIT = 8;  // row parts of lem_bwd_wgrad, summed in order
-constexpr int WT = 64;     // lem_bwd_wgrad's output tile, WT x WT
-constexpr int WK = 16;     // its rows a step
+constexpr int GEN_STAGES = 8;                  // ring stages
+constexpr int GEN_TILES = 21 + 7 + 7 + 21;     // a step: Wy, Wzz, Wzz^T, Wy^T
+constexpr int DGP = 3 * gen::HP + 4;           // the dg rows' pitch, floats
+// y_prev and z_t rows (two of each), da rows, dg rows
+constexpr int GEN_ROWF = 5 * gen::GR * gen::RP + gen::GR * DGP;
+constexpr int WSPLIT = 22;  // row parts of lem_bwd_wgrad, summed in order
+constexpr int WJ = 64;      // its rows j of dW a CTA: 4 m16 tiles
+constexpr int WKC = 32;     // its rows m a chunk: 4 k-steps
+constexpr int WAP = 72;     // a chunk's pitches: A [WKC][WJ], B [WKC][HP]
+constexpr int WSTAGES = 3;  // chunks in flight
+constexpr int WSTAGE = WKC * (WAP + gen::HP);
+constexpr int WSMEM = 4 * WSTAGES * WSTAGE;
 
 // wT [cols, rows] = w [rows, cols]^T, in 32 x 32 tiles through shared memory
 __global__ void lem_transpose(const float* __restrict__ w,
@@ -455,201 +467,395 @@ __global__ void lem_transpose(const float* __restrict__ w,
   }
 }
 
-// The sweep: block b owns rows [b GR, (b + 1) GR), thread j < H their
-// column j of dy and dz in registers. A step t: the y_prev and z_t rows
-// into shared memory (k-major); a barrier; g = gx_t + y_prev Wy and
-// a = zx_t + z_t Wzz of the thread's column, da and dg2 into their rows;
-// a barrier; dz += da Wzz^T, dg1 and dzc into their rows; a barrier;
-// dy = dy (1 - dt2) + dg Wy^T. Each buffer is written after a barrier that
-// follows its last read.
-__global__ void __launch_bounds__(gen::MAX_H, 1)
-lem_bwd_generic(const float* __restrict__ gx, const float* __restrict__ zx,
-                const float* __restrict__ y0, const float* __restrict__ z0,
-                const float* __restrict__ wy, const float* __restrict__ wzz,
-                const float* __restrict__ wyT, const float* __restrict__ wzzT,
-                const float* __restrict__ ys, const float* __restrict__ zs,
-                const float* __restrict__ dyT, const float* __restrict__ dzT,
-                float* __restrict__ dgx, float* __restrict__ dzx,
-                float* __restrict__ dy0, float* __restrict__ dz0, int T, int N,
-                int H, float dt) {
-  constexpr int GR = gen::GR, GP = gen::GP;
-  extern __shared__ float4 smem4[];
-  float* yp_s = reinterpret_cast<float*>(smem4);  // [H][GP] y_prev
-  float* zc_s = yp_s + H * GP;                    // [H][GP] z_t
-  float* da_s = zc_s + H * GP;                    // [H][GP] da
-  float* dg_s = da_s + H * GP;                    // [3H][GP] dg1 dg2 dzc
-  const int j = threadIdx.x, row0 = blockIdx.x * GR;
-  const bool on = j < H;
-  const size_t NH = (size_t)N * H;
-  float dy[GR], dz[GR];
-  if (on) {
-    gen::load_col(dy, dyT, row0, N, H, j);
-    gen::load_col(dz, dzT, row0, N, H, j);
-  }
-  for (int t = T - 1; t >= 0; --t) {
-    float yp[GR], zp[GR];
-    if (on) {
-      float zc[GR];
-      gen::load_col(yp, t > 0 ? ys + (t - 1) * NH : y0, row0, N, H, j);
-      gen::load_col(zp, t > 0 ? zs + (t - 1) * NH : z0, row0, N, H, j);
-      gen::load_col(zc, zs + t * NH, row0, N, H, j);
-      gen::put_col(yp_s, yp, j);
-      gen::put_col(zc_s, zc, j);
+// The sweep: CTA b owns rows [b GR, (b + 1) GR) and every hidden column; its
+// consumer warps hold dy and dz of their columns in registers. A step t: the
+// y_prev and z_t rows are in (cp.async, loaded during the step before, two
+// buffers of each); g = gx_t + y_prev Wy and a = zx_t + z_t Wzz (28 tiles;
+// the two are independent, z_t being stashed); da and dg2 into their rows and
+// a barrier of the consumer warps; dz += da Wzz^T (7 tiles), dg1 and dzc into
+// their rows and a barrier; dy = dy (1 - dt2) + dg Wy^T (21 tiles, a k-step
+// a gate). Each buffer is written after a barrier that follows its last
+// read. The padded columns stay exactly zero: their inputs, weights and
+// cotangents are.
+__global__ void __launch_bounds__(gen::THREADS, 1)
+lem_bwd_ring(const __grid_constant__ CUtensorMap map_wy,
+             const __grid_constant__ CUtensorMap map_wzz,
+             const __grid_constant__ CUtensorMap map_wzzT,
+             const __grid_constant__ CUtensorMap map_wyT,
+             const float* __restrict__ gx, const float* __restrict__ zx,
+             const float* __restrict__ y0, const float* __restrict__ z0,
+             const float* __restrict__ ys, const float* __restrict__ zs,
+             const float* __restrict__ dyT, const float* __restrict__ dzT,
+             float* __restrict__ dgx, float* __restrict__ dzx,
+             float* __restrict__ dy0, float* __restrict__ dz0, int T, int N,
+             float dt) {
+  constexpr int H = gen::H, GR = gen::GR, HP = gen::HP, RP = gen::RP;
+  constexpr int CW = gen::CW, KROWS = gen::KROWS, THREADS = gen::THREADS;
+  constexpr int S = GEN_STAGES, ROWS = GR * RP;
+  extern __shared__ __align__(1024) float4 gen_smem[];
+  float* ring = reinterpret_cast<float*>(gen_smem);
+  float* yp_s = ring + S * gen::STAGE_FLOATS;  // [2][GR][RP] y_prev rows
+  float* zt_s = yp_s + 2 * ROWS;          // [2][GR][RP] z_t rows
+  float* da_s = zt_s + 2 * ROWS;          // [GR][RP]
+  float* dg_s = da_s + ROWS;              // [GR][DGP]: dg1 | dg2 | dzc
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dg_s + GR * DGP);
+  GEN_PHASE_START(reinterpret_cast<unsigned long long*>(bars + 2 * S));
+  const int rank = static_cast<int>(lem::cluster_rank());
+  const uint32_t full0 = lem::smem_addr(bars), empty0 = full0 + 8 * S;
+  for (int i = threadIdx.x; i < GEN_ROWF; i += THREADS) yp_s[i] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      gen::mbar_init(full0 + 8 * s, 1);
+      gen::mbar_init(empty0 + 8 * s, lem::C * CW);
     }
-    __syncthreads();  // the y_prev and z_t rows are in
-    float s1[GR], thz[GR], dt2[GR];
-    if (on) {
-      float g[3][GR] = {}, a[1][GR] = {};
-      gen::product<3>(g, yp_s, wy, 3 * H, H, j, H);
-      gen::product<1>(a, zc_s, wzz, H, 0, j, H);
-      float p[3][GR], pa[GR], da[GR], dg2[GR];
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  lem::cluster_sync();  // every CTA's barriers are set up
+
+  if (threadIdx.x >= CW * 32) {  // the producer warp
+    const CUtensorMap* m_wy = &map_wy;
+    const CUtensorMap* m_wzz = &map_wzz;
+    const CUtensorMap* m_wzzT = &map_wzzT;
+    const CUtensorMap* m_wyT = &map_wyT;
+    if (threadIdx.x == CW * 32)
+      gen::produce<S>(full0, empty0, lem::smem_addr(ring), T * GEN_TILES, rank,
+                 [&](int i, uint32_t dst, uint32_t bar, uint64_t policy) {
+                   const int k = i % GEN_TILES;
+                   if (k < 21)
+                     gen::tma_multicast(dst, m_wy, bar, 0, 0, 8 * k, policy);
+                   else if (k < 28)
+                     gen::tma_multicast(dst, m_wzz, bar, 0, KROWS * (k - 21),
+                                   0, policy);
+                   else if (k < 35)
+                     gen::tma_multicast(dst, m_wzzT, bar, 0, KROWS * (k - 28),
+                                   0, policy);
+                   else
+                     gen::tma_multicast(dst, m_wyT, bar, 0, 8 * (k - 35), 0,
+                                   policy);
+                 });
+    __syncwarp();
+  } else {
+    const gen::Lane l;
+    gen::Ring<S> rg(full0, empty0, ring);
+    const int row0 = blockIdx.x * GR;
+    const size_t NH = (size_t)N * H;
+    int row[2];
+    bool rok[2];
 #pragma unroll
-      for (int q = 0; q < 3; ++q)
-        gen::load_col(p[q], gx + t * NH * 3 + q * H, row0, N, 3 * H, j);
-      gen::load_col(pa, zx + t * NH, row0, N, H, j);
+    for (int rr = 0; rr < 2; ++rr) {
+      row[rr] = row0 + l.g + 8 * rr;
+      rok[rr] = row[rr] < N;
+    }
+    auto ok = [&](int j, int rr) { return l.cok[j] && rok[rr]; };
+    auto at = [&](auto* x, size_t base, int ld, int j, int rr) {
+      return x + (base + row[rr]) * ld + l.col[j];
+    };
+    auto put = [&](float* buf, int pitch, const float (&v)[3][4]) {
 #pragma unroll
-      for (int r = 0; r < GR; ++r) {
-        s1[r] = lem::sigm(g[0][r] + p[0][r]);
-        const float s2 = lem::sigm(g[1][r] + p[1][r]);
-        thz[r] = lem::tanh_(g[2][r] + p[2][r]);
-        const float tha = lem::tanh_(a[0][r] + pa[r]);
-        dt2[r] = dt * s2;
-        da[r] = dy[r] * dt2[r] * (1.0f - tha * tha);
-        dg2[r] = dy[r] * (tha - yp[r]) * dt * s2 * (1.0f - s2);
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          *reinterpret_cast<float2*>(buf + (l.g + 8 * rr) * pitch +
+                                     l.col[j]) =
+              make_float2(v[j][2 * rr], v[j][2 * rr + 1]);
+    };
+    auto out = [&](float* x, size_t base, int ld, const float (&v)[3][4]) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          lem::st_pair<true>(at(x, base, ld, j, rr), v[j][2 * rr],
+                             v[j][2 * rr + 1], ok(j, rr));
+    };
+    auto in = [&](float (&v)[3][4], const float* x, size_t base, int ld) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          lem::ld_pair(v[j] + 2 * rr, at(x, base, ld, j, rr), ok(j, rr));
+    };
+    float dy[3][4], dz[3][4];
+    in(dy, dyT, 0, H);
+    in(dz, dzT, 0, H);
+    // gx_t, zx_t, z_prev of this thread's elements, a step ahead
+    float pg[3][3][4], pa[1][3][4], pz[3][4];
+    auto fetch = [&](int t) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) in(pg[q], gx + q * H, (size_t)t * N, 3 * H);
+      in(pa[0], zx, (size_t)t * N, H);
+      in(pz, t ? zs + (t - 1) * NH : z0, 0, H);
+    };
+    auto y_prev = [&](int t) { return t ? ys + (t - 1) * NH : y0; };
+    if (T > 0) {
+      fetch(T - 1);
+      gen::load_rows(yp_s, y_prev(T - 1), row0, N);
+      gen::load_rows(zt_s, zs + (T - 1) * NH, row0, N);
+    }
+    GEN_PHASE(0);
+    for (int t = T - 1; t >= 0; --t) {
+      const int b = (T - 1 - t) & 1;
+      const float* yp = yp_s + b * ROWS;
+      const float* zt = zt_s + b * ROWS;
+      lem::cp_async_wait_all();
+      gen::consumers_sync();  // this step's rows are in; the other buffers free
+      GEN_PHASE(6);
+      if (t > 0) {
+        gen::load_rows(yp_s + (b ^ 1) * ROWS, y_prev(t - 1), row0, N);
+        gen::load_rows(zt_s + (b ^ 1) * ROWS, zs + (t - 1) * NH, row0, N);
       }
-      gen::store_col(dzx + t * NH, da, row0, N, H, j);
-      gen::store_col(dgx + t * NH * 3 + H, dg2, row0, N, 3 * H, j);
-      gen::put_col(da_s, da, j);
-      gen::put_col(dg_s, dg2, H + j);
-    }
-    __syncthreads();  // da complete
-    if (on) {
-      float acc[1][GR] = {}, dg1[GR], dzc[GR];
-      gen::product<1>(acc, da_s, wzzT, H, 0, j, H);
+      float g[3][3][4], a[1][3][4], zp[3][4];
 #pragma unroll
-      for (int r = 0; r < GR; ++r) {
-        dz[r] += acc[0][r];
-        const float dt1 = dt * s1[r];
-        dg1[r] = dz[r] * (thz[r] - zp[r]) * dt * s1[r] * (1.0f - s1[r]);
-        dzc[r] = dz[r] * dt1 * (1.0f - thz[r] * thz[r]);
-        dz[r] *= 1.0f - dt1;
-      }
-      gen::store_col(dgx + t * NH * 3, dg1, row0, N, 3 * H, j);
-      gen::store_col(dgx + t * NH * 3 + 2 * H, dzc, row0, N, 3 * H, j);
-      gen::put_col(dg_s, dg1, j);
-      gen::put_col(dg_s, dzc, 2 * H + j);
-    }
-    __syncthreads();  // dg complete
-    if (on) {
-      float acc[1][GR] = {};
-      gen::product<1>(acc, dg_s, wyT, H, 0, j, 3 * H);
+      for (int j = 0; j < 3; ++j)
 #pragma unroll
-      for (int r = 0; r < GR; ++r) dy[r] = dy[r] * (1.0f - dt2[r]) + acc[0][r];
+        for (int e = 0; e < 4; ++e) {
+          g[0][j][e] = pg[0][j][e];
+          g[1][j][e] = pg[1][j][e];
+          g[2][j][e] = pg[2][j][e];
+          a[0][j][e] = pa[0][j][e];
+          zp[j][e] = pz[j][e];
+        }
+      if (t > 0) fetch(t - 1);
+
+      // recompute the step, as the forward computes it
+      const float* ya = yp + l.g * RP;
+      const float* za = zt + l.g * RP;
+      gen::product<1, 3, 3 * HP>(g, rg, 21, ya, ya + 8 * RP, 0, 8, 0, l.n0,
+                                 l.t, l.lane);
+      gen::product<3, 1, HP>(a, rg, 7, za, za + 8 * RP, 0, KROWS, 8, l.n0,
+                             l.t, l.lane);
+      GEN_PHASE_RING(rg);
+      float s1[3][4], thz[3][4], dt2[3][4], da[3][4], dg2[3][4];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s1[j][e] = lem::sigm(g[0][j][e]);
+          const float s2 = lem::sigm(g[1][j][e]);
+          thz[j][e] = lem::tanh_(g[2][j][e]);
+          const float tha = lem::tanh_(a[0][j][e]);
+          const float y = ya[(e >> 1) * 8 * RP + l.col[j] + (e & 1)];
+          dt2[j][e] = dt * s2;
+          da[j][e] = dy[j][e] * dt2[j][e] * (1.0f - tha * tha);
+          dg2[j][e] = dy[j][e] * (tha - y) * dt * s2 * (1.0f - s2);
+        }
+      GEN_PHASE(3);
+      out(dzx, (size_t)t * N, H, da);
+      out(dgx + H, (size_t)t * N, 3 * H, dg2);
+      put(da_s, RP, da);
+      put(dg_s + HP, DGP, dg2);
+      GEN_PHASE(4);
+      gen::consumers_sync();  // da complete
+      GEN_PHASE(5);
+
+      // dz += da Wzz^T
+      float acc[1][3][4] = {};
+      const float* daa = da_s + l.g * RP;
+      gen::product<3, 1, HP>(acc, rg, 7, daa, daa + 8 * RP, 0, KROWS, 8, l.n0,
+                             l.t, l.lane);
+      GEN_PHASE_RING(rg);
+      float dg1[3][4], dzc[3][4];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dz[j][e] += acc[0][j][e];
+          const float dt1 = dt * s1[j][e];
+          dg1[j][e] = dz[j][e] * (thz[j][e] - zp[j][e]) * dt * s1[j][e] *
+                      (1.0f - s1[j][e]);
+          dzc[j][e] = dz[j][e] * dt1 * (1.0f - thz[j][e] * thz[j][e]);
+          dz[j][e] *= 1.0f - dt1;
+          acc[0][j][e] = 0.0f;
+        }
+      GEN_PHASE(3);
+      out(dgx, (size_t)t * N, 3 * H, dg1);
+      out(dgx + 2 * H, (size_t)t * N, 3 * H, dzc);
+      put(dg_s, DGP, dg1);
+      put(dg_s + 2 * HP, DGP, dzc);
+      GEN_PHASE(4);
+      gen::consumers_sync();  // dg complete
+      GEN_PHASE(5);
+
+      // dy = dy (1 - dt2) + dg Wy^T: k-step q of tile jb reads gate q
+      const float* dga = dg_s + l.g * DGP;
+      gen::product<3, 1, HP>(acc, rg, 21, dga, dga + 8 * DGP, 0, 8, HP, l.n0,
+                             l.t, l.lane);
+      GEN_PHASE_RING(rg);
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dy[j][e] = dy[j][e] * (1.0f - dt2[j][e]) + acc[0][j][e];
+      GEN_PHASE(3);
     }
+    out(dy0, 0, H, dy);
+    out(dz0, 0, H, dz);
   }
-  if (on) {
-    gen::store_col(dy0, dy, row0, N, H, j);
-    gen::store_col(dz0, dz, row0, N, H, j);
-  }
+  GEN_PHASE_END;
+  lem::cluster_sync();  // no CTA leaves while the others may still signal it
 }
 
-// The weight gradients over the M = T N rows m = t N + n: block (jt, kt, s)
-// sums rows [s M', (s + 1) M') (M' = cdiv(M, WSPLIT)) of one WT x WT tile
-// of [dWy | dWzz] into part s of `partial` ([H, 3H] then [H, H], the layout
-// lem_bwd_reduce sums). dWy's A rows are y_prev (y0 at t = 0, else
-// ys[t - 1], i.e. ys's flat row m - N), its B rows dgx; dWzz's A rows zs,
-// its B rows dzx. Thread (ty, tx) of 16 x 16 holds a 4 x 4 piece.
-__global__ void __launch_bounds__(256)
+// The weight gradients over the M = T N rows m = t N + n, on the tensor
+// cores: CTA (tile, s) sums rows [s M', (s + 1) M') (M' = cdiv(M, WSPLIT))
+// of one output tile into part s of `partial` ([H, 3H] then [H, H], the
+// layout lem_bwd_reduce sums): rows j0 + [0, WJ) of dWy's gate ct (ct < 3;
+// A rows y_prev: y0 at t = 0, else ys[t - 1], i.e. ys's flat row m - N; B
+// rows dgx's gate ct) or of dWzz (ct = 3; A rows zs, B rows dzx), every
+// column. Chunks of WKC rows of A and B stream through WSTAGES stages of
+// shared memory (cp.async); warp w owns the n8 tiles 3w .. 3w + 2 of the
+// HP columns and all four m16 tiles, in 3xTF32. Both operands are MN-major
+// (rows m), loaded as fragments by hand from pitches that put a fragment's
+// lanes on distinct banks.
+__global__ void __launch_bounds__(gen::CW * 32, 2)
 lem_bwd_wgrad(const float* __restrict__ y0, const float* __restrict__ ys,
               const float* __restrict__ zs, const float* __restrict__ dgx,
               const float* __restrict__ dzx, float* __restrict__ partial,
-              int M, int N, int H) {
-  __shared__ __align__(16) float a_s[WK][WT];
-  __shared__ __align__(16) float b_s[WK][WT];
-  const int jy = (3 * H + WT - 1) / WT;  // dWy's column tiles
-  const bool zz = (int)blockIdx.x >= jy;
-  const int j0 = (zz ? (int)blockIdx.x - jy : (int)blockIdx.x) * WT;
-  const int k0 = blockIdx.y * WT, ncol = zz ? H : 3 * H;
-  const float* B = zz ? dzx : dgx;
+              int M, int N) {
+  using gen::H;
+  using gen::HP;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int jt = blockIdx.x % 3, ct = blockIdx.x / 3, j0 = WJ * jt;
   const int chunk = (M + WSPLIT - 1) / WSPLIT;
-  const int m0 = blockIdx.z * chunk, m1 = min(M, m0 + chunk);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {};
-  for (int mb = m0; mb < m1; mb += WK) {
-#pragma unroll
-    for (int i = 0; i < WK * WT / 256; ++i) {
-      const int e = tid + 256 * i, mm = e / WT, c = e % WT, m = mb + mm;
-      const bool row = m < m1;
-      const float* a = zz ? zs + (size_t)m * H
-                          : (m < N ? y0 + (size_t)m * H
-                                   : ys + (size_t)(m - N) * H);
-      a_s[mm][c] = row && k0 + c < H ? a[k0 + c] : 0.0f;
-      b_s[mm][c] = row && j0 + c < ncol ? B[(size_t)m * ncol + j0 + c] : 0.0f;
+  const int m0 = blockIdx.y * chunk, m1 = min(M, m0 + chunk);
+  const int chunks = m1 > m0 ? (m1 - m0 + WKC - 1) / WKC : 0;
+  const gen::Lane l;
+  auto load = [&](int c) {
+    float* A = sm + (c % WSTAGES) * WSTAGE;
+    float* B = A + WKC * WAP;
+    const int mb = m0 + c * WKC;
+    constexpr int PA = WJ / 4, PB = HP / 4;  // 16-byte pieces a row
+    for (int i = threadIdx.x; i < WKC * (PA + PB); i += gen::CW * 32) {
+      if (i < WKC * PA) {
+        const int r = i / PA, j = j0 + (i % PA) * 4, m = mb + r;
+        const bool ok = m < m1 && j < H;
+        const float* src =
+            ct < 3 ? (m < N ? y0 + (size_t)m * H : ys + (size_t)(m - N) * H)
+                   : zs + (size_t)m * H;
+        lem::cp_async16(lem::smem_addr(A + r * WAP + (i % PA) * 4),
+                        ok ? src + j : y0, ok);
+      } else {
+        const int k = i - WKC * PA, r = k / PB, c4 = (k % PB) * 4;
+        const int m = mb + r;
+        const bool ok = m < m1 && c4 < H;
+        const float* src = ct < 3 ? dgx + (size_t)m * 3 * H + ct * H
+                                  : dzx + (size_t)m * H;
+        lem::cp_async16(lem::smem_addr(B + r * HP + c4), ok ? src + c4 : y0,
+                        ok);
+      }
     }
-    __syncthreads();
+  };
+  auto commit = [] { asm volatile("cp.async.commit_group;" ::: "memory"); };
+  float acc[4][3][4] = {};
 #pragma unroll
-    for (int mm = 0; mm < WK; ++mm) {
-      const float4 a = *reinterpret_cast<const float4*>(&a_s[mm][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&b_s[mm][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], bv[q], acc[i][q]);
-    }
-    __syncthreads();
+  for (int c = 0; c < WSTAGES - 1; ++c) {
+    if (c < chunks) load(c);
+    commit();
   }
-  float* part = partial + (size_t)blockIdx.z * 4 * H * H +
-                (zz ? 3 * (size_t)H * H : 0);
+  for (int c = 0; c < chunks; ++c) {
+    asm volatile("cp.async.wait_group %0;" :: "n"(WSTAGES - 2) : "memory");
+    __syncthreads();  // chunk c is in; every warp is done with chunk c - 1
+    if (c + WSTAGES - 1 < chunks) load(c + WSTAGES - 1);
+    commit();
+    const float* A = sm + (c % WSTAGES) * WSTAGE;
+    const float* B = A + WKC * WAP;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= H) continue;
+    for (int ks = 0; ks < WKC / 8; ++ks) {
+      const float* a0 = A + (8 * ks + l.t) * WAP + l.g;
+      const float* b0 = B + (8 * ks + l.t) * HP + l.n0;
+      uint32_t ab[4][4], as[4][4], bb[3][2], bs[3][2];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = j0 + tx * 4 + q;
-      if (c < ncol) part[(size_t)k * ncol + c] = acc[i][q];
+      for (int mi = 0; mi < 4; ++mi) {
+        lem::split_tf32(a0[16 * mi], ab[mi][0], as[mi][0]);
+        lem::split_tf32(a0[16 * mi + 8], ab[mi][1], as[mi][1]);
+        lem::split_tf32(a0[4 * WAP + 16 * mi], ab[mi][2], as[mi][2]);
+        lem::split_tf32(a0[4 * WAP + 16 * mi + 8], ab[mi][3], as[mi][3]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 3; ++nj) {
+        lem::split_tf32(b0[8 * nj], bb[nj][0], bs[nj][0]);
+        lem::split_tf32(b0[4 * HP + 8 * nj], bb[nj][1], bs[nj][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj)
+          lem::mma_tf32(acc[mi][nj], as[mi], bb[nj]);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj)
+          lem::mma_tf32(acc[mi][nj], ab[mi], bs[nj]);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj)
+          lem::mma_tf32(acc[mi][nj], ab[mi], bb[nj]);
     }
   }
+  float* part = partial + (size_t)blockIdx.y * 4 * H * H;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 3; ++nj) {
+      if (!l.cok[nj]) continue;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int j = j0 + 16 * mi + l.g + 8 * rr;
+        if (j >= H) continue;
+        float* o = ct < 3 ? part + (size_t)j * 3 * H + ct * H + l.col[nj]
+                          : part + 3 * (size_t)H * H + (size_t)j * H +
+                                l.col[nj];
+        *reinterpret_cast<float2*>(o) =
+            make_float2(acc[mi][nj][2 * rr], acc[mi][nj][2 * rr + 1]);
+      }
+    }
 }
 
-unsigned long long g_smem_set;     // allow_smem
-unsigned long long g_generic_set;  // allow_smem, generic route
+unsigned long long g_smem_set;   // allow_smem
+unsigned long long g_ring_set;   // allow_smem, the hidden-164 sweep
+unsigned long long g_wgrad_set;  // allow_smem, its weight gradients
 
 }  // namespace
 
 LEM_PHASE_READER(lem_bwd)
 
-// Shared memory of a CTA at hidden H
+// Shared memory of a CTA at hidden H (at 164, of the sweep: the ring, the
+// row buffers and the barriers)
 extern "C" int lem_bwd_smem_bytes(int H) {
-  if (lem::generic_width(H))  // y_prev, z_t, da and dg rows, k-major
-    return 6 * H * gen::GP * (int)sizeof(float);
+  if (lem::ring_width(H)) return gen::smem_bytes(GEN_STAGES, GEN_ROWF);
   const int HC = H / C;
   return (4 * H * HC + 3 * RT * H + RT * (HC + 4) + RT * (3 * HC + 4)) *
          (int)sizeof(float);
 }
 
+// Rows a CTA holds at hidden H: at 164 its own GR, at 96 and 128 its
+// cluster's RT (each CTA a slice of the columns)
+extern "C" int lem_bwd_cta_rows(int H) {
+  return lem::ring_width(H) ? gen::GR : RT;
+}
+
 // Clusters the card holds at once (0: none can be scheduled), or -(error)
-// (the generic route: blocks of the sweep, a cluster of one)
 extern "C" int lem_bwd_max_clusters(int H) {
-  if (lem::generic_width(H))
-    return gen::max_blocks(reinterpret_cast<const void*>(lem_bwd_generic),
-                           &g_generic_set, gen::threads(H),
-                           lem_bwd_smem_bytes(H));
+  if (lem::ring_width(H))
+    return lem::max_clusters(reinterpret_cast<const void*>(lem_bwd_ring),
+                             &g_ring_set, gen::THREADS, lem_bwd_smem_bytes(H));
   if (!lem::cluster_width(H)) return -(int)cudaErrorInvalidValue;
   return lem::max_clusters(reinterpret_cast<const void*>(lem_bwd_sweep),
                            &g_smem_set, threads(H), lem_bwd_smem_bytes(H));
 }
 
 // Floats of lem_bwd's `partial` scratch: the clusters' weight gradients,
-// cdiv(N, RT) 4 H^2; on the generic route WSPLIT parts of 4 H^2 and the
-// transposed weights, 4 H^2.
+// cdiv(N, RT) 4 H^2; at hidden 164 WSPLIT parts of 4 H^2 and the transposed
+// weights, 4 H^2.
 extern "C" long lem_bwd_scratch_floats(int N, int H) {
-  if (lem::generic_width(H)) return (long)(WSPLIT + 1) * 4 * H * H;
+  if (lem::ring_width(H)) return (long)(WSPLIT + 1) * 4 * H * H;
   return (long)((N + RT - 1) / RT) * 4 * H * H;
 }
 
-// H is 96 or 128 (the clusters) or 164 (the generic route)
+// H is 96 or 128 (the clusters) or 164 (the hidden-164 route: the two
+// transposes, the sweep, the weight gradients and their sum; wy, wzz and
+// partial 16-byte aligned)
 extern "C" int lem_bwd(const float* gx, const float* zx, const float* y0,
                        const float* z0, const float* wy, const float* wzz,
                        const float* ys, const float* zs, const float* dyT,
@@ -657,24 +863,33 @@ extern "C" int lem_bwd(const float* gx, const float* zx, const float* y0,
                        float* dz0, float* dwy, float* dwzz, float* partial,
                        int T, int N, int H, float dt, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (lem::generic_width(H)) {
-    const void* kernel = reinterpret_cast<const void*>(lem_bwd_generic);
-    cudaError_t err = lem::allow_smem(kernel, &g_generic_set);
-    if (err != cudaSuccess) return (int)err;
+  if (lem::ring_width(H)) {
     float* wyT = partial + (size_t)WSPLIT * 4 * H * H;
     float* wzzT = wyT + 3 * (size_t)H * H;
+    cudaError_t err = lem::allow_smem(
+        reinterpret_cast<const void*>(lem_bwd_ring), &g_ring_set);
+    if (err == cudaSuccess)
+      err = lem::allow_smem(reinterpret_cast<const void*>(lem_bwd_wgrad),
+                            &g_wgrad_set);
+    CUtensorMap map_wy, map_wzz, map_wzzT, map_wyT;
+    if (err == cudaSuccess) err = gen::map_wy(&map_wy, wy);
+    if (err == cudaSuccess) err = gen::map_square(&map_wzz, wzz);
+    if (err == cudaSuccess) err = gen::map_square(&map_wzzT, wzzT);
+    if (err == cudaSuccess) err = gen::map_wyT(&map_wyT, wyT);
+    if (err != cudaSuccess) return (int)err;
     const dim3 tb(32, 8);
     lem_transpose<<<dim3((3 * H + 31) / 32, (H + 31) / 32), tb, 0, st>>>(
         wy, wyT, H, 3 * H);
     lem_transpose<<<dim3((H + 31) / 32, (H + 31) / 32), tb, 0, st>>>(
         wzz, wzzT, H, H);
-    lem_bwd_generic<<<(N + gen::GR - 1) / gen::GR, gen::threads(H),
-                      lem_bwd_smem_bytes(H), st>>>(
-        gx, zx, y0, z0, wy, wzz, wyT, wzzT, ys, zs, dyT, dzT, dgx, dzx, dy0,
-        dz0, T, N, H, dt);
-    const int tiles = (3 * H + WT - 1) / WT + (H + WT - 1) / WT;
-    lem_bwd_wgrad<<<dim3(tiles, (H + WT - 1) / WT, WSPLIT), 256, 0, st>>>(
-        y0, ys, zs, dgx, dzx, partial, T * N, N, H);
+    lem::ClusterLaunch l((N + C * gen::GR - 1) / (C * gen::GR) * C,
+                         gen::THREADS, lem_bwd_smem_bytes(H), st);
+    err = cudaLaunchKernelEx(&l.cfg, lem_bwd_ring, map_wy, map_wzz, map_wzzT,
+                             map_wyT, gx, zx, y0, z0, ys, zs, dyT, dzT, dgx,
+                             dzx, dy0, dz0, T, N, dt);
+    if (err != cudaSuccess) return (int)err;
+    lem_bwd_wgrad<<<dim3(3 * 4, WSPLIT), gen::CW * 32, WSMEM, st>>>(
+        y0, ys, zs, dgx, dzx, partial, T * N, N);
     lem_bwd_reduce<<<(4 * H * H + 255) / 256, 256, 0, st>>>(partial, dwy,
                                                             dwzz, WSPLIT, H);
     return (int)cudaGetLastError();

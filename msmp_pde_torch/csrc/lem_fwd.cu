@@ -38,12 +38,15 @@
 // the rest.
 //
 // At hidden 164 (MSGMP-PDE) the cluster layout does not fit (lem_step.cuh,
-// the width-generic route): lem_fwd_generic runs a block of 192 threads
-// over 16 rows, thread j on hidden column j, with Wy and Wzz read from L2
-// each step and the products as float32 FMAs. At N = 1600 that is 100
-// blocks, 25 steps of 430 KB of weight reads each: ~1.1 GB from L2, and
-// each k-step's loads wait on L2's latency, which bounds it (a simple
-// kernel first; the tensor cores are a later step).
+// the hidden-164 route): lem_fwd_ring runs clusters of 4 CTAs, each CTA
+// over 16 rows and every column (164 padded to 168), with Wy and Wzz
+// streamed through a ring of shared-memory stages by bulk tensor copies
+// multicast to the cluster's 4 CTAs, and the products in 3xTF32 on
+// mma.sync. At N = 1600 that is 100 CTAs, one wave, and each step's 430 KB
+// of weights leave L2 once a cluster (~270 MB a launch, not ~1.1 GB). What
+// bounds it: operations, 8.6 GFLOP of products at N = 1600, T = 25, against
+// 105 MB of gx and zx reads; mma.sync's TF32 issue rate at 16 rows a CTA
+// (tools/lem_phases.py --hidden 164 splits a launch).
 #include "lem_step.cuh"
 
 namespace {
@@ -312,74 +315,200 @@ lem_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ zx,
     }
 }
 
-// The generic route (lem_step.cuh): block b owns rows [b GR, (b + 1) GR),
-// thread j < H their column j of y and z in registers; the y and z rows
-// k-major in shared memory for the products. A step: g = gx_t + y Wy (the
-// thread's three gate columns), z' of its column into the z rows; a
-// barrier; a = zx_t + z' Wzz, y' into the y rows; a barrier. Each buffer
-// is written between the two barriers that follow its last read.
+// The hidden-164 route (lem_step.cuh, lem::gen): CTA b owns rows
+// [b GR, (b + 1) GR) and every hidden column; its consumer warps hold y and z
+// of their columns in registers, and the y and z rows in row buffers for the
+// products. A step streams 21 tiles of Wy (g = gx_t + y Wy), then z' into the
+// z rows and a barrier of the consumer warps, then 7 tiles of Wzz
+// (a = zx_t + z' Wzz), y' into the y rows and a barrier. Each buffer is
+// written between the two barriers that follow its last read. The padded
+// columns stay exactly zero: their inputs, weights and states are.
+namespace gen = lem::gen;
+constexpr int GEN_STAGES = 12;             // ring stages
+constexpr int GEN_TILES = 21 + 7;          // tiles a step: Wy, then Wzz
+constexpr int GEN_ROWF = 2 * gen::GR * gen::RP;  // y, z rows
+
 template <bool STASH>
-__global__ void __launch_bounds__(lem::gen::MAX_H, 1)
-lem_fwd_generic(const float* __restrict__ gx, const float* __restrict__ zx,
-                const float* __restrict__ y0, const float* __restrict__ z0,
-                const float* __restrict__ wy, const float* __restrict__ wzz,
-                float* __restrict__ yT, float* __restrict__ zT,
-                float* __restrict__ ys, float* __restrict__ zs, int T, int N,
-                int H, float dt) {
-  using namespace lem::gen;
-  extern __shared__ float4 smem4[];
-  float* y_s = reinterpret_cast<float*>(smem4);  // [H][GP]
-  float* z_s = y_s + H * GP;                     // [H][GP]
-  const int j = threadIdx.x, row0 = blockIdx.x * GR;
-  const bool on = j < H;
-  const size_t NH = (size_t)N * H;
-  float y[GR], z[GR];
-  if (on) {
-    load_col(y, y0, row0, N, H, j);
-    load_col(z, z0, row0, N, H, j);
-    put_col(y_s, y, j);
+__global__ void __launch_bounds__(gen::THREADS, 1)
+lem_fwd_ring(const __grid_constant__ CUtensorMap map_wy,
+             const __grid_constant__ CUtensorMap map_wzz,
+             const float* __restrict__ gx, const float* __restrict__ zx,
+             const float* __restrict__ y0, const float* __restrict__ z0,
+             float* __restrict__ yT, float* __restrict__ zT,
+             float* __restrict__ ys, float* __restrict__ zs, int T, int N,
+             float dt) {
+  constexpr int H = gen::H, GR = gen::GR, HP = gen::HP, RP = gen::RP;
+  constexpr int CW = gen::CW, KROWS = gen::KROWS, THREADS = gen::THREADS;
+  constexpr int S = GEN_STAGES;
+  extern __shared__ __align__(1024) float4 gen_smem[];
+  float* ring = reinterpret_cast<float*>(gen_smem);
+  float* y_s = ring + S * gen::STAGE_FLOATS;  // [GR][RP]
+  float* z_s = y_s + GR * RP;            // [GR][RP]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(z_s + GR * RP);  // full, empty
+  GEN_PHASE_START(reinterpret_cast<unsigned long long*>(bars + 2 * S));
+  const int rank = static_cast<int>(lem::cluster_rank());
+  const uint32_t full0 = lem::smem_addr(bars), empty0 = full0 + 8 * S;
+  for (int i = threadIdx.x; i < GEN_ROWF; i += THREADS) y_s[i] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      gen::mbar_init(full0 + 8 * s, 1);
+      gen::mbar_init(empty0 + 8 * s, lem::C * CW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  for (int s = 0; s < T; ++s) {
-    float dt2[GR];
-    if (on) {
-      float g[3][GR] = {};
-      product<3>(g, y_s, wy, 3 * H, H, j, H);
-      float p[3][GR];
+  lem::cluster_sync();  // every CTA's barriers are set up
+
+  if (threadIdx.x >= CW * 32) {  // the producer warp
+    const CUtensorMap* m_wy = &map_wy;
+    const CUtensorMap* m_wzz = &map_wzz;
+    if (threadIdx.x == CW * 32)
+      gen::produce<S>(full0, empty0, lem::smem_addr(ring), T * GEN_TILES, rank,
+                 [&](int i, uint32_t dst, uint32_t bar, uint64_t policy) {
+                   const int k = i % GEN_TILES;
+                   if (k < 21)
+                     gen::tma_multicast(dst, m_wy, bar, 0, 0, 8 * k, policy);
+                   else
+                     gen::tma_multicast(dst, m_wzz, bar, 0, KROWS * (k - 21),
+                                   0, policy);
+                 });
+    __syncwarp();
+  } else {
+    const gen::Lane l;
+    gen::Ring<S> ring_(full0, empty0, ring);
+    const int row0 = blockIdx.x * GR;
+    int row[2];
+    bool rok[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      row[rr] = row0 + l.g + 8 * rr;
+      rok[rr] = row[rr] < N;
+    }
+    auto ok = [&](int j, int rr) { return l.cok[j] && rok[rr]; };
+    // this thread's element (j, rr) of x [*, ld] at row offset base
+    auto at = [&](auto* x, size_t base, int ld, int j, int rr) {
+      return x + (base + row[rr]) * ld + l.col[j];
+    };
+    float y[3][4], z[3][4];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        lem::ld_pair(y[j] + 2 * rr, at(y0, 0, H, j, rr), ok(j, rr));
+        lem::ld_pair(z[j] + 2 * rr, at(z0, 0, H, j, rr), ok(j, rr));
+      }
+    // this thread's elements (j, rr) in a row buffer: a float2
+    auto put = [&](float* buf, const float (&v)[3][4]) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          *reinterpret_cast<float2*>(buf + (l.g + 8 * rr) * RP + l.col[j]) =
+              make_float2(v[j][2 * rr], v[j][2 * rr + 1]);
+    };
+    auto stash = [&](float* x, size_t step, const float (&v)[3][4]) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          lem::st_pair<true>(at(x, step * N, H, j, rr), v[j][2 * rr],
+                             v[j][2 * rr + 1], ok(j, rr));
+    };
+    float pg[3][3][4], pa[1][3][4];  // gx_t, zx_t of this thread's elements
+    auto fetch_g = [&](int s) {
 #pragma unroll
       for (int q = 0; q < 3; ++q)
-        load_col(p[q], gx + (size_t)s * NH * 3 + q * H, row0, N, 3 * H, j);
 #pragma unroll
-      for (int r = 0; r < GR; ++r) {
-        const float dt1 = dt * lem::sigm(g[0][r] + p[0][r]);
-        z[r] = (1.0f - dt1) * z[r] + dt1 * lem::tanh_(g[2][r] + p[2][r]);
-        dt2[r] = dt * lem::sigm(g[1][r] + p[1][r]);
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            lem::ld_pair(pg[q][j] + 2 * rr,
+                         at(gx, (size_t)s * N, 3 * H, j, rr) + q * H,
+                         ok(j, rr));
+    };
+    auto fetch_a = [&](int s) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          lem::ld_pair(pa[0][j] + 2 * rr, at(zx, (size_t)s * N, H, j, rr),
+                       ok(j, rr));
+    };
+    put(y_s, y);
+    if (T > 0) {
+      fetch_g(0);
+      fetch_a(0);
+    }
+    const float* ya = y_s + l.g * RP;
+    const float* za = z_s + l.g * RP;
+    gen::consumers_sync();  // the y rows are in
+    GEN_PHASE(0);
+    for (int s = 0; s < T; ++s) {
+      float g[3][3][4];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) g[q][j][e] = pg[q][j][e];
+      if (s + 1 < T) fetch_g(s + 1);
+      gen::product<1, 3, 3 * HP>(g, ring_, 21, ya, ya + 8 * RP, 0, 8, 0, l.n0,
+                                 l.t, l.lane);
+      GEN_PHASE_RING(ring_);
+      float dt2[3][4];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dt1 = dt * lem::sigm(g[0][j][e]);
+          z[j][e] = (1.0f - dt1) * z[j][e] + dt1 * lem::tanh_(g[2][j][e]);
+          dt2[j][e] = dt * lem::sigm(g[1][j][e]);
+        }
+      GEN_PHASE(3);
+      put(z_s, z);
+      if (STASH) stash(zs, s, z);
+      GEN_PHASE(4);
+      gen::consumers_sync();  // the z' rows are complete
+      GEN_PHASE(5);
+
+      float a[1][3][4];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[0][j][e] = pa[0][j][e];
+      if (s + 1 < T) fetch_a(s + 1);
+      gen::product<3, 1, HP>(a, ring_, 7, za, za + 8 * RP, 0, KROWS, 8, l.n0,
+                             l.t, l.lane);
+      GEN_PHASE_RING(ring_);
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[j][e] = (1.0f - dt2[j][e]) * y[j][e] +
+                    dt2[j][e] * lem::tanh_(a[0][j][e]);
+      GEN_PHASE(3);
+      put(y_s, y);
+      if (STASH) stash(ys, s, y);
+      GEN_PHASE(4);
+      gen::consumers_sync();  // the y' rows are complete
+      GEN_PHASE(5);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        lem::st_pair<false>(at(yT, 0, H, j, rr), y[j][2 * rr],
+                            y[j][2 * rr + 1], ok(j, rr));
+        lem::st_pair<false>(at(zT, 0, H, j, rr), z[j][2 * rr],
+                            z[j][2 * rr + 1], ok(j, rr));
       }
-      put_col(z_s, z, j);
-      if (STASH) store_col(zs + (size_t)s * NH, z, row0, N, H, j);
-    }
-    __syncthreads();  // the z' rows are complete
-    if (on) {
-      float a[1][GR] = {};
-      product<1>(a, z_s, wzz, H, 0, j, H);
-      float p[GR];
-      load_col(p, zx + (size_t)s * NH, row0, N, H, j);
-#pragma unroll
-      for (int r = 0; r < GR; ++r)
-        y[r] = (1.0f - dt2[r]) * y[r] + dt2[r] * lem::tanh_(a[0][r] + p[r]);
-      put_col(y_s, y, j);
-      if (STASH) store_col(ys + (size_t)s * NH, y, row0, N, H, j);
-    }
-    __syncthreads();  // the y' rows are complete
   }
-  if (on) {
-    store_col(yT, y, row0, N, H, j);
-    store_col(zT, z, row0, N, H, j);
-  }
+  GEN_PHASE_END;
+  lem::cluster_sync();  // no CTA leaves while the others may still signal it
 }
 
 unsigned long long g_smem_set[4];  // allow_smem, per variant
-unsigned long long g_generic_set[2];  // allow_smem, generic route
+unsigned long long g_ring_set[2];  // allow_smem, the hidden-164 route
 
 // the kernel for hidden H (96 or 128) with or without the stash; index its
 // flag in g_smem_set
@@ -392,28 +521,34 @@ const void* variant(int H, bool stash, int* index) {
                : reinterpret_cast<const void*>(lem_fwd_kernel<32, false>);
 }
 
+const void* ring_variant(bool stash) {
+  return stash ? reinterpret_cast<const void*>(lem_fwd_ring<true>)
+               : reinterpret_cast<const void*>(lem_fwd_ring<false>);
+}
+
 }  // namespace
 
 LEM_PHASE_READER(lem_fwd)
 
 // Shared memory of a CTA at hidden H: the weights split in two, the y and
-// z rows
+// z rows; at 164 the ring, the y and z rows and the barriers
 extern "C" int lem_fwd_smem_bytes(int H) {
-  if (lem::generic_width(H))  // the y and z rows, k-major
-    return 2 * H * lem::gen::GP * (int)sizeof(float);
+  if (lem::ring_width(H))
+    return lem::gen::smem_bytes(GEN_STAGES, GEN_ROWF);
   return (8 * H * (H / C) + 2 * RT * H) * (int)sizeof(float);
 }
 
+// Rows a CTA holds at hidden H: at 164 its own GR, at 96 and 128 its
+// cluster's RT (each CTA a slice of the columns)
+extern "C" int lem_fwd_cta_rows(int H) {
+  return lem::ring_width(H) ? lem::gen::GR : RT;
+}
+
 // Clusters the card holds at once (0: none can be scheduled), or -(error)
-// (the generic route: blocks, a cluster of one)
 extern "C" int lem_fwd_max_clusters(int H, int stash) {
-  if (lem::generic_width(H)) {
-    const void* kernel =
-        stash ? reinterpret_cast<const void*>(lem_fwd_generic<true>)
-              : reinterpret_cast<const void*>(lem_fwd_generic<false>);
-    return lem::gen::max_blocks(kernel, &g_generic_set[stash ? 1 : 0],
-                                lem::gen::threads(H), lem_fwd_smem_bytes(H));
-  }
+  if (lem::ring_width(H))
+    return lem::max_clusters(ring_variant(stash), &g_ring_set[stash ? 1 : 0],
+                             lem::gen::THREADS, lem_fwd_smem_bytes(H));
   if (!lem::cluster_width(H)) return -(int)cudaErrorInvalidValue;
   int index;
   const void* kernel = variant(H, stash, &index);
@@ -422,28 +557,29 @@ extern "C" int lem_fwd_max_clusters(int H, int stash) {
 }
 
 // ys, zs: [T, N, H] stash outputs, or null for none. H is 96 or 128 (the
-// clusters) or 164 (the generic route).
+// clusters) or 164 (the hidden-164 route; wy and wzz 16-byte aligned).
 extern "C" int lem_fwd(const float* gx, const float* zx, const float* y0,
                        const float* z0, const float* wy, const float* wzz,
                        float* yT, float* zT, float* ys, float* zs, int T,
                        int N, int H, float dt, void* stream) {
   const bool stash = ys != nullptr && zs != nullptr;
-  if (lem::generic_width(H)) {
-    const void* kernel =
-        stash ? reinterpret_cast<const void*>(lem_fwd_generic<true>)
-              : reinterpret_cast<const void*>(lem_fwd_generic<false>);
+  if (lem::ring_width(H)) {
     cudaError_t err =
-        lem::allow_smem(kernel, &g_generic_set[stash ? 1 : 0]);
+        lem::allow_smem(ring_variant(stash), &g_ring_set[stash ? 1 : 0]);
+    CUtensorMap map_wy, map_wzz;
+    if (err == cudaSuccess) err = lem::gen::map_wy(&map_wy, wy);
+    if (err == cudaSuccess) err = lem::gen::map_square(&map_wzz, wzz);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + lem::gen::GR - 1) / lem::gen::GR);
-    const int threads = lem::gen::threads(H), smem = lem_fwd_smem_bytes(H);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (stash)
-      lem_fwd_generic<true><<<grid, threads, smem, st>>>(
-          gx, zx, y0, z0, wy, wzz, yT, zT, ys, zs, T, N, H, dt);
-    else
-      lem_fwd_generic<false><<<grid, threads, smem, st>>>(
-          gx, zx, y0, z0, wy, wzz, yT, zT, ys, zs, T, N, H, dt);
+    lem::ClusterLaunch l((N + C * lem::gen::GR - 1) / (C * lem::gen::GR) * C,
+                         lem::gen::THREADS, lem_fwd_smem_bytes(H),
+                         (cudaStream_t)stream);
+    err = stash ? cudaLaunchKernelEx(&l.cfg, lem_fwd_ring<true>, map_wy,
+                                     map_wzz, gx, zx, y0, z0, yT, zT, ys, zs,
+                                     T, N, dt)
+                : cudaLaunchKernelEx(&l.cfg, lem_fwd_ring<false>, map_wy,
+                                     map_wzz, gx, zx, y0, z0, yT, zT, ys, zs,
+                                     T, N, dt);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   if (!lem::cluster_width(H)) return (int)cudaErrorInvalidValue;

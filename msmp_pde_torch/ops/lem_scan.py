@@ -2,7 +2,8 @@
 msmp_pde_tpu/ops/lem_pallas.py).
 
 ``lem_scan`` runs the hand-written kernels on CUDA tensors (on clusters
-at hidden 96 and 128, on the width-generic route at 164; see
+of 4 CTAs: at hidden 96 and 128 with a quarter of the weights resident in
+each CTA, at 164 with the weights streamed to the cluster; see
 ``lem_launch_shape``) and the plain PyTorch loops on CPU tensors:
 ``csrc/lem_fwd.cu`` (``lem_scan_plain``),
 with the per-step stash when a gradient is needed, and ``csrc/lem_bwd.cu``
@@ -84,43 +85,74 @@ def lem_scan_bwd_plain(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
 CLUSTER = 4        # CTAs of a thread-block cluster (csrc/lem_step.cuh: C)
 ONE_WAVE_N = 1600  # rows up to which every CTA must be resident at once
 CLUSTER_H = (96, 128)  # hidden widths of the cluster route
-GENERIC_H = (164,)     # of the width-generic route (MSGMP-PDE's)
-GENERIC_ROWS = 16      # rows of a generic block (lem_step.cuh: gen::GR)
-GENERIC_PITCH = 20     # its k-major row buffers' pitch (gen::GP)
+RING_H = (164,)        # of the hidden-164 route (MSGMP-PDE's)
+# the hidden-164 route (csrc/lem_step.cuh, lem::gen): a CTA's rows (GR), the
+# hidden width padded (HP), its row buffers' pitch in floats (RP), the bytes
+# of a ring stage (24 k-rows of HP floats), the ring stages of the forward
+# and the backward, the dg rows' pitch (csrc/lem_bwd.cu: DGP)
+RING_ROWS = 16
+RING_HP = 168
+RING_PITCH = 172
+RING_STAGE_BYTES = 4 * 24 * RING_HP
+RING_STAGES = {False: 12, True: 8}
+RING_DG_PITCH = 3 * RING_HP + 4
+PHASE_BYTES = 128  # gen::PHASE_BYTES: the -DLEM_PHASE_TIMES counters
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
+def ring_smem_bytes(backward: bool) -> int:
+    """Shared memory of a hidden-164 CTA (gen::smem_bytes): the ring, the
+    row buffers (forward: y and z; backward: y_prev and z_t twice each, da,
+    and dg of pitch RING_DG_PITCH), a full and an empty barrier a stage
+    and the phase counters."""
+    S = RING_STAGES[backward]
+    rows = RING_ROWS * (5 * RING_PITCH + RING_DG_PITCH if backward
+                        else 2 * RING_PITCH)
+    return S * RING_STAGE_BYTES + 4 * rows + 16 * S + PHASE_BYTES
+
+
+def lem_cta_rows(H: int) -> int:
+    """The rows a CTA of ``lem_launch_shape``'s grid holds at hidden H, as
+    the kernels' libraries report them (``lem_{fwd,bwd}_cta_rows``): at 164
+    RING_ROWS (the kernels' gen::GR), CTA i of cluster k the rows
+    C RING_ROWS k + RING_ROWS i + [0, RING_ROWS); at 96 and 128 all 64 of
+    its cluster's. Raises for an H that no route takes."""
+    if H not in CLUSTER_H + RING_H:
+        raise ValueError(f"lem_scan kernel: hidden {H} must be one of "
+                         f"{CLUSTER_H + RING_H}")
+    return RING_ROWS if H in RING_H else 64
+
+
 def lem_launch_shape(N: int, H: int, *, backward: bool = False):
     """The grid of ``csrc/lem_fwd.cu`` (or, with ``backward``,
     ``csrc/lem_bwd.cu``) over N rows at hidden H: (rows_per_cluster, C,
-    ctas, smem_bytes). The route is chosen by H:
-    - 96 and 128, the clusters: a cluster of C CTAs owns 64 rows (a wgmma
-      tile of the forward, whose CTA is one warpgroup; the backward holds
-      its weight gradients in 16 warps), CTA i the hidden columns
-      [i H/C, (i + 1) H/C); at N = 1600 that is 100 CTAs, one wave on an
-      H100. The forward's wgmma tiles are 3 H/C and H/C wide, so H/C must
-      be a multiple of 8.
-    - 164, the width-generic route: a "cluster" of one block owns 16 rows
-      and every hidden column (one thread a column), the weights read from
-      L2 each step; at N = 1600 that is 100 blocks.
+    ctas, smem_bytes). Both routes launch clusters of C = 4 CTAs, a cluster
+    over 64 rows; at N = 1600 that is 100 CTAs, one wave on an H100.
+    - 96 and 128, the clusters: a cluster's 64 rows are a wgmma tile of the
+      forward (whose CTA is one warpgroup; the backward holds its weight
+      gradients in 16 warps), CTA i the hidden columns
+      [i H/C, (i + 1) H/C). The forward's wgmma tiles are 3 H/C and H/C
+      wide, so H/C must be a multiple of 8.
+    - 164, the hidden-164 route: CTA i of cluster k owns the
+      lem_cta_rows(164) = 16 rows 64 k + 16 i + [0, 16) and every hidden
+      column, the weights streamed to the cluster through a ring of
+      shared-memory stages; a CTA past the last row holds none and takes
+      part all the same.
     Raises for an H that no route takes."""
-    if H not in CLUSTER_H + GENERIC_H:
-        raise ValueError(f"lem_scan kernel: hidden {H} must be one of "
-                         f"{CLUSTER_H + GENERIC_H}")
+    cta_rows = lem_cta_rows(H)
     if N < 1:
         raise ValueError(f"lem_scan kernel: {N} rows")
-    if H in GENERIC_H:
-        # the C functions lem_fwd_smem_bytes / lem_bwd_smem_bytes agree
-        # (checked in _shape): y, z rows; y_prev, z_t, da and dg rows
-        rows = GENERIC_ROWS
-        floats = (6 if backward else 2) * H * GENERIC_PITCH
-        return rows, 1, _cdiv(N, rows), 4 * floats
-    C, HC, rows = CLUSTER, H // CLUSTER, 64
+    C = CLUSTER
     # the C functions lem_fwd_smem_bytes / lem_bwd_smem_bytes (csrc/
     # lem_fwd.cu, lem_bwd.cu) compute the same; _shape checks the two agree
+    if H in RING_H:
+        rows = C * cta_rows
+        return rows, C, _cdiv(N, rows) * C, ring_smem_bytes(backward)
+    rows = cta_rows
+    HC = H // C
     if backward:
         floats = 4 * H * HC + 3 * rows * H + rows * (HC + 4) \
             + rows * (3 * HC + 4)
@@ -143,9 +175,9 @@ def _lib(name):
             lib.lem_bwd_scratch_floats.restype = ctypes.c_long
         getattr(lib, name).restype = i
         getattr(lib, f"{name}_max_clusters").restype = i
-        smem = getattr(lib, f"{name}_smem_bytes")
-        smem.argtypes = [i]
-        smem.restype = i
+        for fn in ("smem_bytes", "cta_rows"):
+            getattr(lib, f"{name}_{fn}").argtypes = [i]
+            getattr(lib, f"{name}_{fn}").restype = i
         lib._typed = True
     return lib
 
@@ -161,7 +193,10 @@ def _check(named, T, N, H):
         if not x.is_cuda or x.dtype != torch.float32:
             raise ValueError(f"lem_scan kernel: {name} must be a float32 "
                              "CUDA tensor")
-    return [x.contiguous() for x in named.values()]
+    # the hidden-164 route reads the weights with bulk tensor copies, whose
+    # source must be 16-byte aligned
+    out = [x.contiguous() for x in named.values()]
+    return [x if x.data_ptr() % 16 == 0 else x.clone() for x in out]
 
 
 _fits = {}  # (kernel, device, H, stash): clusters the card holds at once
@@ -169,19 +204,19 @@ _fits = {}  # (kernel, device, H, stash): clusters the card holds at once
 
 def _shape(lib, name, device, N, H, stash=False):
     """The clusters of lem_launch_shape for this call. The first call of
-    each shape asks the library for its shared memory, which must match,
-    and the card for the clusters it holds at once; every call raises where
-    the card cannot schedule a cluster, or where it cannot hold all of them
-    at once up to ONE_WAVE_N rows. On the generic route a cluster is one
-    block and the check reads: all of the sweep's blocks resident at once
-    up to ONE_WAVE_N rows (they share no memory, so it guards the time, as
-    it does for the clusters, not the result)."""
+    each shape asks the library for its shared memory and the rows a CTA
+    holds, which must match, and the card for the clusters it holds at
+    once; every call raises where the card cannot schedule a cluster, or
+    where it cannot hold all of them at once up to ONE_WAVE_N rows."""
     _, C, ctas, smem = lem_launch_shape(N, H, backward=name == "lem_bwd")
     key = (name, device.index, H, stash)
     if key not in _fits:
         if getattr(lib, f"{name}_smem_bytes")(H) != smem:
             raise RuntimeError(f"{name}: lem_launch_shape's shared memory "
                                "disagrees with the kernel's")
+        if getattr(lib, f"{name}_cta_rows")(H) != lem_cta_rows(H):
+            raise RuntimeError(f"{name}: lem_cta_rows disagrees with the "
+                               "kernel's rows a CTA")
         with torch.cuda.device(device):
             fit = (lib.lem_fwd_max_clusters(H, int(stash))
                    if name == "lem_fwd" else lib.lem_bwd_max_clusters(H))
@@ -200,10 +235,10 @@ def _shape(lib, name, device, N, H, stash=False):
 
 def lem_scan_kernel(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0,
                     stash: bool = False):
-    """Launch ``csrc/lem_fwd.cu`` on thread-block clusters at hidden 96
-    and 128, on blocks of the generic route at 164 (``lem_launch_shape``);
-    raises on anything it does not take. Returns (yT, zT), and with
-    ``stash`` also (ys, zs)."""
+    """Launch ``csrc/lem_fwd.cu`` on thread-block clusters (at hidden 96
+    and 128 ``lem_fwd_kernel``, at 164 ``lem_fwd_ring``; see
+    ``lem_launch_shape``); raises on anything it does not take. Returns
+    (yT, zT), and with ``stash`` also (ys, zs)."""
     global launches, stash_launches
     T, N, H3 = gx.shape
     H = H3 // 3
@@ -230,9 +265,11 @@ def lem_scan_bwd_kernel(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
                         dt: float = 1.0):
     """Launch ``csrc/lem_bwd.cu``: at hidden 96 and 128 the reverse sweep
     on thread-block clusters, accumulating each cluster's weight gradients,
-    then their sum in cluster order; at 164 the generic route's sweep, its
-    weight-gradient product and the sum of its parts. Raises on anything
-    it does not take. Returns (dgx, dzx, dy0, dz0, dwy, dwzz)."""
+    then their sum in cluster order; at 164 the weights' transposes, the
+    sweep ``lem_bwd_ring`` on clusters, the weight gradients
+    ``lem_bwd_wgrad`` on the tensor cores and the sum of their parts.
+    Raises on anything it does not take. Returns (dgx, dzx, dy0, dz0, dwy,
+    dwzz)."""
     global bwd_launches
     T, N, H3 = gx.shape
     H = H3 // 3
@@ -243,8 +280,8 @@ def lem_scan_bwd_kernel(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
     dgx, dzx = torch.empty_like(args[0]), torch.empty_like(args[1])
     dy0, dz0 = torch.empty_like(args[2]), torch.empty_like(args[3])
     dwy, dwzz = torch.empty_like(args[4]), torch.empty_like(args[5])
-    # the clusters' weight-gradient partials (on the generic route, its
-    # row parts' and the transposed weights)
+    # the clusters' weight-gradient partials (at 164 those of the row
+    # parts, and the transposed weights)
     partial = torch.empty(lib.lem_bwd_scratch_floats(N, H),
                           device=gx.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(gx.device).cuda_stream

@@ -1,22 +1,26 @@
 """Card and host time of the three LEM-scan kernels.
 
-    python3 -m msmp_pde_torch.tools.lem_times
-    PYTHONPATH=<another checkout> python3 <this file>  # that checkout's
+    python3 -m msmp_pde_torch.tools.lem_times [--hidden {96,128,164}]
+    PYTHONPATH=<another checkout> python3 <this file> [--hidden ...]
+        # that checkout's kernels
 
 Runs ``lem_scan.lem_scan_kernel`` (without and with the stash) and
 ``lem_scan.lem_scan_bwd_kernel`` of the ``msmp_pde_torch`` on the path at
-the LEM encoder's shapes (T 25, hidden 128) over N = 100, 400 and 1600
-rows (buckets 1, 4 and 16 of nx 100), with inputs from a seed. For each it
-prints three times a call, in microseconds: CUDA events around 50 calls
-(median of 7 rounds), which read the larger of the card's and the host's
-time; the host's time to enqueue a call (perf_counter, from an idle card);
-and every kernel the call launches with its own card time from
-torch.profiler (mean a call over 50 calls), or "not measured" where the
-profiler shows none; the backward's launches are listed one by one. Also
-the card's name and power limit. Needs a CUDA card. Of the port it uses
-only ``ops.lem_scan`` and ``tools.fwd_times``, which older checkouts have
-too, so that one checkout's copy times another's kernels.
+the LEM encoder's shapes (T 25, hidden 128 or ``--hidden``: 164 is
+MSGMP-PDE's) over N = 100, 400 and 1600 rows (buckets 1, 4 and 16 of nx
+100), with inputs from a seed. For each it prints three times a call, in
+microseconds: CUDA events around 50 calls (median of 7 rounds), which read
+the larger of the card's and the host's time; the host's time to enqueue
+a call (perf_counter, from an idle card); and every kernel the call
+launches with its own card time from torch.profiler (mean a call over 50
+calls), or "not measured" where the profiler shows none; the backward's
+launches are listed one by one. Also the card's name and power limit.
+Needs a CUDA card.
+Of the port it uses only ``ops.lem_scan``, ``ops._build`` and
+``tools.fwd_times``, which older checkouts have too, so that one
+checkout's copy times another's kernels.
 """
+import argparse
 import subprocess
 import sys
 
@@ -26,7 +30,15 @@ import torch
 from msmp_pde_torch.ops import lem_scan
 from msmp_pde_torch.tools.fwd_times import CALLS, events_us, host_us
 
-T, H = 25, 128
+T = 25
+HIDDEN = (96, 128, 164)
+
+
+def parse(argv, what):
+    """--hidden (default 128, the LEM encoder's) from argv."""
+    ap = argparse.ArgumentParser(description=what)
+    ap.add_argument("--hidden", type=int, choices=HIDDEN, default=128)
+    return ap.parse_args(argv)
 
 
 def card():
@@ -90,13 +102,15 @@ def short(name):
     return name.split("::")[-1].strip()
 
 
-def main():
+def main(argv=None):
+    args = parse(argv, "Card and host time of the LEM-scan kernels")
+    H = args.hidden
     if not torch.cuda.is_available():
         sys.exit("lem_times: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     rand = seeded(0, torch.device("cuda"))
     print(card())
-    print(f"msmp_pde_torch from {lem_scan.__file__}")
+    print(f"msmp_pde_torch from {lem_scan.__file__}, T {T}, hidden {H}")
     for N in (100, 400, 1600):
         args = lem_args(rand, T, N, H)
         _, _, ys, zs = lem_scan.lem_scan_plain(*args, stash=True)

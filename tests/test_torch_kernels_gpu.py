@@ -56,7 +56,7 @@ def _rand(rng, dev, *shape, scale=1.0):
 
 LEM_CASES = [(100, 128), (400, 128), (1600, 128), (37, 128), (37, 96),
              (100, 96), (400, 96), (1600, 96),
-             # MSGMP-PDE's width: the generic route
+             # MSGMP-PDE's width: the hidden-164 route
              (100, 164), (400, 164), (1600, 164), (37, 164)]
 
 
