@@ -94,7 +94,33 @@ Phases, each of which fails the run on error:
      (lem_fwd_ring, lem_bwd with lem_bwd_ring and lem_bwd_wgrad, the pairs)
      beside their 3xTF32 bounds, each launch's own card time, torch.matmul
      of the weight gradients as lem_bwd_wgrad's library yardstick,
-     MSGMP-PDE's train step (with the card's busy time) and rollouts.
+     MSGMP-PDE's train step (with the card's busy time) and rollouts;
+ 21. the message-passing kernels at the 2-D models' shapes on RP's grid,
+     D = 2 tw = 50 and V = 3 (t, a, b): the pair's forward and backward at
+     B in {1, 16, 48} at hidden 128 (MSMP-PDE2D's weights) and 164
+     (MSGMP-PDE2D's), the stash and the forced fallback at batch 48, both
+     single-layer switch settings forward and backward (MP-PDE2D's
+     weights), each against its plain version and bitwise repeatable;
+ 22. the ten 2-D models at full width on RP's grid (nx 100, tw 25, six
+     layers or pairs, weights from a numpy seed through params_from_flax,
+     the variables a and b): one forward at batch 16 vs reference_apply
+     with its launches (MSG2-PDE2D 12 single layers, GLEMGated2D no
+     message-passing kernel), SaveMSMP-PDE2D also from a non-zero state,
+     and one train step at unrolled 0 and 1, kernel path vs plain path
+     (MSG2-PDE2D's at unrolled 1 also against the plain path in float64,
+     each gradient within twice the float32 plain path's own distance
+     where it misses the usual bound); MSG2-PDE2D's step at unrolled 1
+     at three more weight and batch seeds, each path's distance from
+     float64 printed;
+ 23. the 2-D main path: RP datagen through the generate CLI on the card
+     (32/16/16 samples, float64; schema, the first chunk against the CPU's
+     solve of the same draws, PDEDataset), fit of MSMP-PDE2D one epoch
+     with its metrics, best-val checkpoint, --resume and the HTTP server
+     on it; a train_epoch of MSG2-PDE2D, a forced-fallback step of
+     MSMP-PDE2D at batch 48, MSG2-PDE2D and GLEMGated2D served over HTTP;
+     timings of the four message-passing kernels at D = 50 and of
+     MSMP-PDE2D's rollouts and train step, beside MSMP-PDE's of phases 6
+     and 11.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -131,6 +157,7 @@ TRAIN_LOSS_RTOL = 1e-4
 # phase 17: the card's and the CPU's float64 solves of one chunk take the
 # same steps and differ by rounding only
 TOL_DATAGEN = 1e-9
+# the samples of phase 17's E1 and phase 23's RP datasets
 E1_SAMPLES = {"train": 32, "valid": 16, "test": 16}
 # phase 18, relative: an 8-window rollout compounds TOL_MODEL's rounding
 TOL_L2 = 1e-3
@@ -191,8 +218,10 @@ def diff_counts(now, before):
 def expected_launches(model, forwards, grad_steps=0):
     """The launches of ``forwards`` model forwards, of which ``grad_steps``
     with grad and a backward (on the fused pair route): a LEM scan a
-    forward with the LEM encoder (none with the MLP or the LSTM), a pair
-    or a layer kernel a layer; the twin-tower model runs two towers."""
+    forward with the LEM encoder (none with the MLP or the LSTM); a pair
+    kernel a sigmoid-gated pair, a layer kernel an ungated layer and two
+    a gradient-gated pair (gate and layer), none for attention layers;
+    the twin-tower model runs two towers."""
     want = dict.fromkeys(COUNTERS, 0)
     towers = ((model.diff_tower, model.scale_tower) if model.twin_scale
               else (model,))
@@ -201,9 +230,12 @@ def expected_launches(model, forwards, grad_steps=0):
             want["lem_fwd"] += forwards
             want["lem_fwd_stash"] += grad_steps
             want["lem_bwd"] += grad_steps
-        kind = "mp_pair" if m.gated else "mp_layer"
-        want[f"{kind}_fwd"] += m.layers * forwards
-        want[f"{kind}_bwd"] += m.layers * grad_steps
+        if m.layer_type == "gat":
+            continue
+        kind = "mp_pair" if m.gate == "sigmoid" else "mp_layer"
+        n = m.layers * (2 if m.gate == "grad" else 1)
+        want[f"{kind}_fwd"] += n * forwards
+        want[f"{kind}_bwd"] += n * grad_steps
     return want
 
 
@@ -303,11 +335,83 @@ def layer_ops(nx, H, D, V, e_valid):
     return fwd, edge, bwd
 
 
+def mp_calls(name):
+    """(kernel, plain version) of one message-passing kernel, each called
+    on the operands ``mp_bound`` reads: a pair's (h, u, px, v, idx, mask,
+    Wg, Wl[, g]), a single layer's (h, u, px, v, idx, mask, W[, g]) as
+    GNN_Layer (final_act and residual on)."""
+    from functools import partial
+
+    from msmp_pde_torch.ops import mp_layer, mp_pair
+
+    layer = lambda f: lambda *a: f(*a, True, True)  # noqa: E731
+    return {
+        "mp_pair_fwd": (mp_pair.fused_gated_pair_kernel,
+                        mp_pair.fused_gated_pair_plain),
+        "mp_pair_fwd_stash": (
+            partial(mp_pair.fused_gated_pair_kernel, stash=True),
+            partial(mp_pair.fused_gated_pair_plain, stash=True)),
+        "mp_pair_bwd": (mp_pair.fused_gated_pair_bwd_kernel,
+                        mp_pair.fused_gated_pair_bwd_plain),
+        "mp_layer_fwd": (layer(mp_layer.fused_mp_layer_kernel),
+                         layer(mp_layer.fused_mp_layer_plain)),
+        "mp_layer_bwd": (layer(mp_layer.fused_mp_layer_bwd_kernel),
+                         layer(mp_layer.fused_mp_layer_bwd_plain)),
+    }[name]
+
+
+def mp_bound(name, args):
+    """``bound`` of one message-passing kernel on ``args`` (``mp_calls``'s
+    operands), at any B, nx, H, D, V, K. Bytes: each input read once and
+    each output written once; a forward reads h, u, px, v, idx, mask and
+    the weights and writes h (the stash gn and ln too), a backward also
+    reads g and writes dh and the weights' gradients. Operations:
+    ``layer_ops`` per layer and graph, the edge products on the tensor
+    cores (three in a backward)."""
+    h, u, _, v, idx, mask = args[:6]
+    B, nx, H = h.shape
+    D, V, K = u.shape[-1], v.shape[-1], idx.shape[1]
+    layers = 2 if name.startswith("mp_pair") else 1
+    w = sum(x.numel() for W in args[6:6 + layers] for x in W)
+    fwd, edge, bwd = layer_ops(nx, H, D, V, float(mask.sum().item()))
+    n = B * layers
+    if name.endswith("_bwd"):
+        return bound(4 * (B * nx * (3 * H + D + 1 + V) + 2 * nx * K + 2 * w),
+                     n * (fwd + bwd - 3 * edge), n * 3 * edge)
+    acts = 4 * H if name.endswith("_stash") else 2 * H
+    return bound(4 * (B * nx * (acts + D + 1 + V) + 2 * nx * K + w),
+                 n * (fwd - edge), n * edge)
+
+
+def mp_kernel_times(cases):
+    """Each (kernel name, operands) of ``cases`` timed on the card: the
+    kernel, its plain version in a CUDA graph and eager, and ``mp_bound``;
+    printed, and returned in order as (ms, plain ms, eager ms, bound ms,
+    bound by)."""
+    import torch
+
+    out = []
+    with torch.no_grad():
+        for name, args in cases:
+            kern, plain = mp_calls(name)
+            r = (timed(lambda: kern(*args)), timed_graph(lambda: plain(*args)),
+                 timed(lambda: plain(*args)), *mp_bound(name, args))
+            B, _, H = args[0].shape
+            print(f"{name} @D={args[1].shape[-1]} V={args[3].shape[-1]} "
+                  f"H={H} batch {B}: kernel {r[0]:.4f} ms, plain {r[1]:.4f} "
+                  f"ms (CUDA graph; {r[2]:.4f} ms eager), bound {r[3]:.4f} "
+                  f"ms ({r[4]})")
+            out.append(r)
+    return out
+
+
 def flax_tree(model, seed):
     """Random weights for every leaf of ``model``, as a nested numpy dict
     under flax paths, each U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with the
-    fan-in of the flax initializer (the LEM's and the LSTM's: the hidden
-    width; a twin tower's leaves as its own model's)."""
+    fan-in of the flax initializer (the LEM's and the LSTM's, and an
+    attention layer's q, k and bias: the hidden width; a twin tower's
+    leaves as its own model's). The attention layer's bias, zeros in
+    flax, is drawn too."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -317,7 +421,9 @@ def flax_tree(model, seed):
     for key, val in sd.items():
         parts = key.split(".")
         mod, leaf = parts[-2], parts[-1]
-        if "embedding_lem" in parts or "lstm" in parts:
+        if ("embedding_lem" in parts or "lstm" in parts
+                or leaf in ("att_q", "att_k")
+                or (leaf == "bias" and mod.startswith(("gnn_", "gate_")))):
             fan = H  # every recurrent parameter: U(+-1/sqrt(H))
         elif mod == "FactorizedEdgeDense_0":
             f = ".".join(parts[:-1])
@@ -342,10 +448,12 @@ def reference_apply(model, window, pos_x, var_vec, idx, mask,
     """MPSolver.forward written out through the plain versions of the
     kernels (``lem_scan_plain``, ``fused_mp_layer_plain``,
     ``fused_gated_pair_plain``) on the model's own parameters, for every
-    encoder (mlp, lem, lstm), processor (ungated layers, gated pairs) and
-    decoder (cnn, glu, diff_only), the twin towers and the LEM's state:
-    the on-card reference of the kernel path. Returns (out, the LEM's new
-    state or None)."""
+    encoder (mlp, lem, lstm), processor (ungated layers, sigmoid-gated
+    pairs, gradient-gated layers, attention layers) and decoder (cnn, glu,
+    diff_only, at d = 1 and 2), the twin towers and the LEM's state: the
+    on-card reference of the kernel path. The recurrent encoders' step
+    inputs are the model's ``_sequence``. Returns (out, the LEM's new state
+    or None)."""
     import torch
 
     from msmp_pde_torch.models.common import swish
@@ -359,7 +467,7 @@ def reference_apply(model, window, pos_x, var_vec, idx, mask,
         scale, _ = reference_apply(model.scale_tower, window, pos_x,
                                    var_vec, idx, mask)
         return model._compose_scale_diff(window, scale, diff), None
-    B, nx, tw = window.shape
+    B, nx, _ = window.shape
     V, H = var_vec.shape[-1], model.hidden
     px_n = pos_x / model.L
     variables = var_vec[:, None, :].expand(B, nx, V)
@@ -368,14 +476,12 @@ def reference_apply(model, window, pos_x, var_vec, idx, mask,
         node_in = torch.cat([window, px_n[..., None], variables], -1)
         h = swish(model.embed_2(swish(model.embed_1(node_in))))
     else:
-        seq = torch.stack([
-            torch.cat([px_n[..., None], window[..., k:k + 1], variables], -1)
-            for k in range(tw)]).reshape(tw, B * nx, 2 + V)
+        seq = model._sequence(window, px_n, variables)
         if model.encoder == "lstm":  # plain torch ops: no kernel
             y = model.lstm(seq)
         else:
             lem = model.embedding_lem
-            W, Wz, I = lem.weights, lem.weights_lin_z, 2 + V
+            W, Wz, I = lem.weights, lem.weights_lin_z, seq.shape[-1]
             gx = seq @ W[:, :I].T + lem.bias
             zx = seq @ Wz[:, :I].T + lem.bias_lin_z
             zeros = window.new_zeros((B * nx, H))
@@ -386,15 +492,24 @@ def reference_apply(model, window, pos_x, var_vec, idx, mask,
             if model.save_state:
                 state = (y.reshape(B, nx, H), z.reshape(B, nx, H))
         h = swish(model.lemout_2(swish(model.lemout_1(y.reshape(B, nx, H)))))
+    args = (window, px_n, variables, idx, mask)
     for i in range(model.layers):
         layer = getattr(model, f"gnn_{i}")
-        if model.gated:
+        gate = getattr(model, f"gate_{i}", None)
+        if model.layer_type == "gat":  # plain torch ops: no kernel
+            apply = lambda m: m(h, *args)
+        else:
+            apply = lambda m: fused_mp_layer_plain(
+                h, window, px_n[..., None], variables, idx, mask,
+                m.weights(), m.final_act, m.residual)
+        if gate is None:
+            h = apply(layer)
+        elif model.gate == "sigmoid" and model.layer_type == "mp":
             h = fused_gated_pair_plain(
                 h, window, px_n[..., None], variables, idx, mask,
-                getattr(model, f"gate_{i}").weights(), layer.weights())
+                gate.weights(), layer.weights())
         else:
-            h = fused_mp_layer_plain(h, window, px_n[..., None], variables,
-                                     idx, mask, layer.weights(), True, True)
+            h = model._gated(h, apply(gate), apply(layer), idx, mask)
     return model._decode(h, window), state
 
 
@@ -408,7 +523,7 @@ def plain_forward(trainer):
     model, spec = trainer.model, trainer.spec
 
     def forward(window, steps, variables, lem_state=None):
-        var_vec = trainer.graph_vars(spec.t_grid[steps], variables)
+        var_vec = trainer.var_vec(steps, variables)
         return reference_apply(
             model, window, spec.x.expand(window.shape[0], spec.nx), var_vec,
             spec.idx, spec.mask, lem_state)
@@ -416,12 +531,13 @@ def plain_forward(trainer):
     return forward
 
 
-def reference_step_loss(trainer, u_all, idx_batch, steps, unrolled):
+def reference_step_loss(trainer, u_all, idx_batch, steps, unrolled,
+                        var_all=None):
     """``Trainer.step_loss`` with every forward through
     ``reference_forward``: autograd then differentiates the plain versions,
     the on-card reference of the kernel path's training step."""
-    return trainer.step_loss(u_all, {}, idx_batch, steps, unrolled,
-                             forward=plain_forward(trainer))
+    return trainer.step_loss(u_all, var_all or {}, idx_batch, steps,
+                             unrolled, forward=plain_forward(trainer))
 
 
 # (hidden, rows) of phases 2 and 7: buckets 1, 4, 16 of nx 100 and a ragged
@@ -532,10 +648,11 @@ def lem_card_times164(args, bargs):
     return {short(k): us / 1e3 for k, us in ks or ()}
 
 
-def check_pair_bwd(rand, model, spec, T, H, V, W164):
-    """Phase 8: returns ({hidden: max error}, {hidden: the batch-16 args}),
-    the latter for the timings. ``W164``: a gate's and a layer's weights at
-    hidden 164, MSGMP-PDE's width, checked at batches 1 and 16."""
+def check_pair_bwd(rand, model, spec, T, H, V, W164, b164=(1, 16)):
+    """Phases 8 and 21: returns ({hidden: max error}, {hidden: the
+    batch-16 args}), the latter for the timings. ``W164``: a gate's and a
+    layer's weights at hidden 164, MSGMP-PDE's width, checked at batches
+    ``b164``. T is the window's width D (the 2-D models' 50)."""
     import numpy as np
     import torch
 
@@ -556,7 +673,7 @@ def check_pair_bwd(rand, model, spec, T, H, V, W164):
     cases.append((2, 40, 96, 3, torch.as_tensor(idx, device=dev),
                   torch.as_tensor(mask, device=dev), *odd))
     cases += [(B, nx, GLU_H, V, spec.idx, spec.mask, *map(detach, W164))
-              for B in (1, 16)]
+              for B in b164]
     errs, args16 = {}, {}
     for B, n, h, v, idx, mask, wg, wl in cases:
         err = errs.get(h, 0.0)
@@ -620,6 +737,19 @@ def double_trainer(trainer):
     return tr
 
 
+def step_batch(rng, n, unrolled, dev):
+    """A train step's (sample indices, start steps) at batch TRAIN_BATCH
+    from ``n`` trajectories of 250 steps, room left for ``unrolled``
+    pushforward windows."""
+    import torch
+
+    idx = torch.as_tensor(rng.permutation(n)[:TRAIN_BATCH], device=dev)
+    steps = torch.as_tensor(
+        rng.integers(25, 250 - 25 * (unrolled + 1) + 1, TRAIN_BATCH),
+        device=dev)
+    return idx, steps
+
+
 def step_drift(trainer, u_all, name):
     """Phase 19: where one train step's gradients at batch 16 lie from the
     plain path's in float64, on the kernel path and on the plain path in
@@ -633,11 +763,7 @@ def step_drift(trainer, u_all, name):
     names = [n for n, _ in trainer.model.named_parameters()]
     rng = np.random.default_rng(2)
     for unrolled in (0, 1):
-        idx = torch.as_tensor(rng.permutation(len(u_all))[:TRAIN_BATCH],
-                              device=u_all.device)
-        steps = torch.as_tensor(
-            rng.integers(25, 250 - 25 * (unrolled + 1) + 1, TRAIN_BATCH),
-            device=u_all.device)
+        idx, steps = step_batch(rng, len(u_all), unrolled, u_all.device)
         grads = {}
         for path, tr, loss in (
                 ("kernel", trainer, lambda t: t.step_loss(
@@ -659,60 +785,162 @@ def step_drift(trainer, u_all, name):
               "gradient's scale (the largest over parameters)")
 
 
-def check_train_step(trainer, u_all, rng, name="MSMP-PDE", same_push=False):
-    """Phases 9, 15 and 19: one step's loss and gradients, kernel path vs
+def f64_step_grads(trainer, u_all, var_all, idx, steps, unrolled):
+    """The plain path's step in float64 (``double_trainer``) from the
+    kernel path's pushforward, run in float32 and cast: (the loss, the
+    gradients in parameter order)."""
+    import torch
+
+    tr64 = double_trainer(trainer)
+    plain64 = plain_forward(tr64)
+
+    def forward(window, steps_, variables, lem_state=None):
+        if torch.is_grad_enabled():
+            return plain64(window, steps_, {k: v.double() for k, v in
+                                            variables.items()}, lem_state)
+        state = (None if lem_state is None else
+                 tuple(x.float() for x in lem_state))
+        out, new = trainer.forward(window.float(), steps_, variables,
+                                   lem_state=state)
+        return out.double(), (None if new is None else
+                              tuple(x.double() for x in new))
+
+    loss = tr64.step_loss(u_all.double(), var_all, idx, steps, unrolled,
+                          forward=forward)
+    return loss, torch.autograd.grad(loss, list(tr64.model.parameters()))
+
+
+def check_train_step(trainer, u_all, rng, name="MSMP-PDE", same_push=False,
+                     var_all=None, f64_yardstick=False):
+    """Phases 9, 15, 19 and 22: one step's loss and gradients, kernel path vs
     plain path. With ``same_push`` the plain path's step at unrolled 1
     starts from the kernel path's pushed window and state
     (``kernel_push``): the pushforward amplifies float32's rounding, so
     that at unrolled 1 both paths lie ~10x farther from the plain path in
     float64 than at unrolled 0, past the scale-aware bound (``step_drift``
     prints it for MSSMP-PDE and MSGMP-PDE), and only the same inputs hold
-    the kernels to that bound."""
+    the kernels to that bound. ``var_all``: the equation variables of
+    ``u_all``'s samples (none by default).
+
+    ``f64_yardstick`` (phase 22, MSG2-PDE2D alone) adds, at unrolled 1
+    only, the plain path's step in float64 from the same pushed window
+    (``f64_distances``): a gradient that misses the scale-aware bound
+    against the float32 plain path must lie within max(the scale-aware
+    bound, twice the float32 plain path's own distance) of the float64
+    step, each gradient against its own. The JAX package's float32 step of
+    this model lies as far from its float64 step
+    (tests/test_torch_f32_drift.py); the printout says which check held."""
     import torch
 
+    var_all = var_all or {}
     params = list(trainer.model.parameters())
     names = [n for n, _ in trainer.model.named_parameters()]
-    dev = trainer.device
     for unrolled in (0, 1):
-        idx = torch.as_tensor(rng.permutation(len(u_all))[:TRAIN_BATCH],
-                              device=dev)
-        steps = torch.as_tensor(
-            rng.integers(25, 250 - 25 * (unrolled + 1) + 1, TRAIN_BATCH),
-            device=dev)
-        loss_k = trainer.step_loss(u_all, {}, idx, steps, unrolled)
+        idx, steps = step_batch(rng, len(u_all), unrolled, trainer.device)
+        loss_k = trainer.step_loss(u_all, var_all, idx, steps, unrolled)
         grads_k = torch.autograd.grad(loss_k, params)  # every one is used
         if same_push and unrolled:
-            loss_p = trainer.step_loss(u_all, {}, idx, steps, unrolled,
+            loss_p = trainer.step_loss(u_all, var_all, idx, steps, unrolled,
                                        forward=kernel_push(trainer))
         else:
             loss_p = reference_step_loss(trainer, u_all, idx, steps,
-                                         unrolled)
+                                         unrolled, var_all)
         grads_p = torch.autograd.grad(loss_p, params)
         torch.cuda.synchronize()
         rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
         check(rel <= TRAIN_LOSS_RTOL,
               f"{name} train step unrolled={unrolled}: loss {loss_k.item()}"
               f" vs {loss_p.item()}")
-        worst = 0.0
+        yardstick = f64_yardstick and unrolled == 1
+        if yardstick:
+            dk, d32, s64 = f64_distances(trainer, u_all, var_all, idx, steps,
+                                         unrolled, grads_k, grads_p)
+        worst, missed = 0.0, []
         scales = grad_scales(zip(names, grads_p))
         for pname, a, b in zip(names, grads_k, grads_p):
             check(bool(torch.isfinite(a).all()), f"{pname}: grad not finite")
             ok, e = scale_aware(a, b, scales[pname])
             worst = max(worst, e)
-            check(ok, f"{name} train step unrolled={unrolled}: {pname} grad "
-                  f"differs by {e:.3e}")
+            if not ok and yardstick:
+                missed.append(pname)
+                lim = max(1e-3, 2e-4 / s64[pname], 2 * d32[pname])
+                ok = dk[pname] <= lim
+                check(ok, f"{name} train step unrolled={unrolled}: {pname} "
+                      f"grad lies {dk[pname]:.3e} of its scale from the "
+                      f"float64 step, past {lim:.3e} (twice the float32 "
+                      f"plain path's {d32[pname]:.3e})")
+            check(ok, f"{name} train step unrolled={unrolled}: {pname} "
+                  f"grad differs by {e:.3e}")
         push = (" (the plain step from the kernel path's pushforward)"
                 if same_push and unrolled else "")
+        held = (f"{len(params)} grads within the scale-aware bound (max "
+                f"|diff| {worst:.3e})")
+        if missed:
+            held = (f"{len(missed)} of {len(names)} grads past the "
+                    f"scale-aware bound against the float32 plain path "
+                    f"({', '.join(missed[:3])}"
+                    f"{', ...' if len(missed) > 3 else ''}), each within "
+                    "twice the float32 plain path's own distance from the "
+                    "float64 step")
         print(f"{name} train step B={TRAIN_BATCH} unrolled={unrolled}"
               f"{push}: loss {loss_k.item():.6f} (plain "
-              f"{loss_p.item():.6f}, rel {rel:.2e}); {len(params)} grads "
-              "within the scale-aware "
-              f"bound (max |diff| {worst:.3e})")
+              f"{loss_p.item():.6f}, rel {rel:.2e}); {held}")
+        if yardstick:
+            print(f"{name} unrolled={unrolled} from the float64 step: "
+                  + f64_reading(dk, d32, s64))
 
 
-def train_main_path(trainer, u_all, name="MSMP-PDE"):
-    """Phases 10 and 15: one train_epoch; returns the launch counts of the
-    run and its time."""
+def f64_distances(trainer, u_all, var_all, idx, steps, unrolled, grads_k,
+                  grads_p):
+    """Each gradient's distance from the plain path's step in float64 from
+    the kernel path's pushforward (``f64_step_grads``), relative to its
+    scale (``grad_scales`` of the float64 gradients): ({name: the kernel
+    path's}, {name: the float32 plain path's}, {name: scale})."""
+    _, g64 = f64_step_grads(trainer, u_all, var_all, idx, steps, unrolled)
+    names = [n for n, _ in trainer.model.named_parameters()]
+    scales = grad_scales(zip(names, g64))
+    dist = lambda grads: {  # noqa: E731
+        n: (a.double() - b).abs().max().item() / scales[n]
+        for n, a, b in zip(names, grads, g64)}
+    return dist(grads_k), dist(grads_p), scales
+
+
+def f64_reading(dk, d32, scales):
+    """``f64_distances`` in a line: the largest distance of each path,
+    and the largest ratio of the kernel path's to the float32 plain path's
+    over the gradients past the scale-aware bound's floor."""
+    past = [n for n in dk if dk[n] > max(1e-3, 2e-4 / scales[n])]
+    ratio = max((dk[n] / d32[n] for n in past), default=0.0)
+    return (f"the kernel path {max(dk.values()):.3e}, the float32 plain "
+            f"path {max(d32.values()):.3e} of a gradient's scale (largest); "
+            f"{len(past)} of {len(dk)} kernel-path grads past 1e-3 of their "
+            f"scale, at most {ratio:.2f}x the float32 plain path's own")
+
+
+def f64_seed_readings(u_all, var_all, name, seeds, experiment="RP"):
+    """Phase 22: ``name``'s step at unrolled 1 from the kernel path's
+    pushforward, at other weights and batches (numpy seeds ``seeds``):
+    each path's distance from the float64 step, printed, not held."""
+    import numpy as np
+    import torch
+
+    for seed in seeds:
+        tr = weighted_trainer(experiment, name, seed, u_all.device)
+        idx, steps = step_batch(np.random.default_rng(seed), len(u_all), 1,
+                                u_all.device)
+        params = list(tr.model.parameters())
+        grads_k = torch.autograd.grad(
+            tr.step_loss(u_all, var_all, idx, steps, 1), params)
+        grads_p = torch.autograd.grad(tr.step_loss(
+            u_all, var_all, idx, steps, 1, forward=kernel_push(tr)), params)
+        print(f"{name} unrolled=1, weights and batch from seed {seed}, from "
+              "the float64 step: " + f64_reading(*f64_distances(
+                  tr, u_all, var_all, idx, steps, 1, grads_k, grads_p)))
+
+
+def train_main_path(trainer, u_all, name="MSMP-PDE", var_all=None):
+    """Phases 10, 15 and 23: one train_epoch; returns the launch counts of
+    the run and its time."""
     import numpy as np
 
     from msmp_pde_torch.training.loop import train_epoch
@@ -728,7 +956,7 @@ def train_main_path(trainer, u_all, name="MSMP-PDE"):
         last[0] = now
 
     t0 = time.perf_counter()
-    mean, losses = train_epoch(trainer, tx, u_all, {}, epoch=1,
+    mean, losses = train_epoch(trainer, tx, u_all, var_all or {}, epoch=1,
                                batch_size=TRAIN_BATCH, t_res=nt,
                                unrolling=1, rng=np.random.default_rng(0),
                                print_interval=50, on_step=on_step)
@@ -761,20 +989,21 @@ def train_main_path(trainer, u_all, name="MSMP-PDE"):
     return totals, took
 
 
-def serve_path(engine, name):
-    """Phases 5 and 14, the serving main path: the port's HTTP server on
-    localhost answers rollout requests (B = 1, 3, 16, 20, and one
-    trajectory) at n_windows=8, each checked against RolloutEngine.rollout
-    and against the expected kernel launches. Returns the launch counts of
-    the run."""
+def serve_path(engine, name, experiment="E1"):
+    """Phases 5, 14 and 23, the serving main path: the port's HTTP server
+    on localhost answers rollout requests (B = 1, 3, 16, 20, and one
+    trajectory) at n_windows=8, each with the model's equation variables
+    (U(0.1, 1) a sample), checked against RolloutEngine.rollout and
+    against the expected kernel launches. Returns the launch counts of the
+    run."""
     from http.server import ThreadingHTTPServer
 
     import numpy as np
 
     from msmp_pde_torch.serving import serve
 
-    nx, T = engine.trainer.spec.nx, engine.trainer.tw
-    meta = {"backend": "cuda", "experiment": "E1", "model": name,
+    nx, T, d = engine.trainer.spec.nx, engine.trainer.tw, engine.trainer.d
+    meta = {"backend": "cuda", "experiment": experiment, "model": name,
             "buckets": list(BUCKETS)}
     srv = ThreadingHTTPServer(("127.0.0.1", 0),
                               serve.make_handler(engine, meta))
@@ -786,15 +1015,17 @@ def serve_path(engine, name):
     try:
         for B, traj in ((1, False), (3, False), (16, False), (20, False),
                         (4, True)):
-            w = np.random.default_rng(B).normal(size=(B, nx, T)).astype(
-                np.float32)
+            r = np.random.default_rng(B)
+            w = r.normal(size=(B, nx, d * T)).astype(np.float32)
+            var = {k: r.uniform(0.1, 1.0, B).astype(np.float32)
+                   for k in engine.trainer.eq_norms}
             before = launch_counts()
             t0 = time.perf_counter()
             got = serve.request_rollout("127.0.0.1", port, w,
-                                        n_windows=N_WINDOWS,
+                                        variables=var, n_windows=N_WINDOWS,
                                         as_trajectory=traj)
             lat = time.perf_counter() - t0
-            served.append((B, traj, w, got, lat,
+            served.append((B, traj, w, var, got, lat,
                            diff_counts(launch_counts(), before)))
     finally:
         srv.shutdown()
@@ -802,22 +1033,22 @@ def serve_path(engine, name):
         th.join()
     totals = launch_counts()
     print(f"{name} main path launches: {nonzero(totals)}")
-    for B, traj, w, got, lat, d in served:
+    for B, traj, w, var, got, lat, n in served:
         forwards = N_WINDOWS * -(-B // BUCKETS[-1])  # windows x chunks
         want = expected_launches(engine.trainer.model, forwards)
-        check(d == want, f"{name} B={B}: launches {nonzero(d)}, expected "
+        check(n == want, f"{name} B={B}: launches {nonzero(n)}, expected "
               f"{nonzero(want)}")
-        shape = ((B, N_WINDOWS * T, 1, nx) if traj
-                 else (B, N_WINDOWS, nx, T))
+        shape = ((B, N_WINDOWS * T, d, nx) if traj
+                 else (B, N_WINDOWS, nx, d * T))
         check(got.shape == shape, f"{name} B={B}: response {got.shape}")
         check(bool(np.isfinite(got).all()), f"{name} B={B}: not finite")
-        kw = dict(n_windows=N_WINDOWS)
+        kw = dict(n_windows=N_WINDOWS, variables=var or None)
         direct = (engine.trajectory(w, **kw) if traj
                   else engine.rollout(w, **kw))
         check(np.array_equal(got, direct),
               f"{name} B={B}: served result differs from engine.rollout")
         print(f"{name} served B={B}{' trajectory' if traj else ''}: "
-              f"{got.shape}, {lat * 1e3:.3f} ms, launches {nonzero(d)}")
+              f"{got.shape}, {lat * 1e3:.3f} ms, launches {nonzero(n)}")
     return totals
 
 
@@ -831,7 +1062,7 @@ def check_model_forward(trainer, window, steps, name):
         out_k, _ = trainer.forward(window, steps, {})
         out_p = reference_forward(
             trainer.model, window, spec.x.expand(B, nx),
-            trainer.graph_vars(spec.t_grid[steps], {}), spec.idx, spec.mask)
+            trainer.var_vec(steps, {}), spec.idx, spec.mask)
     torch.cuda.synchronize()
     check(out_k.shape == (B, nx, T), f"{name} output {tuple(out_k.shape)}")
     check(bool(torch.isfinite(out_k).all()), f"{name} output not finite")
@@ -1000,11 +1231,11 @@ def forced_fallback():
         mp_pair.pair_bwd_fused_fits = rule
 
 
-def fallback_step(trainer, u_all):
-    """Phase 13, the fallback's main path: one MSMP-PDE optimizer step at
-    batch 48 through ``train_step_fn`` with the fallback forced, every pair
-    on the stash forward and two single-layer backwards. Returns the launch
-    counts of the run."""
+def fallback_step(trainer, u_all, name="MSMP-PDE", var_all=None):
+    """Phases 13 and 23, the fallback's main path: one optimizer step of a
+    gated model at batch 48 through ``train_step_fn`` with the fallback
+    forced, every pair on the stash forward and two single-layer
+    backwards. Returns the launch counts of the run."""
     import numpy as np
     import torch
 
@@ -1016,15 +1247,15 @@ def fallback_step(trainer, u_all):
                          device=dev)
     reset_counts()
     with forced_fallback():
-        loss = step(u_all, {}, torch.arange(B, device=dev), st)
+        loss = step(u_all, var_all or {}, torch.arange(B, device=dev), st)
     counts = launch_counts()
     L = trainer.model.layers
     want = expected_launches(trainer.model, 1, 1)
     want.update(mp_pair_fwd_stash=L, mp_pair_bwd=0, mp_layer_bwd=2 * L)
-    check(counts == want, f"MSMP-PDE step at batch {B}: launches "
+    check(counts == want, f"{name} step at batch {B}: launches "
           f"{nonzero(counts)}, expected {nonzero(want)}")
     check(bool(torch.isfinite(loss)), "batch-48 loss not finite")
-    print(f"MSMP-PDE train step at batch {B}: loss {loss.item():.4f}, "
+    print(f"{name} train step at batch {B}: loss {loss.item():.4f}, "
           f"launches {nonzero(counts)}")
     return counts
 
@@ -1118,7 +1349,7 @@ def datagen_phase(data_dir, on):
 
 
 def counted_fit(args, exp, data, save_path, on, snapshot=None):
-    """Phases 18 and 20: ``train.fit`` with each optimizer step's launches
+    """Phases 18, 20 and 23: ``train.fit`` with each optimizer step's launches
     counted, and what every fit is held to: each step's expected launches,
     the metrics' forwards' launches, the pushforward depths of each epoch,
     finite losses, a loss falling within epoch 0. ``snapshot(save, path,
@@ -1209,9 +1440,21 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
     return res, totals, took
 
 
-def fit_phase(data_dir, work_dir, on):
-    """Phase 18: fit, the checkpoint and resume, the L2 norms on both
-    paths, and the server on the checkpoint."""
+def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
+              epochs=2, per_window=False):
+    """Phases 18 and 23: fit ``model`` (MSMP-PDE or its 2-D version at
+    full width) on ``experiment``'s data for ``epochs`` epochs, the
+    checkpoint and resume, the L2 norms on both paths, and the server on
+    the checkpoint answering a request with the test set's equation
+    variables. Returns the fit's launch counts.
+
+    The L2 norms of the two paths agree within TOL_L2. With
+    ``per_window`` (phase 23) the kernel path's 8-window rollout of the
+    norms is held window by window instead, each window within TOL_MODEL
+    of the plain path's forward from the same window, as phase 20 holds a
+    served rollout: after one epoch the 2-D model's free-running rollouts
+    amplify float32's rounding on either path (their norms, with the
+    plain path's in float64, are printed)."""
     import contextlib
     import copy
     import io
@@ -1224,21 +1467,28 @@ def fit_phase(data_dir, work_dir, on):
     from msmp_pde_torch.data.graph import slice_windows
     from msmp_pde_torch.serving import serve
     from msmp_pde_torch.training import metrics, train
-    from msmp_pde_torch.training.setup import build_trainer, setup_experiment
+    from msmp_pde_torch.training.setup import (
+        build_trainer,
+        data_family,
+        setup_experiment,
+    )
     from msmp_pde_torch.utils import checkpoint
 
+    name = model
     args = train.build_parser().parse_args([
-        "--experiment=E1", "--model=MSMP-PDE", "--num_epochs=2",
-        "--batch_size=16", "--unrolling=1", "--lr=1e-4",
-        "--print_interval=100", "--device=cuda", f"--data_dir={data_dir}"])
+        f"--experiment={experiment}", f"--model={name}",
+        f"--num_epochs={epochs}", "--batch_size=16", "--unrolling=1",
+        "--lr=1e-4", "--print_interval=100", "--device=cuda",
+        f"--data_dir={data_dir}"])
     exp = setup_experiment(args, data_dir=data_dir)
     trainer, t_res = exp.trainer, exp.t_res
     model = trainer.model
-    check(model.hidden == 128 and model.layers == 6 and model.gated
-          and model.encoder == "lem", "fit: not MSMP-PDE at full width")
+    check(model.hidden == 128 and model.layers == 6
+          and model.gate == "sigmoid" and model.encoder == "lem",
+          f"fit: not {name} at full width")
     data = {m: train.device_arrays(exp.datasets[m], trainer.device)
             for m in E1_SAMPLES}
-    save_path = str(Path(work_dir) / "models" / "MSMP-PDE_E1.pt")
+    save_path = str(Path(work_dir) / "models" / f"{name}_{experiment}.pt")
 
     # the state each checkpoint saved
     saved = []
@@ -1260,7 +1510,7 @@ def fit_phase(data_dir, work_dir, on):
     sd, opt_sd, sched_sd, epoch = saved[-1]
     check(epoch == max(h["epoch"] for h in hist if h["improved"]),
           "the checkpoint is not the best epoch's")
-    fresh = build_trainer("E1", "MSMP-PDE", device=trainer.device, seed=1,
+    fresh = build_trainer(experiment, name, device=trainer.device, seed=1,
                           grid=exp.datasets["train"])
     tx = fresh.make_optimizer(args.lr, args.lr_decay, [args.unrolling, 5, 10,
                                                        15], t_res * n_batches)
@@ -1278,8 +1528,9 @@ def fit_phase(data_dir, work_dir, on):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         again = train.fit(train.build_parser().parse_args([
-            "--experiment=E1", "--model=MSMP-PDE", "--batch_size=16",
-            f"--num_epochs={epoch + 1}", f"--resume={save_path}"]),
+            f"--experiment={experiment}", f"--model={name}",
+            "--batch_size=16", f"--num_epochs={epoch + 1}",
+            f"--resume={save_path}"]),
             types.SimpleNamespace(trainer=fresh, t_res=t_res), data,
             str(Path(work_dir) / "models" / "resumed.pt"))
     check(f"at epoch {epoch + 1}" in out.getvalue() and not again["history"],
@@ -1312,28 +1563,33 @@ def fit_phase(data_dir, work_dir, on):
           f"{100 * lk[1]:.4f} % ({k_s:.3f} s); plain path L2 {lp[0]:.6f}, "
           f"rel {100 * lp[1]:.4f} % ({p_s:.3f} s); max relative difference "
           f"{rel:.3e}")
-    check(rel <= TOL_L2, f"compute_l2_norms: kernel vs plain {rel:.3e} > "
-          f"{TOL_L2}")
+    if per_window:
+        held_per_window(trainer, metrics, u_v, var_v, args.nr_gt_steps,
+                        t_res, windows)
+    else:
+        check(rel <= TOL_L2, f"compute_l2_norms: kernel vs plain {rel:.3e} "
+              f"> {TOL_L2}")
 
     # the server on the checkpoint and the dataset's grid
     sargs = serve.build_parser().parse_args([
-        "--experiment=E1", "--model=MSMP-PDE", f"--checkpoint={save_path}",
-        f"--data_dir={data_dir}", "--port=0", "--warmup_windows=0",
-        "--device=cuda"])
+        f"--experiment={experiment}", f"--model={name}",
+        f"--checkpoint={save_path}", f"--data_dir={data_dir}", "--port=0",
+        "--warmup_windows=0", "--device=cuda"])
     srv, engine = serve.build_server(sargs)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     port = srv.server_address[1]
-    u_t = data["test"][0]
+    u_t, _, var_t = data["test"]
     steps = torch.full((4,), trainer.tw, dtype=torch.int64,
                        device=trainer.device)
     w = slice_windows(u_t[:4], steps, trainer.tw)[0].cpu().numpy()
+    var = {k: var_t[k][:4].cpu().numpy() for k in trainer.eq_norms}
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                     timeout=60) as r:
             health = json.loads(r.read())
         reset_counts()
-        got = serve.request_rollout("127.0.0.1", port, w,
+        got = serve.request_rollout("127.0.0.1", port, w, variables=var,
                                     n_windows=N_WINDOWS)
         d = launch_counts()
     finally:
@@ -1341,21 +1597,75 @@ def fit_phase(data_dir, work_dir, on):
         srv.server_close()
         th.join(timeout=60)
     check(not th.is_alive(), "the server thread did not stop")
-    check(health["grid"] == str(Path(data_dir) / "CE_E1.npz"),
+    stem = f"{data_family(experiment)}_{experiment}.npz"
+    check(health["grid"] == str(Path(data_dir) / stem),
           f"served grid {health['grid']}")
     check(all(torch.equal(v.cpu(), sd[k].cpu())
               for k, v in engine.trainer.model.state_dict().items()),
           "the served weights are not the checkpoint's")
     check(d == expected_launches(model, N_WINDOWS),
           f"served request: launches {nonzero(d)}")
-    check(got.shape == (4, N_WINDOWS, 100, trainer.tw)
+    check(got.shape == (4, N_WINDOWS, 100, trainer.d * trainer.tw)
           and bool(np.isfinite(got).all()), f"served {got.shape}")
-    check(np.array_equal(got, engine.rollout(w, n_windows=N_WINDOWS)),
+    check(np.array_equal(got, engine.rollout(w, variables=var or None,
+                                             n_windows=N_WINDOWS)),
           "the served rollout differs from engine.rollout")
     print(f"served the checkpoint on the grid of {health['grid']}: B=4, "
           f"{N_WINDOWS} windows, {got.shape}, equal to engine.rollout, "
           f"launches {nonzero(d)}")
     return totals
+
+
+def held_per_window(trainer, metrics, u_v, var_v, nr_gt_steps, t_res,
+                    windows):
+    """Phase 23: the kernel path's rollout of ``compute_l2_norms`` (the
+    valid set's first batch, ``windows`` windows from nr_gt_steps tw) held
+    window by window within TOL_MODEL (scaled by the window's largest
+    value where that passes 1) of the plain path's forward from the same
+    window (``plain_rollout`` following it); the free-running norms of
+    the float32 plain path and of the plain path in float64 printed."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.data.graph import slice_windows
+
+    tw, B = trainer.tw, TRAIN_BATCH
+    u, var = u_v[:B], {k: v[:B] for k, v in var_v.items()}
+    steps = torch.full((B,), tw * nr_gt_steps, dtype=torch.int64,
+                       device=u.device)
+    with torch.inference_mode():
+        preds = metrics._rollout_collect(trainer, u, var, nr_gt_steps,
+                                         t_res)[0]
+    got = preds.transpose(0, 1).cpu().numpy()  # [B, S, nx, d tw]
+    check(got.shape[1] == windows, f"rollout windows {got.shape}")
+    plain = plain_rollout(trainer, slice_windows(u, steps, tw)[0], steps,
+                          windows, follow=got, variables=var)
+    errs = [float(np.abs(got[:, i] - plain[:, i]).max())
+            / max(1.0, float(np.abs(plain[:, i]).max()))
+            for i in range(windows)]
+    check(max(errs) <= TOL_MODEL, f"the fit's rollout vs the plain path's "
+          f"windows {['%.2e' % x for x in errs]}")
+    tr64 = double_trainer(trainer)
+    quiet = dict(log=lambda *a: None)
+    norms = {}
+    for label, tr, uu, vv in (
+            ("kernel path", trainer, u, var),
+            ("plain path in float32", types.SimpleNamespace(
+                tw=tw, d=trainer.d, forward=plain_forward(trainer)), u, var),
+            ("plain path in float64", types.SimpleNamespace(
+                tw=tw, d=trainer.d, forward=plain_forward(tr64)), u.double(),
+             {k: v.double() for k, v in var.items()})):
+        norms[label] = metrics.compute_l2_norms(tr, uu, vv, B, nr_gt_steps,
+                                                t_res, **quiet)[0]
+    ref = norms["plain path in float64"]
+    print(f"the fit's valid rollout ({B} samples, {windows} windows): each "
+          f"window within {max(errs):.3e} of the plain path's from the same "
+          "window; free-running L2 " + ", ".join(
+              f"{k} {v:.6f}" + ("" if k.endswith("64") else
+                                f" ({abs(v - ref) / ref:.2e} from float64)")
+              for k, v in norms.items()))
 
 
 # the TPU kernel each CUDA kernel replaces
@@ -1373,30 +1683,44 @@ VARIANTS = ("MSSMP-PDE", "MSGMP-PDE", "SaveMSMP-PDE", "LSTMGated", "LSTM")
 STATEFUL_STEPS = (25, 200, 150, 225)
 
 
-def variants_phase(rand, u_all, T):
-    """Phase 19: the five models at full width (E1, nx 100, tw 25, six
-    layers or pairs, weights from a numpy seed in the flax layout through
-    params_from_flax): one forward at batch 16 against reference_apply
-    with its launches, SaveMSMP-PDE also from a non-zero state (the output
-    and the new state), and one train step at batch 16, kernel path vs
-    plain path, unrolled 0 and 1 (SaveMSMP-PDE's state threaded through
-    the pushforward; at unrolled 1 both steps from the kernel path's
-    pushforward, ``check_train_step``). Returns {name: trainer}."""
-    import numpy as np
-    import torch
-
+def weighted_trainer(experiment, name, seed, dev):
+    """``build_trainer`` of ``name`` with weights from ``flax_tree`` of a
+    numpy seed through params_from_flax."""
     from msmp_pde_torch.training.setup import build_trainer
     from msmp_pde_torch.utils.convert import params_from_flax
 
+    tr = build_trainer(experiment, name, device=dev)
+    tr.model.load_state_dict(params_from_flax(flax_tree(tr.model, seed)),
+                             strict=True)
+    return tr
+
+
+def variants_phase(rand, u_all, T, names=VARIANTS, experiment="E1",
+                   var_all=None, seed=10, f64_models=()):
+    """Phases 19 and 22: the models ``names`` at full width on
+    ``experiment``'s grid (nx 100, tw 25, six layers or pairs, weights
+    from a numpy seed in the flax layout through params_from_flax): one
+    forward at batch 16 against reference_apply with its launches, the
+    stateful model also from a non-zero state (the output and the new
+    state), and one train step at batch 16, kernel path vs plain path,
+    unrolled 0 and 1 (the state threaded through the pushforward; at
+    unrolled 1 both steps from the kernel path's pushforward,
+    ``check_train_step``). ``var_all``: the equation variables of
+    ``u_all``'s samples, which the forwards take too; ``f64_models``: the
+    models whose step ``check_train_step`` also holds against float64
+    (``f64_yardstick``). Returns {name: trainer}."""
+    import numpy as np
+    import torch
+
     trainers = {}
-    for i, name in enumerate(VARIANTS):
-        tr = build_trainer("E1", name, device=u_all.device)
-        params = params_from_flax(flax_tree(tr.model, seed=10 + i))
-        tr.model.load_state_dict(params, strict=True)
+    var_all = var_all or {}
+    var = {k: v[:TRAIN_BATCH] for k, v in var_all.items()}
+    for i, name in enumerate(names):
+        tr = weighted_trainer(experiment, name, seed + i, u_all.device)
         m, spec = tr.model, tr.spec
-        n_params = sum(v.numel() for v in params.values())
-        B, nx = TRAIN_BATCH, spec.nx
-        window = rand(B, nx, T)
+        n_params = sum(v.numel() for v in m.state_dict().values())
+        B, nx, dtw = TRAIN_BATCH, spec.nx, tr.d * T
+        window = rand(B, nx, dtw)
         steps = torch.full((B,), T, dtype=torch.int64, device=u_all.device)
         H = m.diff_tower.hidden if m.twin_scale else m.hidden
         states = [None]
@@ -1405,15 +1729,15 @@ def variants_phase(rand, u_all, T):
         for state in states:
             with torch.no_grad():
                 reset_counts()
-                out, new = tr.forward(window, steps, {}, lem_state=state)
+                out, new = tr.forward(window, steps, var, lem_state=state)
                 counts = launch_counts()
-                ref, ref_new = plain_forward(tr)(window, steps, {},
+                ref, ref_new = plain_forward(tr)(window, steps, var,
                                                  lem_state=state)
             torch.cuda.synchronize()
             want = expected_launches(m, 1)
             check(counts == want, f"{name} forward: launches "
                   f"{nonzero(counts)}, expected {nonzero(want)}")
-            check(out.shape == (B, nx, T)
+            check(out.shape == (B, nx, dtw)
                   and bool(torch.isfinite(out).all()),
                   f"{name} output {tuple(out.shape)}")
             e = (out - ref).abs().max().item()
@@ -1433,20 +1757,23 @@ def variants_phase(rand, u_all, T):
             check(e <= TOL_MODEL, f"{name} differs by {e:.3e} > "
                   f"{TOL_MODEL}")
         check_train_step(tr, u_all, np.random.default_rng(1), name,
-                         same_push=True)
+                         same_push=True, var_all=var_all,
+                         f64_yardstick=name in f64_models)
         if name in ("MSSMP-PDE", "MSGMP-PDE"):
             step_drift(tr, u_all, name)
         trainers[name] = tr
     return trainers
 
 
-def plain_rollout(trainer, window, steps, n_windows, follow=None):
+def plain_rollout(trainer, window, steps, n_windows, follow=None,
+                  variables=None):
     """The engine's rollout written out through ``plain_forward``: the
     windows advance by the pushforward rule, the time feature clamps to
     [tw, nt - tw], and the LEM state of each sample whose window starts
     past nt - tw is zeroed. With ``follow`` (another rollout [B, S, nx,
-    tw]) each window advances by that rollout's prediction instead of its
-    own, the plain path's LEM state carried as its own."""
+    d tw]) each window advances by that rollout's prediction instead of
+    its own, the plain path's LEM state carried as its own. ``variables``:
+    the equation variables, {name: [B] tensor on the trainer's device}."""
     import torch
 
     from msmp_pde_torch.data.graph import advance_windows
@@ -1467,8 +1794,8 @@ def plain_rollout(trainer, window, steps, n_windows, follow=None):
                 if state is not None:
                     keep = (s <= nt - tw).to(w.dtype)[:, None, None]
                     state = tuple(x * keep for x in state)
-            pred, state = forward(w, torch.clamp(s, tw, nt - tw), {},
-                                  lem_state=state)
+            pred, state = forward(w, torch.clamp(s, tw, nt - tw),
+                                  variables or {}, lem_state=state)
             preds.append(pred)
     return torch.stack(preds, dim=1).cpu().numpy()
 
@@ -1575,13 +1902,151 @@ def msgmp_fit_phase(data_dir, work_dir, on):
         "--print_interval=100", "--device=cuda", f"--data_dir={data_dir}"])
     exp = setup_experiment(args, data_dir=data_dir)
     model = exp.trainer.model
-    check(model.hidden == GLU_H and model.layers == 6 and model.gated
-          and model.decoder == "glu", "fit: not MSGMP-PDE at full width")
+    check(model.hidden == GLU_H and model.layers == 6
+          and model.gate == "sigmoid" and model.decoder == "glu",
+          "fit: not MSGMP-PDE at full width")
     data = {m: train.device_arrays(exp.datasets[m], exp.trainer.device)
             for m in E1_SAMPLES}
     save_path = str(Path(work_dir) / "models" / "MSGMP-PDE_E1.pt")
     _, totals, took = counted_fit(args, exp, data, save_path, on)
     return exp.trainer, totals, took
+
+
+MODELS_2D = ("MP-PDE2D", "Gated2D", "MSMP-PDE2D", "MSGMP-PDE2D",
+             "SaveMSMP-PDE2D", "MSG2-PDE2D", "LSTMGated2D", "LEM2D",
+             "GLEMGated2D", "LSTM2D")
+
+
+def d50_phase(rand, T, dev):
+    """Phase 21: the message-passing kernels at the 2-D models' shapes on
+    RP's grid, D = 2 tw = 50 and V = 3 (t, a, b), with MSMP-PDE2D's,
+    MSGMP-PDE2D's (hidden 164) and MP-PDE2D's weights: the pair's forward
+    and backward at batches 1, 16 and 48 at hidden 128 and 164 (and the
+    narrow odd width of phases 3 and 8), the stash at batch 48 with the
+    fallback forced, both single-layer switch settings forward and
+    backward at batches 1, 4, 16 and 48; each against its plain version,
+    two runs bitwise equal. Returns ({kernel: max error}, the timings'
+    (kernel, operands) at batch 16, the stash at 48)."""
+    import torch
+
+    from msmp_pde_torch.ops import mp_pair
+
+    D = 2 * T
+    gated = weighted_trainer("RP", "MSMP-PDE2D", 30, dev)
+    glu = weighted_trainer("RP", "MSGMP-PDE2D", 31, dev)
+    plain = weighted_trainer("RP", "MP-PDE2D", 32, dev)
+    spec = gated.spec
+    nx, V = spec.nx, 1 + len(gated.eq_norms)
+    print(f"phase 21: the message-passing kernels at D = {D}, V = {V}")
+    w = lambda m: tuple(x.detach() for x in (m.gate_0.weights()
+                                             + m.gnn_0.weights()))
+    errs, fwd_args = {}, {}
+    with torch.no_grad():
+        for H, W in ((128, w(gated.model)), (GLU_H, w(glu.model))):
+            for B in (1, 16, 48):
+                args = (rand(B, nx, H), rand(B, nx, D),
+                        spec.x.expand(B, nx)[..., None] / spec.L,
+                        rand(B, nx, V, scale=.5), spec.idx, spec.mask,
+                        W[:12], W[12:])
+                ok = mp_pair.fused_gated_pair(*args)
+                again = mp_pair.fused_gated_pair(*args)
+                op = mp_pair.fused_gated_pair_plain(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(ok, again), f"mp_pair_fwd D={D} B={B} "
+                      f"H={H}: two runs differ")
+                e = (ok - op).abs().max().item()
+                errs["mp_pair_fwd"] = max(errs.get("mp_pair_fwd", 0.0), e)
+                print(f"mp_pair_fwd D={D} V={V} B={B} H={H}: max |kernel - "
+                      f"plain| = {e:.3e}; two runs bitwise equal")
+                check(e <= TOL_PAIR, f"mp_pair_fwd D={D} B={B} H={H} "
+                      f"differs by {e:.3e} > {TOL_PAIR}")
+                fwd_args[(H, B)] = args
+    e_bwd, bwd_args = check_pair_bwd(
+        rand, gated.model, spec, D, 128, V,
+        (glu.model.gate_0.weights(), glu.model.gnn_0.weights()),
+        b164=(1, 16, 48))
+    errs["mp_pair_bwd"] = max(e_bwd.values())
+    errs["mp_layer_fwd"], errs["mp_layer_bwd"] = check_layer_kernels(
+        rand, plain.model.gnn_0.weights(), spec, D, 128, V)
+    errs["mp_pair_fwd_stash"], e_fb, stash = check_pair_fallback(
+        rand, gated.model, spec, D, 128, V)
+    errs["mp_pair_fallback"] = e_fb
+    W1 = tuple(x.detach() for x in plain.model.gnn_0.weights())
+    layer = (*fwd_args[(128, 16)][:6], W1)
+    g16 = bwd_args[128][-1]
+    return errs, [("mp_pair_fwd", fwd_args[(128, 16)]),
+                  ("mp_pair_bwd", bwd_args[128]),
+                  ("mp_layer_fwd", layer), ("mp_layer_bwd", (*layer, g16)),
+                  ("mp_pair_fwd_stash", stash[0])]
+
+
+def rp_datagen_phase(data_dir, on):
+    """Phase 23, datagen: RP through the generate CLI on the card (32, 16
+    and 16 samples, float64) into ``data_dir``; the four resolutions, the
+    schema's keys and attributes, a and b by groups within their ranges,
+    finite values, the first train chunk at pde_250-100 against the port's
+    CPU solve of the same draws, and PDEDataset reading it."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.data.dataset import PDEDataset
+    from msmp_pde_torch.datagen import generate, hdf5_io
+    from msmp_pde_torch.equations import AD
+
+    argv = ["--experiment=RP", "--chunk=32", "--seed=0", "--device=cuda",
+            "--dtype=float64", f"--data_dir={data_dir}"]
+    argv += [f"--{m}_samples={n}" for m, n in E1_SAMPLES.items()]
+    args = generate.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    seconds = generate.main(args)
+    took = time.perf_counter() - t0
+    print(f"RP datagen in all (float64, the CLI's wall clock): {took:.3f} s, "
+          f"the solves {sum(seconds.values()):.3f} s ({on})")
+    tmax, a_range, b_range, family = generate.AD_EXPERIMENTS["RP"]
+    npz = Path(data_dir) / "AD_RP.npz"
+    check(npz.is_file(), f"datagen wrote no {npz}")
+    with hdf5_io.open_dataset(str(npz)) as f:
+        for mode, n in E1_SAMPLES.items():
+            for nt, nx in generate.RES_AD:
+                name = f"{mode}/pde_{nt}-{nx}"
+                u, a = f.array(name), f.attrs(name)
+                pde = AD(tmax=tmax, grid_size=(nt, nx), L=16.0)
+                check(u.shape == (n, 2, nt, nx) and u.dtype == np.float64,
+                      f"{name}: {u.shape} {u.dtype}")
+                check(bool(np.isfinite(u).all()), f"{name}: not finite")
+                check(int(a["nt"]) == nt and int(a["nx"]) == nx
+                      and float(a["dt"]) == pde.dt
+                      and float(a["dx"]) == pde.dx
+                      and float(a["tmin"]) == 0.0
+                      and float(a["tmax"]) == tmax
+                      and np.array_equal(a["x"], np.linspace(0, 16.0, nx)),
+                      f"{name}: attributes {a}")
+            for name, (lo, hi) in (("a", a_range), ("b", b_range)):
+                v = f.array(f"{mode}/{name}")
+                check(v.shape == (n,) and lo <= v.min() and v.max() <= hi
+                      and bool(np.all(v.reshape(-1, args.batch_size)
+                                      == v[::args.batch_size, None])),
+                      f"{mode}/{name}: {v}")
+        chunk = f.array("train/pde_250-100")[:32]
+    pdes = generate.ad_pdes(tmax, family)
+    draws = generate.draw_ad_chunk(np.random.default_rng(0), 32,
+                                   args.batch_size, a_range, b_range,
+                                   family, next(iter(pdes.values())))
+    cpu = generate.ad_solver(pdes["pde_250-100"], family, torch.float64,
+                             "cpu")(*(torch.as_tensor(d) for d in draws))
+    e = float(np.abs(cpu.numpy() - chunk).max())
+    print(f"RP train chunk 0 at pde_250-100: max |card - CPU| = {e:.3e} "
+          f"(max |u| {float(cpu.abs().max()):.3f})")
+    check(e <= TOL_DATAGEN, f"RP datagen: the card's chunk differs from the "
+          f"CPU's by {e:.3e} > {TOL_DATAGEN}")
+    ds = PDEDataset(str(npz), AD(tmax=tmax, grid_size=(250, 100), L=16.0),
+                    "train")
+    check(ds.u_super.shape == (32, 250, 2, 100)
+          and ds.u_super.dtype == np.float32 and ds.n_components == 2
+          and bool(np.isfinite(ds.u_super).all())
+          and set(ds.variables) == {"a", "b"}, "PDEDataset on RP")
+    print(f"PDEDataset: RP train u_super {ds.u_super.shape} "
+          f"{ds.u_super.dtype}, u_base {ds.u_base.shape}, x {ds.x.shape}")
 
 
 def main():
@@ -1608,6 +2073,7 @@ def main():
         smooth,
         time_rollouts,
         time_train_steps,
+        train_data,
     )
     from msmp_pde_torch.training.setup import build_trainer
     from msmp_pde_torch.utils.convert import params_from_flax
@@ -1663,7 +2129,7 @@ def main():
     print(f"MSMP-PDE E1: {n_params} parameters")
     engine = RolloutEngine(trainer, params, batch_buckets=BUCKETS)
     spec = trainer.spec
-    nx, K = spec.idx.shape
+    nx = spec.nx
     V = 1 + len(trainer.eq_norms)
 
     # 3. fused gated-pair kernel vs plain, at the model's own weights ----
@@ -1726,27 +2192,12 @@ def main():
     # every LEM product runs in 3xTF32 on the tensor cores
     lem_bound, lem_by = bound(lem_bytes, 0, lem_flops)
 
-    D = T
-    w_elems = sum(w.numel() for w in Wg) + sum(w.numel() for w in Wl)
-    e_valid = float(spec.mask.sum().item())
-    per_layer, edge, bwd_layer = layer_ops(nx, H, D, V, e_valid)
     print(f"lem_fwd @bucket 16: kernel {lem_ms:.4f} ms, plain "
           f"{lem_plain_ms:.4f} ms (CUDA graph; {lem_eager_ms:.4f} ms eager), "
           f"bound {lem_bound:.4f} ms ({lem_by})")
-    pair_times = {}  # bucket: (kernel, plain, eager, bound ms, bound by)
-    for B in (1, 16):
-        pargs = pair_args[B]
-        with torch.no_grad():
-            ms = timed(lambda: mp_pair.fused_gated_pair(*pargs))
-            ems = timed(lambda: mp_pair.fused_gated_pair_plain(*pargs))
-            pms = timed_graph(lambda: mp_pair.fused_gated_pair_plain(*pargs))
-        bms, by = bound(
-            4 * (B * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_elems),
-            B * 2 * (per_layer - edge), B * 2 * edge)
-        pair_times[B] = (ms, pms, ems, bms, by)
-        print(f"mp_pair_fwd @bucket {B}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms (CUDA graph; {ems:.4f} ms eager), bound "
-              f"{bms:.4f} ms ({by})")
+    # bucket: (kernel, plain, eager, bound ms, bound by)
+    pair_times = dict(zip((1, 16), mp_kernel_times(
+        [("mp_pair_fwd", pair_args[B]) for B in (1, 16)])))
     pair_ms, pair_plain_ms, _, pair_bound, pair_by = pair_times[16]
 
     time_forwards(trainer, window, steps, "MSMP-PDE", {
@@ -1786,17 +2237,8 @@ def main():
     lbwd_flops = 24 * T * N * H * H
     lbwd_bound, lbwd_by = bound(
         4 * (10 * T * N * H + 6 * N * H + 8 * H * H), 0, lbwd_flops)
-    pbwd_ms = timed(lambda: mp_pair.fused_gated_pair_bwd_kernel(*pbwd_args))
-    pbwd_eager_ms = timed(
-        lambda: mp_pair.fused_gated_pair_bwd_plain(*pbwd_args))
-    pbwd_plain_ms = timed_graph(
-        lambda: mp_pair.fused_gated_pair_bwd_plain(*pbwd_args))
-    # a layer's forward and backward: three edge products on the tensor
-    # cores, the rest on the CUDA cores
-    fb_core = per_layer + bwd_layer - 3 * edge
-    pbwd_bound, pbwd_by = bound(
-        4 * (16 * nx * (3 * H + D + 1 + V) + 2 * nx * K + 2 * w_elems),
-        16 * 2 * fb_core, 16 * 2 * 3 * edge)
+    (pbwd_ms, pbwd_plain_ms, _, pbwd_bound, pbwd_by), = mp_kernel_times(
+        [("mp_pair_bwd", pbwd_args)])
     lem_card_times(rand, T, H)
     # the LEM bounds take every product as 3xTF32 (the kernels' type);
     # the same products as float32 FMAs on the CUDA cores, beside them
@@ -1809,9 +2251,7 @@ def main():
             ("lem_fwd_stash", stash_ms, stash_plain_ms, stash_eager_ms,
              stash_bound, stash_by),
             ("lem_bwd", lbwd_ms, lbwd_plain_ms, lbwd_eager_ms, lbwd_bound,
-             lbwd_by),
-            ("mp_pair_bwd", pbwd_ms, pbwd_plain_ms, pbwd_eager_ms,
-             pbwd_bound, pbwd_by)):
+             lbwd_by)):
         print(f"{name} @batch 16: kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(CUDA graph; {ems:.4f} ms eager), bound {bms:.4f} ms ({by})")
     time_train_steps(train_tr, u_all, "MSMP-PDE")
@@ -1855,35 +2295,18 @@ def main():
 
     # 16. timings of the slice's kernels and of MP-PDE -------------------
     W1 = tuple(w.detach() for w in mp_tr.model.gnn_0.weights())
-    w_one = sum(w.numel() for w in W1)
     largs16 = (*pair_args[16][:6], W1)
     g16 = rand(16, nx, H)
+    # one layer as the pair counts one (plus the residual's read of h and
+    # final swish, elementwise); the backward as the pair's, for one layer;
+    # the pair forward at batch 48 with gn and ln written too
+    (lf1_ms, *_), (lf_ms, lf_plain_ms, _, lf_bound, lf_by), \
+        (lb_ms, lb_plain_ms, _, lb_bound, lb_by), \
+        (st_ms, st_plain_ms, _, st_bound, st_by) = mp_kernel_times([
+            ("mp_layer_fwd", (*pair_args[1][:6], W1)),
+            ("mp_layer_fwd", largs16), ("mp_layer_bwd", (*largs16, g16)),
+            ("mp_pair_fwd_stash", args48)])
     with torch.no_grad():
-        largs1 = (*pair_args[1][:6], W1)
-        lf1_ms = timed(
-            lambda: mp_layer.fused_mp_layer_kernel(*largs1, True, True))
-        lf1_eager_ms = timed(
-            lambda: mp_layer.fused_mp_layer_plain(*largs1, True, True))
-        lf1_plain_ms = timed_graph(
-            lambda: mp_layer.fused_mp_layer_plain(*largs1, True, True))
-        lf_ms = timed(
-            lambda: mp_layer.fused_mp_layer_kernel(*largs16, True, True))
-        lf_eager_ms = timed(
-            lambda: mp_layer.fused_mp_layer_plain(*largs16, True, True))
-        lf_plain_ms = timed_graph(
-            lambda: mp_layer.fused_mp_layer_plain(*largs16, True, True))
-        lb_ms = timed(lambda: mp_layer.fused_mp_layer_bwd_kernel(
-            *largs16, g16, True, True))
-        lb_eager_ms = timed(lambda: mp_layer.fused_mp_layer_bwd_plain(
-            *largs16, g16, True, True))
-        lb_plain_ms = timed_graph(lambda: mp_layer.fused_mp_layer_bwd_plain(
-            *largs16, g16, True, True))
-        st_ms = timed(
-            lambda: mp_pair.fused_gated_pair_kernel(*args48, stash=True))
-        st_eager_ms = timed(
-            lambda: mp_pair.fused_gated_pair_plain(*args48, stash=True))
-        st_plain_ms = timed_graph(
-            lambda: mp_pair.fused_gated_pair_plain(*args48, stash=True))
         pargs16 = (*pair_args[16][:6], *args48[6:])
         st16_ms = timed(
             lambda: mp_pair.fused_gated_pair_kernel(*pargs16, stash=True))
@@ -1898,32 +2321,6 @@ def main():
             lambda: mp_pair.fused_gated_pair_bwd_kernel(*pargs16, g16))
         fb16_ms = timed(
             lambda: mp_pair.fallback_bwd(*pargs16, gn16, ln16, g16))
-    # one layer as the pair counts one (plus the residual's read of h and
-    # final swish, elementwise); the backward as the pair's, for one layer
-    lf_bound, lf_by = bound(
-        4 * (16 * nx * (2 * H + D + 1 + V) + 2 * nx * K + w_one),
-        16 * (per_layer - edge), 16 * edge)
-    lf1_bound, lf1_by = bound(
-        4 * (nx * (2 * H + D + 1 + V) + 2 * nx * K + w_one),
-        per_layer - edge, edge)
-    lb_bound, lb_by = bound(
-        4 * (16 * nx * (3 * H + D + 1 + V) + 2 * nx * K + 2 * w_one),
-        16 * fb_core, 16 * 3 * edge)
-    # the pair forward at batch 48 with gn and ln written too
-    st_bound, st_by = bound(
-        4 * (48 * nx * (4 * H + D + 1 + V) + 2 * nx * K + w_elems),
-        48 * 2 * (per_layer - edge), 48 * 2 * edge)
-    for name, at, ms, pms, ems, bms, by in (
-            ("mp_layer_fwd", "batch 1", lf1_ms, lf1_plain_ms, lf1_eager_ms,
-             lf1_bound, lf1_by),
-            ("mp_layer_fwd", "batch 16", lf_ms, lf_plain_ms, lf_eager_ms,
-             lf_bound, lf_by),
-            ("mp_layer_bwd", "batch 16", lb_ms, lb_plain_ms, lb_eager_ms,
-             lb_bound, lb_by),
-            ("mp_pair_fwd_stash", "batch 48", st_ms, st_plain_ms,
-             st_eager_ms, st_bound, st_by)):
-        print(f"{name} @{at}: kernel {ms:.4f} ms, plain {pms:.4f} ms "
-              f"(CUDA graph; {ems:.4f} ms eager), bound {bms:.4f} ms ({by})")
     print(f"mp_pair_fwd @batch 16: stash {st16_ms:.4f} ms, no stash "
           f"{nost16_ms:.4f} ms")
     for at, fused_ms, fb_ms in ((48, fused48_ms, fb48_ms),
@@ -2034,33 +2431,16 @@ def main():
           f"torch.matmul {wgrad_lib_ms:.4f} ms (two calls; a yardstick, "
           f"not the port's), bound {wgrad_bound[0]:.4f} ms "
           f"({wgrad_bound[1]}); one launch a lem_bwd call")
-    gw = sum(w.numel() for w in W164[0]) + sum(w.numel() for w in W164[1])
-    g_fwd, g_edge, g_bwd = layer_ops(nx, Hg, D, V, e_valid)
-    gpf, gpb = pair_args[(Hg, 16)], pbwd_all[Hg]
-    with torch.no_grad():
-        gpair = {
-            "mp_pair_fwd": (
-                timed(lambda: mp_pair.fused_gated_pair(*gpf)),
-                timed_graph(lambda: mp_pair.fused_gated_pair_plain(*gpf)),
-                timed(lambda: mp_pair.fused_gated_pair_plain(*gpf))),
-            "mp_pair_bwd": (
-                timed(lambda: mp_pair.fused_gated_pair_bwd_kernel(*gpb)),
-                timed_graph(
-                    lambda: mp_pair.fused_gated_pair_bwd_plain(*gpb)),
-                timed(lambda: mp_pair.fused_gated_pair_bwd_plain(*gpb)))}
-    g_bounds["mp_pair_fwd"] = bound(
-        4 * (16 * nx * (2 * Hg + D + 1 + V) + 2 * nx * K + gw),
-        16 * 2 * (g_fwd - g_edge), 16 * 2 * g_edge)
-    g_bounds["mp_pair_bwd"] = bound(
-        4 * (16 * nx * (3 * Hg + D + 1 + V) + 2 * nx * K + 2 * gw),
-        16 * 2 * (g_fwd + g_bwd - 3 * g_edge), 16 * 2 * 3 * g_edge)
-    g_times = {**glem, **gpair}
-    for name, (ms, pms, ems) in g_times.items():
-        bms, by = g_bounds[name]
-        print(f"{name} @hidden {Hg}, batch 16: kernel {ms:.4f} ms, plain "
+    g_times = {name: (*t, *g_bounds[name]) for name, t in glem.items()}
+    for name, (ms, pms, ems, bms, by) in g_times.items():
+        print(f"{name} @hidden {Hg}, N={N}: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms (CUDA graph; {ems:.4f} ms eager), bound "
-              f"{bms:.4f} ms ({by}); {msgmp_counts[name]} launches in the "
-              "MSGMP-PDE fit")
+              f"{bms:.4f} ms ({by})")
+    g_times.update(zip(("mp_pair_fwd", "mp_pair_bwd"), mp_kernel_times(
+        [("mp_pair_fwd", pair_args[(Hg, 16)]),
+         ("mp_pair_bwd", pbwd_all[Hg])])))
+    print("hidden-164 launches in the MSGMP-PDE fit: " + ", ".join(
+        f"{name} {msgmp_counts[name]}" for name in g_times))
     time_train_steps(msgmp_tr, u_all, "MSGMP-PDE")
     print(f"MSGMP-PDE fit epoch (500 steps and its metrics): "
           f"{msgmp_fit_s:.3f} s")
@@ -2068,6 +2448,49 @@ def main():
         build_serving_trainer("E1", "MSGMP-PDE", device=dev),
         variant_params["MSGMP-PDE"], batch_buckets=BUCKETS)
     time_rollouts(msgmp_engine, "MSGMP-PDE")
+
+    # 21. the message-passing kernels at D = 50, V = 3 -------------------
+    t21 = time.perf_counter()
+    d50_err, d50_ops = d50_phase(rand, T, dev)
+    t22 = time.perf_counter()
+
+    # 22. the ten 2-D models at full width on RP's grid ------------------
+    u2, var2 = train_data(build_trainer("RP", "MSMP-PDE2D", device=dev),
+                          TRAIN_BATCH, seed=3)
+    trs2d = variants_phase(rand, u2, T, MODELS_2D, "RP", var2, seed=40,
+                           f64_models=("MSG2-PDE2D",))
+    f64_seed_readings(u2, var2, "MSG2-PDE2D", (60, 61, 62))
+    t23 = time.perf_counter()
+
+    # 23. RP on the card, fit and serve; the 2-D main paths' launches ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rp_") as work:
+        data_dir = str(Path(work) / "data")
+        rp_datagen_phase(data_dir, on)
+        fit2d_counts = fit_phase(data_dir, work, on, "RP", "MSMP-PDE2D",
+                                 epochs=1, per_window=True)
+    print(f"MSMP-PDE2D fit main path launches: {nonzero(fit2d_counts)}")
+    msg2_counts, msg2_epoch_s = train_main_path(
+        trs2d["MSG2-PDE2D"], u2, "MSG2-PDE2D", var2)
+    print(f"MSG2-PDE2D train_epoch (250 steps): {msg2_epoch_s:.3f} s")
+    u48, var48 = train_data(trs2d["MSMP-PDE2D"], 48, seed=5)
+    fb2d_counts = fallback_step(trs2d["MSMP-PDE2D"], u48, "MSMP-PDE2D",
+                                var48)
+    del u48
+    engines2d = {
+        name: RolloutEngine(build_serving_trainer("RP", name, device=dev),
+                            {k: v.detach() for k, v in
+                             trs2d[name].model.state_dict().items()},
+                            batch_buckets=BUCKETS)
+        for name in ("MSMP-PDE2D", "MSG2-PDE2D", "GLEMGated2D")}
+    served2d = {name: serve_path(engines2d[name], name, "RP")
+                for name in ("MSG2-PDE2D", "GLEMGated2D")}
+    d50_t = dict(zip((name for name, _ in d50_ops),
+                     mp_kernel_times(d50_ops)))
+    time_rollouts(engines2d["MSMP-PDE2D"], "MSMP-PDE2D")
+    time_train_steps(trs2d["MSMP-PDE2D"], u2, "MSMP-PDE2D", var2)
+    print(f"MSMP-PDE2D and MSMP-PDE timings on {on}")
+    print(f"phases 21, 22 and 23: {t22 - t21:.3f} s, {t23 - t22:.3f} s and "
+          f"{time.perf_counter() - t23:.3f} s")
 
     kernels = [
         {"name": "lem_fwd", "route": "cuda",
@@ -2134,15 +2557,14 @@ def main():
               "mp_pair_bwd": by_route(e_pbwd)[1]}
     ring_names = {"lem_fwd": "lem_fwd_ring", "lem_fwd_stash":
                   "lem_fwd_ring_stash"}
-    for name, (ms, pms, _) in g_times.items():
+    for name, (ms, pms, _, bms, by) in g_times.items():
         src = name.replace("_stash", "")
         kernels.append({
             "name": f"{ring_names.get(name, name)}@hidden{Hg}",
             "route": "cuda", "source": f"msmp_pde_torch/csrc/{src}.cu",
             "replaces": REPLACES[name], "launches": msgmp_counts[name],
             "max_abs_err": g_errs[name], "ms": ms, "plain_ms": pms,
-            "bound_ms": g_bounds[name][0], "bound_by": g_bounds[name][1],
-            "library_ms": None})
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
     kernels.append({
         "name": f"lem_bwd_wgrad@hidden{Hg}", "route": "cuda",
         "source": "msmp_pde_torch/csrc/lem_bwd.cu",
@@ -2150,6 +2572,24 @@ def main():
         "max_abs_err": e_wgrad[Hg], "ms": wgrad_ms,
         "plain_ms": wgrad_plain_ms, "bound_ms": wgrad_bound[0],
         "bound_by": wgrad_bound[1], "library_ms": wgrad_lib_ms})
+    # the message-passing kernels at the 2-D models' D = 50, V = 3, hidden
+    # 128: launches in phase 23's main paths (the pair in the MSMP-PDE2D
+    # fit, the single layer in the served MSG2-PDE2D requests and its
+    # train_epoch, the stash in the forced-fallback step)
+    d50_launches = {
+        "mp_pair_fwd": fit2d_counts["mp_pair_fwd"],
+        "mp_pair_bwd": fit2d_counts["mp_pair_bwd"],
+        "mp_layer_fwd": served2d["MSG2-PDE2D"]["mp_layer_fwd"],
+        "mp_layer_bwd": msg2_counts["mp_layer_bwd"],
+        "mp_pair_fwd_stash": fb2d_counts["mp_pair_fwd_stash"]}
+    for name, (ms, pms, _, bms, by) in d50_t.items():
+        src = name.replace("_stash", "")
+        kernels.append({
+            "name": f"{name}@D50", "route": "cuda",
+            "source": f"msmp_pde_torch/csrc/{src}.cu",
+            "replaces": REPLACES[name], "launches": d50_launches[name],
+            "max_abs_err": d50_err[name], "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(on)
     print(json.dumps({"ok": True, "device": {

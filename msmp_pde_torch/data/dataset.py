@@ -1,19 +1,23 @@
 """Dataset reader with super -> base down-projection (counterpart of
-msmp_pde_tpu/data/dataset.py, the CE family).
+msmp_pde_tpu/data/dataset.py, the CE and AD families).
 
 Reads one mode of a dataset file, the port's ``.npz`` or, where ``h5py``
 imports, an ``.h5`` in the reference schema (datagen/hdf5_io.py), and
 holds as numpy arrays:
 
-* ``u_base``: the coarse numerical trajectories [N, nt, nx];
+* ``u_base``: the coarse numerical trajectories [N, nt, nx] (AD:
+  [N, nt, 2, nx]);
 * ``u_super``: the super-resolution trajectories down-projected to the
-  base resolution, the training target: temporal stride ``ratio_nt``, the
-  periodic duplicated-endpoint pad (u[-3:-1] left, u[1:3] right), then
-  the 5-tap averaging kernel [0.2] * 5 with spatial stride ``ratio_nx``;
+  base resolution, the training target. CE: temporal stride
+  ``ratio_nt``, the periodic duplicated-endpoint pad (u[-3:-1] left,
+  u[1:3] right), then the 5-tap averaging kernel [0.2] * 5 with spatial
+  stride ``ratio_nx``. AD (stored [N, 2, nt, nx]): temporal stride
+  ``ratio_nt``, then every second point ``u[..., 0:-1:2]``, laid out as
+  [N, nt, 2, nx];
 * ``x``: the base coordinates, and the equation's scalar ``variables``.
 
-The other families (KF, KS, WE, AD) come with their datagen (ROADMAP.md
-Queue 1 item 15).
+The other families (KF, KS, WE) and the unstructured AD grid (RPU) come
+with their datagen (ROADMAP.md Queue 1 items 7 and 15).
 """
 from __future__ import annotations
 
@@ -39,8 +43,7 @@ def _avg_downproject(u: np.ndarray, ratio_nx: int) -> np.ndarray:
 class PDEDataset:
     """One mode (train/valid/test) of a dataset file."""
 
-    VAR_NAMES = {"CE": ("alpha", "beta", "gamma")}
-    n_components = 1
+    VAR_NAMES = {"CE": ("alpha", "beta", "gamma"), "AD": ("a", "b")}
 
     def __init__(self, path: str, pde, mode: str, base_resolution=None,
                  super_resolution=None, dtype=np.float32):
@@ -49,6 +52,10 @@ class PDEDataset:
             raise NotImplementedError(
                 f"{family} datasets are not ported yet (ROADMAP.md Queue 1 "
                 "item 15)")
+        if getattr(pde, "unstructured_grid", False):
+            raise NotImplementedError(
+                "unstructured AD datasets (RPU) are not ported yet "
+                "(ROADMAP.md Queue 1 item 7)")
         self.pde = pde
         self.mode = mode
         self.base_resolution = tuple(base_resolution or (250, 100))
@@ -77,10 +84,18 @@ class PDEDataset:
         self.tmax = float(attrs["tmax"])
         x = np.asarray(attrs["x"], np.float64)
 
-        u = _avg_downproject(u_super[:, ::ratio_nt], ratio_nx)
+        if family == "AD":
+            u = np.swapaxes(u_super[:, :, ::ratio_nt][..., 0:-1:2], 1, 2)
+            u_base = np.swapaxes(u_base, 1, 2)
+        else:
+            u = _avg_downproject(u_super[:, ::ratio_nt], ratio_nx)
         self.u_base = u_base.astype(dtype)
         self.u_super = u.astype(dtype)
         self.x = x.astype(dtype)
 
     def __len__(self):
         return self.u_super.shape[0]
+
+    @property
+    def n_components(self) -> int:
+        return self.pde.n_components

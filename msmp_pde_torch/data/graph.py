@@ -53,13 +53,14 @@ class GraphSpec:
 
 def build_graph_spec(pde, grid, n_neighbors: int, time_window: int,
                      device) -> GraphSpec:
-    """Radius stencil graph for the uniform-grid families; the k-NN graphs
-    (WE, unstructured AD) are not ported yet."""
+    """Radius stencil graph for the uniform-grid families (CE, and AD with
+    ``grid.n_components`` = 2); the k-NN graphs (WE, unstructured AD) are
+    not ported yet."""
     family = f"{pde}"
     if family == "WE" or getattr(pde, "unstructured_grid", False):
         raise NotImplementedError(
             f"{family} k-NN graphs are not ported yet (ROADMAP.md Queue 1 "
-            "item 6)")
+            "item 7)")
     x = np.asarray(grid.x)
     idx, mask = build_neighbors_radius(x, n_neighbors)
     t_grid = np.linspace(grid.tmin, grid.tmax, grid.nt).astype(x.dtype)

@@ -1,14 +1,19 @@
 """Dataset generation CLI (counterpart of msmp_pde_tpu/datagen/generate.py,
-the combined-equation family):
+the combined-equation family and the linear advection system):
 
     python -m msmp_pde_torch.datagen.generate --experiment=E1 \
         --train_samples=2048 --valid_samples=128 --test_samples=128
 
-writes ``{data_dir}/CE_{experiment}.npz``, and ``.h5`` where ``h5py``
-imports (datagen/hdf5_io.py), with all four resolutions of ``RES_CE``.
+writes ``{data_dir}/{family}_{experiment}.npz``, and ``.h5`` where
+``h5py`` imports (datagen/hdf5_io.py), with all four resolutions of
+``RES_CE`` (``RES_AD`` is the same list).
 
-TaskIDs: E1, E2, E3 and kdv, which differ only in their coefficient
-ranges. A chunk of ``--chunk`` samples integrates at once (the adaptive
+TaskIDs: E1, E2, E3 and kdv (family CE), which differ only in their
+coefficient ranges; RP, MSWG and MSWG3 (family AD, ``AD_EXPERIMENTS``),
+the two-component advection system solved exactly by characteristics
+(equations/ad.py), trajectories [n, 2, nt, nx] with the speeds a and b.
+RPU (the LCG grid) is not ported. A CE chunk of ``--chunk`` samples
+integrates at once (the adaptive
 solver's error max is shared across the chunk, so the chunk size is part
 of what defines the data). Coefficients are drawn once per
 ``--batch_size`` group. The random draws come from one
@@ -16,7 +21,9 @@ of what defines the data). Coefficients are drawn once per
 alpha, beta, gamma groups (a coefficient whose range is one value draws
 nothing), then the sum-of-sines parameters (datagen/ics.py): one seed
 gives the same data on the card and on the CPU, but not the JAX
-package's numbers, which come from threefry keys.
+package's numbers, which come from threefry keys. An AD chunk draws a
+groups, then b groups, then its initial condition's parameters
+(``draw_ad_chunk``).
 
 The sum of sines is both the initial condition, u0 = force(0), and a
 forcing term added to the right-hand side at every stage time.
@@ -45,7 +52,16 @@ CE_EXPERIMENTS = {
     "E3": (2.0, (0.0, 6.0), (0.1, 0.4), (0.0, 1.0)),
     "kdv": (2.0, (3.0, 3.0), (0.0, 0.0), (1.0, 1.0)),
 }
-NOT_PORTED = ("WE1", "WE2", "WE3", "KF", "KS", "RP", "RPU", "MSWG", "MSWG3")
+# resolutions of the AD family: the CE list
+RES_AD = RES_CE
+# experiment -> (tmax, a range, b range, initial condition); L is 2 pi for
+# the gaussian families, 16 for the sum of sines
+AD_EXPERIMENTS = {
+    "RP": (4.0, (0.1, 1.0), (1.0, 10.0), "sinesum"),
+    "MSWG": (3.0, (0.1, 1.0), (1.0, 10.0), "gaussian"),
+    "MSWG3": (1.0, (0.1, 0.5), (8.0, 10.0), "gaussian_triple"),
+}
+NOT_PORTED = ("WE1", "WE2", "WE3", "KF", "KS")
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
@@ -157,12 +173,113 @@ def generate_ce(args, tmax: float, alpha, beta, gamma):
     return seconds
 
 
+def ad_pdes(tmax: float, initial_condition: str):
+    """{resolution key: AD} of RES_AD: L = 2 pi for the gaussian families,
+    16 for the sum of sines."""
+    from msmp_pde_torch.equations import AD
+
+    L = 16.0 if initial_condition == "sinesum" else 2 * np.pi
+    return {f"pde_{nt}-{nx}": AD(tmin=0.0, tmax=tmax, grid_size=(nt, nx),
+                                 L=L) for nt, nx in RES_AD}
+
+
+def draw_ad_chunk(rng: np.random.Generator, c: int, batch_size: int,
+                  a_range, b_range, initial_condition: str, pde):
+    """The random draws of one AD chunk of ``c`` samples, in their order:
+    a [c] and b [c], one value a ``batch_size`` group, then the initial
+    condition's parameters (datagen/ics.py); numpy float64."""
+    from msmp_pde_torch.datagen import ics
+
+    groups = -(-c // batch_size)
+    a, b = (np.repeat(_group_draw(rng, groups, *r), batch_size)[:c]
+            for r in (a_range, b_range))
+    sample = ics.AD_ICS[initial_condition][0]
+    if initial_condition == "sinesum":
+        params = sample(rng, c, pde.n_waves, pde.lmin, pde.lmax)
+    else:
+        params = sample(rng, c)
+    return (a, b, *params)
+
+
+def ad_solver(pde, initial_condition: str, dtype: torch.dtype, device):
+    """solve(a, b, *ic parameters) -> [B, 2, nt, nx]: the exact
+    trajectories of one chunk on ``pde``'s grid, every argument a tensor on
+    ``device``."""
+    from msmp_pde_torch.datagen import ics
+    from msmp_pde_torch.equations.ad import exact_solution_batch
+
+    x = torch.as_tensor(np.linspace(0.0, pde.L, pde.nx), dtype=dtype,
+                        device=device)
+    ts = torch.as_tensor(np.linspace(pde.tmin, pde.tmax, pde.nt),
+                         dtype=dtype, device=device)
+    build = ics.AD_ICS[initial_condition][1]
+
+    def solve(a, b, *params):
+        return exact_solution_batch(build(*params, pde.L), x, ts, a, b)
+
+    return solve
+
+
+def generate_rp(args, tmax: float, a_range, b_range, initial_condition):
+    """Writes the AD dataset; returns {(mode, resolution key): seconds}."""
+    from msmp_pde_torch.datagen.hdf5_io import DatasetWriter
+    from msmp_pde_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    dtype = DTYPES[args.dtype]
+    pdes = ad_pdes(tmax, initial_condition)
+    solvers = {k: ad_solver(p, initial_condition, dtype, dev)
+               for k, p in pdes.items()}
+    res_meta = {
+        k: dict(nt=p.nt, nx=p.nx, dt=p.dt, dx=p.dx, tmin=p.tmin,
+                tmax=p.tmax, x=np.linspace(0.0, p.L, p.nx))
+        for k, p in pdes.items()
+    }
+    pde0 = next(iter(pdes.values()))
+    rng = np.random.default_rng(args.seed)
+    counts = {"train": args.train_samples, "valid": args.valid_samples,
+              "test": args.test_samples}
+    seconds = {}
+    os.makedirs(args.data_dir, exist_ok=True)
+    stem = os.path.join(args.data_dir, f"AD_{args.experiment}")
+    with DatasetWriter(stem) as out:
+        for mode in MODES:
+            n = counts[mode]
+            w = out.mode(mode, n, res_meta, ("a", "b"), components=2)
+            print(f"Mode: {mode}  samples: {n}")
+            for start, c in _chunks(n, args.chunk):
+                draws = draw_ad_chunk(rng, c, args.batch_size, a_range,
+                                      b_range, initial_condition, pde0)
+                on_dev = [torch.as_tensor(a, dtype=dtype, device=dev)
+                          for a in draws]
+                for k in pdes:
+                    t1 = time.perf_counter()
+                    traj = solvers[k](*on_dev).cpu().numpy()
+                    took = time.perf_counter() - t1
+                    seconds[(mode, k)] = seconds.get((mode, k), 0.0) + took
+                    print(f"{k}: {took:.4f}s")
+                    w.write(k, start, traj)
+                w.write_scalar("a", start, draws[0])
+                w.write_scalar("b", start, draws[1])
+                print(f"Solved {start + c} / {n}")
+                sys.stdout.flush()
+    print(f"Data saved to {out.npz_path}"
+          + (f" and {out.h5_path}" if out.h5_path else ""))
+    return seconds
+
+
 def main(args):
     e = args.experiment
     if e in NOT_PORTED:
         raise NotImplementedError(
             f"experiment {e!r} is not ported yet (ROADMAP.md Queue 1 item "
             "15, the other datagen families)")
+    if e == "RPU":
+        raise NotImplementedError(
+            "RPU (the LCG grid, its k-NN graph) is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
+    if e in AD_EXPERIMENTS:
+        return generate_rp(args, *AD_EXPERIMENTS[e])
     if e not in CE_EXPERIMENTS:
         raise ValueError(f"unknown experiment {e!r}")
     return generate_ce(args, *CE_EXPERIMENTS[e])

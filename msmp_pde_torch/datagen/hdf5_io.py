@@ -5,10 +5,12 @@ One generated dataset is ``{stem}.npz`` always, and ``{stem}.h5`` as well
 where ``h5py`` imports (the card's machine has no ``h5py``). Both hold all
 three modes with one layout:
 
-* ``{mode}/pde_{nt}-{nx}``: float64 [num_samples, nt, nx], with the
-  attributes dt, dx, nt, nx, tmin, tmax, x (in the ``.npz`` the array
+* ``{mode}/pde_{nt}-{nx}``: float64 [num_samples, nt, nx], or
+  [num_samples, 2, nt, nx] for the two-component advection system, with
+  the attributes dt, dx, nt, nx, tmin, tmax, x (in the ``.npz`` the array
   ``{mode}/pde_{nt}-{nx}/attrs/{name}`` each);
-* ``{mode}/alpha``, ``{mode}/beta``, ``{mode}/gamma``: [num_samples].
+* the per-sample scalars, ``{mode}/alpha``, ``{mode}/beta``,
+  ``{mode}/gamma`` (CE) or ``{mode}/a``, ``{mode}/b`` (AD): [num_samples].
 
 The ``.h5`` is the JAX package's merged layout, so its reader takes the
 port's data, and the port reads the JAX package's ``.h5`` files.
@@ -36,17 +38,19 @@ def _attr_key(name: str, attr: str) -> str:
 class ModeWriter:
     """Writes one mode group (train/valid/test) chunk by chunk, into the
     ``.npz``'s arrays in memory and into the ``.h5`` group where there is
-    one."""
+    one. ``components`` > 1 puts a component axis after the samples'."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], h5f, mode: str,
                  num_samples: int, resolutions: Dict[str, dict],
-                 scalar_names: Sequence[str] = ()):
+                 scalar_names: Sequence[str] = (), components: int = 1):
         self.mode = mode
         self.group = h5f.create_group(mode) if h5f is not None else None
         self.u, self.h5 = {}, {}
+        lead = (num_samples,) if components == 1 else (num_samples,
+                                                        components)
         for key, meta in resolutions.items():
             name = f"{mode}/{key}"
-            shape = (num_samples, meta["nt"], meta["nx"])
+            shape = lead + (meta["nt"], meta["nx"])
             self.u[key] = arrays[name] = np.zeros(shape, np.float64)
             for attr in ATTRS:
                 arrays[_attr_key(name, attr)] = np.asarray(meta[attr])
@@ -98,9 +102,10 @@ class DatasetWriter:
         return self
 
     def mode(self, mode: str, num_samples: int, resolutions: Dict[str, dict],
-             scalar_names: Sequence[str] = ()) -> ModeWriter:
+             scalar_names: Sequence[str] = (),
+             components: int = 1) -> ModeWriter:
         return ModeWriter(self.arrays, self.h5f, mode, num_samples,
-                          resolutions, scalar_names)
+                          resolutions, scalar_names, components)
 
     def __exit__(self, exc_type, exc, tb):
         if self.h5f is not None:

@@ -1,5 +1,6 @@
 """Initial conditions for dataset generation (counterpart of
-msmp_pde_tpu/datagen/ics.py, the sum-of-sines family).
+msmp_pde_tpu/datagen/ics.py): the sum of sines, and the advection
+system's sinesum, gaussian and gaussian_triple families.
 
 The parameters are drawn on the host from an explicit
 ``numpy.random.Generator``, so the card and the CPU make the same data
@@ -8,8 +9,12 @@ the same distributions, not the same numbers. Draw order, each of shape
 [batch, 1, n_waves]: A ~ U(-0.5, 0.5), then omega ~ 0.8 * U(-0.5, 0.5),
 then phi ~ U(0, 2 pi), then l ~ randint[lmin, lmax) (high exclusive).
 
-The LCG grid, the von Mises and the square / gaussian samplers come with
-the advection family (ROADMAP.md Queue 1 item 15).
+The advection families draw their parameters with ``sample_*_ic`` (numpy
+arrays, in the order each docstring gives) and evaluate them with the
+matching ``*_ic`` builder, whose ``u0_fn(pts [B, M]) -> [B, 2, M]`` takes
+points already shifted along the characteristics and wraps them into
+[0, L). The LCG grid and the square family wait for RPU (ROADMAP.md Queue
+1 item 7).
 """
 from __future__ import annotations
 
@@ -37,3 +42,80 @@ def sum_of_sines(A, omega, phi, l, L):
         return torch.sum(A * torch.sin(arg), dim=-1)
 
     return fnc
+
+
+def von_mises_pdf(x, kappa, loc=0.0):
+    """Wrapped-Gaussian density exp(kappa cos(x - loc)) / (2 pi I0(kappa)),
+    in the exponentially scaled form exp(kappa (cos(x - loc) - 1)) /
+    (2 pi i0e(kappa)), which stays finite at MSWG3's kappa up to 150."""
+    return (torch.exp(kappa * (torch.cos(x - loc) - 1.0))
+            / (2.0 * torch.pi * torch.special.i0e(kappa)))
+
+
+# --- the advection system's initial conditions -----------------------------
+def sample_sinesum_ic(rng: np.random.Generator, batch: int, n_waves=5,
+                      lmin=1, lmax=3):
+    """Sum-of-sines parameters of 2 batch rows (``sample_sine_params``'s
+    draws, [2 batch, 1, n_waves] each): rows 2i and 2i + 1 are sample i's
+    two components."""
+    return sample_sine_params(rng, 2 * batch, n_waves, lmin, lmax)
+
+
+def sinesum_ic(A, omega, phi, l, L):
+    """u0_fn of ``sample_sinesum_ic``'s parameters (tensors): each
+    component a sum of sines at t = 0."""
+
+    def u0_fn(pts):
+        p = torch.remainder(pts, L)
+        p2 = torch.repeat_interleave(p, 2, dim=0)  # rows (2i, 2i + 1)
+        arg = omega * 0.0 + 2.0 * torch.pi * l * p2[:, :, None] / L + phi
+        vals = torch.sum(A * torch.sin(arg), dim=-1)  # [2B, M]
+        return vals.reshape(pts.shape[0], 2, pts.shape[1])
+
+    return u0_fn
+
+
+def sample_gaussian_ic(rng: np.random.Generator, batch: int):
+    """kappa ~ U(1e-5, 10), [batch, 1]."""
+    return (1e-5 + rng.uniform(size=(batch, 1)) * (10.0 - 1e-5),)
+
+
+def gaussian_ic(kappa, L):
+    """u1 a wrapped Gaussian at pi of sharpness kappa, u2 = 1."""
+
+    def u0_fn(pts):
+        u1 = von_mises_pdf(torch.remainder(pts, L), kappa, loc=torch.pi)
+        return torch.stack([u1, torch.ones_like(u1)], dim=1)
+
+    return u0_fn
+
+
+def sample_gaussian_triple_ic(rng: np.random.Generator, batch: int):
+    """scales ~ U(0, 1), then sharpnesses ~ U(50, 150), each [batch, 3,
+    1]."""
+    scales = rng.uniform(size=(batch, 3, 1))
+    sharps = 50.0 + rng.uniform(size=(batch, 3, 1)) * 100.0
+    return scales, sharps
+
+
+def gaussian_triple_ic(scales, sharps, L):
+    """u1 the scaled sum of three wrapped Gaussians at pi/2, pi and 3 pi/2,
+    u2 = 1."""
+
+    def u0_fn(pts):
+        p = torch.remainder(pts, L)
+        locs = torch.tensor([np.pi / 2.0, np.pi, 3.0 * np.pi / 2.0],
+                            dtype=pts.dtype, device=pts.device)[None, :, None]
+        comps = von_mises_pdf(p[:, None, :], sharps, loc=locs)  # [B, 3, M]
+        u1 = torch.sum(scales * comps, dim=1)
+        return torch.stack([u1, torch.ones_like(u1)], dim=1)
+
+    return u0_fn
+
+
+# family -> (the parameters' sampler, their builder)
+AD_ICS = {
+    "sinesum": (sample_sinesum_ic, sinesum_ic),
+    "gaussian": (sample_gaussian_ic, gaussian_ic),
+    "gaussian_triple": (sample_gaussian_triple_ic, gaussian_triple_ic),
+}

@@ -5,7 +5,7 @@ class builds (``CE.make_rhs``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import ClassVar, Tuple
 
 
 @dataclasses.dataclass
@@ -19,6 +19,9 @@ class PDE:
     lmin: int = 1
     lmax: int = 3
     n_waves: int = 5
+
+    # fields a trajectory carries at each point (AD: 2)
+    n_components: ClassVar[int] = 1
 
     @property
     def nt(self) -> int:

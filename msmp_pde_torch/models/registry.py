@@ -1,9 +1,11 @@
 """Model registry (counterpart of msmp_pde_tpu/models/registry.py).
 
-The nine 1-D graph models are ported: MP-PDE, Gated, LEM, MSMP-PDE,
-MSSMP-PDE, MSGMP-PDE (hidden 164 whatever ``hidden`` says, as in the JAX
-registry), SaveMSMP-PDE, LSTMGated and LSTM; every other registry name
-raises.
+The nineteen graph models are ported: the 1-D MP-PDE, Gated, LEM,
+MSMP-PDE, MSSMP-PDE, MSGMP-PDE (hidden 164 whatever ``hidden`` says, as in
+the JAX registry), SaveMSMP-PDE, LSTMGated and LSTM, and the 2-D MP-PDE2D,
+Gated2D, MSMP-PDE2D, MSGMP-PDE2D (hidden 164), SaveMSMP-PDE2D, MSG2-PDE2D
+(gradient gate), LSTMGated2D, LEM2D, GLEMGated2D (attention layers) and
+LSTM2D; the grid models raise.
 """
 from __future__ import annotations
 
@@ -24,6 +26,21 @@ _GRAPH = {
     "LSTMGated": dict(encoder="lstm", gate="sigmoid"),
     "LSTM": dict(encoder="lstm", gate="none"),
 }
+# the 2-D systems (msmp_pde_tpu/models/registry.py:66-79)
+_GRAPH_2D = {
+    "MP-PDE2D": dict(encoder="mlp", gate="none"),
+    "Gated2D": dict(encoder="mlp", gate="sigmoid"),
+    "MSMP-PDE2D": dict(encoder="lem", gate="sigmoid"),
+    "MSGMP-PDE2D": dict(encoder="lem", gate="sigmoid", decoder="glu",
+                        hidden=164),
+    "SaveMSMP-PDE2D": dict(encoder="lem", gate="sigmoid", save_state=True),
+    "MSG2-PDE2D": dict(encoder="lem", gate="grad"),
+    "LSTMGated2D": dict(encoder="lstm", gate="sigmoid"),
+    "LEM2D": dict(encoder="lem", gate="none"),
+    "GLEMGated2D": dict(encoder="lem", gate="sigmoid", layer_type="gat"),
+    "LSTM2D": dict(encoder="lstm", gate="none"),
+}
+_GRAPH.update({k: dict(v, n_components=2) for k, v in _GRAPH_2D.items()})
 
 PORTED = tuple(_GRAPH)
 
@@ -42,10 +59,11 @@ def get_model(name: str, *, tw: int, n_eq_vars: int, L: float, tmax: float,
     """(module, kind). The module takes ``1 + n_eq_vars`` model variables
     (normalized time first)."""
     if name in _GRAPH:
-        kw = {"hidden": hidden, **_GRAPH[name]}  # MSGMP-PDE's 164 wins
+        kw = {"hidden": hidden, **_GRAPH[name]}  # MSGMP-PDE*'s 164 wins
         return MPSolver(tw, n_vars=1 + n_eq_vars, layers=n_layers, L=L,
                         tmax=tmax, dt=dt, seed=seed, **kw), "graph"
     if name in MODEL_REGISTRY:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md Queue 1 item 11)")
+            f"model {name!r} is not ported yet (ROADMAP.md Queue 1 item 11, "
+            "the grid models)")
     raise ValueError(f"unknown model {name!r}")

@@ -6,11 +6,13 @@ chunked over the largest), and the horizon runs as an eager loop of
 ``Trainer.forward`` calls under ``torch.inference_mode``, the windows
 advancing by the pushforward rule (``data.graph.advance_windows``). On the
 card each forward goes through the LEM-scan kernel once (LEM encoders) and
-the fused gated-pair kernel once per pair (gated models) or the
-single-layer kernel once per layer (ungated models); the twin-tower model
-(MSSMP-PDE) runs two such towers. The stateful model (SaveMSMP-PDE)
-carries its LEM state from window to window, reset per sample past the
-data horizon (``reset_past_horizon``).
+the fused gated-pair kernel once per pair (sigmoid-gated models) or the
+single-layer kernel once per layer (ungated models) and twice a layer
+(MSG2-PDE2D's gradient gate); the attention layers of GLEMGated2D are
+plain torch ops; the twin-tower model (MSSMP-PDE) runs two such towers.
+The 2-D models' windows advance per component. The stateful model
+(SaveMSMP-PDE) carries its LEM state from window to window, reset per
+sample past the data horizon (``reset_past_horizon``).
 """
 from __future__ import annotations
 
@@ -26,21 +28,24 @@ def grid_from_h5(path: str, pde, mode: str, base_resolution,
                  super_resolution):
     """Attrs-only read of the grid metadata (no trajectories are loaded)
     from a dataset file, the port's ``.npz`` or an ``.h5``, as
-    ``PDEDataset`` reads it. ``super_resolution`` is read by the WE
-    family's grid only, which is not ported: only CE is."""
+    ``PDEDataset`` reads it: the CE and the uniform AD grids, the latter
+    with two components. ``super_resolution`` is read by the WE family's
+    grid only, which is not ported."""
     from msmp_pde_torch.datagen.hdf5_io import open_dataset
     from msmp_pde_torch.training.setup import GridInfo
 
     family = f"{pde}"
-    if family != "CE":
+    if family not in ("CE", "AD") or getattr(pde, "unstructured_grid",
+                                             False):
         raise NotImplementedError(
-            f"{family} grids are not ported yet (ROADMAP.md Queue 1 item 15)")
+            f"{family} grids are not ported yet (ROADMAP.md Queue 1 items 7 "
+            "and 15)")
     with open_dataset(path) as f:
         a = f.attrs("%s/pde_%d-%d" % (mode, *base_resolution))
     return GridInfo(x=np.asarray(a["x"], np.float64).astype(np.float32),
                     nt=int(a["nt"]), dt=float(a["dt"]),
                     tmin=float(a["tmin"]), tmax=float(a["tmax"]),
-                    n_components=1)
+                    n_components=pde.n_components)
 
 
 def build_serving_trainer(experiment: str, model: str, *,

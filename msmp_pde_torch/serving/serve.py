@@ -15,9 +15,9 @@ Protocol (stdlib only, npz over HTTP):
   ``preds`` [B, n_windows, nx, d*tw], or ``trajectory`` [B, n_windows*tw,
   d, nx] when ``format=trajectory``.
 
-``--model`` is a ported registry name: one of the nine 1-D graph models
-(MP-PDE, Gated, LEM, MSMP-PDE, MSSMP-PDE, MSGMP-PDE, SaveMSMP-PDE,
-LSTMGated, LSTM; models/registry.py).
+``--model`` is a ported registry name (models/registry.py::PORTED): one of
+the nine 1-D graph models (E1-E3, kdv) or their ten 2-D versions (RP, MSWG,
+MSWG3; windows [B, nx, 2 tw], the variables a and b).
 ``--checkpoint`` is the train CLI's checkpoint (utils/checkpoint.py) or an
 ``.npz`` keyed by ``/``-joined flax paths (utils/convert.py). The grid
 comes from the test mode of ``--data_dir``'s dataset file where there is

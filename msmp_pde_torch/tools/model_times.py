@@ -4,8 +4,9 @@
     PYTHONPATH=<another checkout> python3 <this file> [--model ...]
         # that checkout's
 
-Builds ``--model`` (default MSGMP-PDE) on E1 at full width (nx 100, tw 25,
-six layers or pairs, its own random initialization from seed 0) with the
+Builds ``--model`` (default MSGMP-PDE) on E1's uniform grid, or RP's for a
+2-D model (``...2D``), at full width (nx 100, tw 25, six
+layers or pairs, its own random initialization from seed 0) with the
 ``msmp_pde_torch`` on the path, and prints, after the card's name and power
 limit, what ``time_rollouts`` and ``time_train_steps`` measure (rollouts at
 buckets 1, 4 and 16; a train step at batch 16 of ``smooth`` trajectories).
@@ -46,14 +47,30 @@ def smooth(n, t_grid, x, L, seed):
     return u.sum(-1).astype(np.float32)
 
 
+def train_data(trainer, n, seed):
+    """(u_all, var_all) on the trainer's device: ``smooth`` trajectories
+    [n, nt, nx], or [n, nt, 2, nx] from two seeds for a 2-D model, and one
+    value a sample of each equation variable, U(0.1, 1) (float32)."""
+    spec = trainer.spec
+    t, x = spec.t_grid.cpu().numpy(), spec.x.cpu().numpy()
+    u = np.stack([smooth(n, t, x, spec.L, seed + c)
+                  for c in range(trainer.d)], axis=2)
+    u = u[:, :, 0] if trainer.d == 1 else u
+    rng = np.random.default_rng(seed)
+    var = {k: torch.tensor(rng.uniform(0.1, 1.0, n), dtype=torch.float32,
+                           device=trainer.device) for k in trainer.eq_norms}
+    return torch.as_tensor(u, device=trainer.device), var
+
+
 def time_rollouts(engine, name, requests=REQUESTS):
     """Closed-loop rollout latency of ``engine`` at each of BUCKETS:
     ``requests`` requests of N_WINDOWS windows after one warm-up, the
     host's clock around each (a request ends in a copy to the host); p50,
     p90 and sample-windows/s at p50."""
     nx, tw = engine.trainer.spec.nx, engine.trainer.tw
+    dtw = getattr(engine.trainer, "d", 1) * tw
     for B in BUCKETS:
-        w = np.random.default_rng(B).normal(size=(B, nx, tw)).astype(
+        w = np.random.default_rng(B).normal(size=(B, nx, dtw)).astype(
             np.float32)
         engine.rollout(w, n_windows=N_WINDOWS)  # warm-up
         lats = []
@@ -68,8 +85,9 @@ def time_rollouts(engine, name, requests=REQUESTS):
               "sample-windows/s at p50")
 
 
-def time_train_steps(trainer, u_all, name):
-    """One AdamW step at batch BATCH of ``u_all`` on the card, unrolled 0
+def time_train_steps(trainer, u_all, name, var_all=None):
+    """One AdamW step at batch BATCH of ``u_all`` (with ``var_all``, the
+    equation variables) on the card, unrolled 0
     and 1: CUDA events around STEPS steps (median of 5 rounds), the host's
     time to enqueue a step from an idle card, and the card's busy time a
     step: the sum of its kernels' device time from torch.profiler over
@@ -80,7 +98,7 @@ def time_train_steps(trainer, u_all, name):
     st = torch.full((BATCH,), 100, dtype=torch.int64, device=dev)
     for unrolled in (0, 1):
         step = trainer.train_step_fn(tx, unrolled)
-        run = lambda: step(u_all, {}, idx, st)  # noqa: E731
+        run = lambda: step(u_all, var_all or {}, idx, st)  # noqa: E731
         for _ in range(3):
             run()
         torch.cuda.synchronize()
@@ -120,16 +138,14 @@ def main(argv=None):
     print(card())
     import msmp_pde_torch
     print(f"msmp_pde_torch from {msmp_pde_torch.__file__}")
-    engine = RolloutEngine(build_serving_trainer("E1", args.model,
+    experiment = "RP" if args.model.endswith("2D") else "E1"
+    engine = RolloutEngine(build_serving_trainer(experiment, args.model,
                                                  device="cuda"),
                            batch_buckets=BUCKETS)
     time_rollouts(engine, args.model, args.requests)
-    trainer = build_trainer("E1", args.model, device="cuda")
-    spec = trainer.spec
-    u_all = torch.as_tensor(smooth(BATCH, spec.t_grid.cpu().numpy(),
-                                   spec.x.cpu().numpy(), spec.L, seed=0),
-                            device="cuda")
-    time_train_steps(trainer, u_all, args.model)
+    trainer = build_trainer(experiment, args.model, device="cuda")
+    u_all, var_all = train_data(trainer, BATCH, seed=0)
+    time_train_steps(trainer, u_all, args.model, var_all)
 
 
 if __name__ == "__main__":

@@ -30,10 +30,14 @@ from msmp_pde_torch.models.common import assemble_variables
 
 def make_var_fns(eq_norms: Dict[str, float], tmax: float):
     """The graph path's variable-vector builder: normalized time and the
-    normalized equation parameters (beta negated). The 2-D models' b-reads-a
-    substitution comes with the 2-D family."""
+    normalized equation parameters (beta negated). With ``b_reads_a`` (the
+    2-D models) the b slot takes a's value, as the reference's 2-D models
+    feed ``data.a`` into it (msmp_pde_tpu/training/loop.py:67-71); the
+    quirk is kept on purpose."""
 
-    def graph_vars(t, variables):
+    def graph_vars(t, variables, b_reads_a: bool = False):
+        if b_reads_a and "b" in eq_norms and "a" in variables:
+            variables = dict(variables, b=variables["a"])
         return assemble_variables(t, variables, eq_norms, tmax)
 
     return graph_vars
@@ -61,15 +65,19 @@ class Trainer:
     def device(self) -> torch.device:
         return self.spec.x.device
 
+    def var_vec(self, steps, variables):
+        """The model's variables [B, V] at label-window starts ``steps``."""
+        return self.graph_vars(self.spec.t_grid[steps], variables,
+                               b_reads_a=self.d == 2)
+
     def forward(self, window, steps, variables, lem_state=None):
         """window [B, nx, d*tw]; steps [B] label-window start indices (the
         time feature); variables {name: [B]}."""
         spec = self.spec
-        t = spec.t_grid[steps]
-        var_vec = self.graph_vars(t, variables)
         pos_x = spec.x.expand(window.shape[0], spec.nx)
-        return self.model(window, pos_x, t, var_vec, spec.idx, spec.mask,
-                          lem_state=lem_state)
+        return self.model(window, pos_x, spec.t_grid[steps],
+                          self.var_vec(steps, variables), spec.idx,
+                          spec.mask, lem_state=lem_state)
 
     # ------------------------------------------------------------ training
     def make_optimizer(self, lr: float, lr_decay: float, milestones,

@@ -1,6 +1,7 @@
 """Experiment -> PDE, equation-variable norms, datasets, grid and the
-model's trainer (counterpart of msmp_pde_tpu/training/setup.py). Only the
-CE family is ported. ``build_trainer`` serves training and serving, on the
+model's trainer (counterpart of msmp_pde_tpu/training/setup.py). The CE
+family (E1-E3, kdv) and the advection system on its uniform grid (RP,
+MSWG, MSWG3) are ported. ``build_trainer`` serves training and serving, on the
 uniform grid or on a dataset's; ``setup_experiment`` reads the datasets
 the train CLI needs."""
 from __future__ import annotations
@@ -11,7 +12,10 @@ from typing import Dict
 
 import numpy as np
 
-from msmp_pde_torch.equations import CE
+from msmp_pde_torch.equations import AD, CE
+
+# the advection experiments' horizon; L is 2 pi for MSWG and MSWG3
+AD_TMAX = {"RP": 4.0, "MSWG": 3.0, "MSWG3": 1.0}
 
 
 def pde_for_experiment(experiment: str, base_resolution):
@@ -22,8 +26,17 @@ def pde_for_experiment(experiment: str, base_resolution):
                              f"(100, 50, 40); got {base_resolution}")
         return CE(tmax=4.0 if experiment in ("E1", "E2") else 2.0,
                   grid_size=(nt, nx))
-    if experiment in ("WE1", "WE2", "WE3", "KF", "KS", "RP", "RPU", "MSWG",
-                      "MSWG3"):
+    if experiment in AD_TMAX:
+        if not (nt in (250, 500) and nx in (100, 50, 40)):
+            raise ValueError(f"{experiment} runs at nt in (250, 500), nx in "
+                             f"(100, 50, 40); got {base_resolution}")
+        L = 16.0 if experiment == "RP" else 2 * np.pi
+        return AD(tmax=AD_TMAX[experiment], grid_size=(nt, nx), L=L)
+    if experiment == "RPU":
+        raise NotImplementedError(
+            "RPU (the LCG grid, its k-NN graph) is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
+    if experiment in ("WE1", "WE2", "WE3", "KF", "KS"):
         raise NotImplementedError(
             f"experiment {experiment!r} is not ported yet (ROADMAP.md "
             "Queue 1 item 15)")
@@ -98,7 +111,7 @@ def uniform_grid(pde, base_resolution) -> GridInfo:
     tmin, tmax = float(getattr(pde, "tmin", 0.0)), float(pde.tmax)
     return GridInfo(x=x.astype(np.float32), nt=nt,
                     dt=(tmax - tmin) / (nt - 1), tmin=tmin, tmax=tmax,
-                    n_components=2 if family == "AD" else 1)
+                    n_components=pde.n_components)
 
 
 def build_trainer(experiment: str, model: str, *,

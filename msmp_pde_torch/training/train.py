@@ -11,10 +11,11 @@ and unrolled losses), and where the validation loss improves: the test
 losses, the space-time L2 norms and a best-val checkpoint
 (utils/checkpoint.py, with the optimizer's state for ``--resume``).
 
-``--model`` is one of the nine ported 1-D graph models (MP-PDE, Gated,
-LEM, MSMP-PDE, MSSMP-PDE, MSGMP-PDE, SaveMSMP-PDE, LSTMGated, LSTM;
-models/registry.py). ``--device`` is cuda by default and raises without
-it. ``--dp`` > 1,
+``--experiment`` is E1, E2, E3 or kdv (1-D), or RP, MSWG or MSWG3 (the
+two-component advection system, with the 2-D models). ``--model`` is one
+of the nineteen ported graph models (models/registry.py::PORTED: the nine
+1-D ones and their ten 2-D versions, MP-PDE2D ... LSTM2D). ``--device`` is
+cuda by default and raises without it. ``--dp`` > 1,
 ``--mp_precision`` other than float32 and ``--mp_remat`` are not ported.
 """
 from __future__ import annotations

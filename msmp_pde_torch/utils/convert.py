@@ -3,7 +3,9 @@
 The port's modules keep the flax names and layouts (Dense kernels
 ``[in, out]``, conv kernels ``(O, I, K)``, LEM blocks ``[3H, I+H]``), so a
 leaf at flax path ``params/gnn_0/TorchDense_1/kernel`` is the state-dict
-entry ``gnn_0.TorchDense_1.kernel``, unchanged.
+entry ``gnn_0.TorchDense_1.kernel``, unchanged; the 2-D models' leaves
+(``double_mlp``, and an attention layer's ``lin``, ``lin_edge``,
+``att_q``, ``att_k`` and ``bias``) carry across the same way.
 
 An ``.npz`` checkpoint holds one array per leaf under its ``/``-joined flax
 path (``params/embedding_lem/weights``, ...).

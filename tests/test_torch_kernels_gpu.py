@@ -14,7 +14,9 @@ where b4's gradient, analytically zero and roundoff on both sides, takes
 its layer's w4 gradient's scale (chip_smoke.scale_aware); a step's loss
 relative 1e-4. The single-layer kernels take the pair's tolerances: the
 forward 1e-4, the backward the scale-aware bound. Every kernel, forward and
-backward, is bitwise repeatable.
+backward, is bitwise repeatable. The 2-D models' cases (the ``_d50``
+tests) feed the message-passing kernels a window of D = 2 tw = 50 and
+V = 3 variables (t, a, b) and hold them to the same tolerances.
 """
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from msmp_pde_torch.training.setup import build_trainer
 
 from _torch_helpers import cuda_device  # noqa: F401
 from chip_smoke import (
+    MODELS_2D,
     VARIANTS,
     expected_launches,
     grad_scales,
@@ -256,9 +259,8 @@ LAYER_CASES += [(2, 40, 96, 3, 2, fa) for fa in (True, False)]
 LAYER_CASES += [(3, 37, 96, 2, 2, fa) for fa in (True, False)]
 
 
-def _layer_args(dev, B, nx, H, V, n, switch, seed):
+def _layer_args(dev, B, nx, H, V, n, switch, seed, D=25):
     rng = np.random.default_rng(seed)
-    D = 25
     idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
     g = torch.Generator().manual_seed(seed)
     W = tuple(w.detach() for w in GNNLayer(H, D, V, g, switch, switch)
@@ -428,6 +430,125 @@ def test_variant_train_step_matches_plain_path(cuda_device, name):
     loss_k = trainer.step_loss(*batch[:1], {}, *batch[1:], 1)
     grads_k = torch.autograd.grad(loss_k, params)
     loss_p = trainer.step_loss(*batch[:1], {}, *batch[1:], 1,
+                               forward=kernel_push(trainer))
+    grads_p = torch.autograd.grad(loss_p, params)
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    names = [n for n, _ in trainer.model.named_parameters()]
+    scales = grad_scales(zip(names, grads_p))
+    for pname, a, b in zip(names, grads_k, grads_p):
+        ok, err = scale_aware(a, b, scales[pname])
+        assert ok, (pname, err, scales[pname])
+
+
+# the 2-D models' shapes: D = 2 tw = 50, V = 3, on RP's grid (nx 100)
+D2, V2 = 50, 3
+PAIR_D50_CASES = [(1, 128), (16, 128), (48, 128), (1, 164), (16, 164),
+                  (48, 164)]
+
+
+@pytest.mark.parametrize("B,H", PAIR_D50_CASES)
+def test_pair_kernels_d50_match_plain(cuda_device, B, H):
+    """The pair's forward and fused backward at D = 50, V = 3, each
+    bitwise repeatable."""
+    args = _layer_args(cuda_device, B, 100, H, V2, 3, False, 700 + B, D2)
+    Wl = _layer_args(cuda_device, B, 100, H, V2, 3, False, 710 + B, D2)[-1]
+    args = args + (Wl,)
+    with torch.no_grad():
+        got = mp_pair.fused_gated_pair_kernel(*args)
+        assert torch.equal(got, mp_pair.fused_gated_pair_kernel(*args))
+        want = mp_pair.fused_gated_pair_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    g = _rand(np.random.default_rng(B), cuda_device, *got.shape)
+    flat = lambda res: [res[0], *res[1], *res[2]]
+    k1 = flat(mp_pair.fused_gated_pair_bwd_kernel(*args, g))
+    k2 = flat(mp_pair.fused_gated_pair_bwd_kernel(*args, g))
+    p = flat(mp_pair.fused_gated_pair_bwd_plain(*args, g))
+    for k, (a, b, c) in enumerate(zip(k1, k2, p)):
+        assert torch.equal(a, b), k
+        scale = p[k - 1].abs().max().item() if k % 12 == 0 and k else None
+        assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
+
+
+def test_pair_stash_d50_at_batch_48(cuda_device):
+    """The stash variant at D = 50: out bitwise the variant's without it,
+    gn and ln against the plain layers."""
+    args = _layer_args(cuda_device, 48, 100, 128, V2, 3, False, 720, D2)
+    Wl = _layer_args(cuda_device, 48, 100, 128, V2, 3, False, 721, D2)[-1]
+    args = args + (Wl,)
+    out, gn, ln = mp_pair.fused_gated_pair_kernel(*args, stash=True)
+    assert torch.equal(out, mp_pair.fused_gated_pair_kernel(*args))
+    for got, W in ((gn, args[6]), (ln, args[7])):
+        torch.testing.assert_close(
+            got, mp_layer.fused_mp_layer_plain(*args[:6], W), rtol=1e-4,
+            atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 16, 48])
+@pytest.mark.parametrize("switch", [True, False])
+def test_layer_kernels_d50_match_plain(cuda_device, B, switch):
+    """Both switch settings at D = 50, V = 3: GNN_Layer (MP-PDE2D, LEM2D,
+    LSTM2D) and GNN_LayerLin (MSG2-PDE2D's gate and layer)."""
+    args = _layer_args(cuda_device, B, 100, 128, V2, 3, switch, 800 + B, D2)
+    got = mp_layer.fused_mp_layer_kernel(*args, switch, switch)
+    assert torch.equal(got, mp_layer.fused_mp_layer_kernel(*args, switch,
+                                                           switch))
+    want = mp_layer.fused_mp_layer_plain(*args, switch, switch)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    g = _rand(np.random.default_rng(B), cuda_device, *got.shape)
+    flat = lambda res: [res[0], *res[1]]
+    k1 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
+    k2 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
+    p = flat(mp_layer.fused_mp_layer_bwd_plain(*args, g, switch, switch))
+    for k, (a, b, c) in enumerate(zip(k1, k2, p)):
+        assert torch.equal(a, b), k
+        scale = p[11].abs().max().item() if k == 12 and not switch else None
+        assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
+
+
+def _rp_vars(rng, dev, B):
+    return {"a": torch.tensor(rng.uniform(0.1, 1.0, B), dtype=torch.float32,
+                              device=dev),
+            "b": torch.tensor(rng.uniform(1.0, 10.0, B), dtype=torch.float32,
+                              device=dev)}
+
+
+@pytest.mark.parametrize("name", MODELS_2D)
+def test_2d_model_kernel_path_matches_plain_path(cuda_device, name):
+    """The ten 2-D models at full width on RP's grid: one forward against
+    the plain path at 5e-4, with the expected launches (MSG2-PDE2D 12
+    single layers, GLEMGated2D none)."""
+    trainer = build_serving_trainer("RP", name, device=cuda_device)
+    rng = np.random.default_rng(2)
+    window = _rand(rng, cuda_device, 4, 100, 50)
+    steps = torch.full((4,), 50, device=cuda_device)
+    var = _rp_vars(rng, cuda_device, 4)
+    with torch.no_grad():
+        reset_counts()
+        got, state = trainer.forward(window, steps, var)
+        counts = launch_counts()
+        want, want_state = plain_forward(trainer)(window, steps, var)
+    assert counts == expected_launches(trainer.model, 1)
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+    for a, b in zip(state or (), want_state or ()):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("name", ["MSMP-PDE2D", "MSG2-PDE2D", "MP-PDE2D"])
+def test_2d_train_step_matches_plain_path(cuda_device, name):
+    """One step at unrolled 1 on [B, nt, 2, nx] trajectories with a and b,
+    the plain step from the kernel path's pushed window: the loss and
+    every gradient."""
+    trainer = build_trainer("RP", name, device=cuda_device)
+    params = list(trainer.model.parameters())
+    rng = np.random.default_rng(6)
+    u_all = torch.tensor(rng.normal(size=(4, 250, 2, 100)),
+                         dtype=torch.float32, device=cuda_device)
+    var = _rp_vars(rng, cuda_device, 4)
+    idx = torch.arange(4, device=cuda_device)
+    steps = torch.as_tensor(rng.integers(25, 201, 4), device=cuda_device)
+    loss_k = trainer.step_loss(u_all, var, idx, steps, 1)
+    grads_k = torch.autograd.grad(loss_k, params)
+    loss_p = trainer.step_loss(u_all, var, idx, steps, 1,
                                forward=kernel_push(trainer))
     grads_p = torch.autograd.grad(loss_p, params)
     assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())

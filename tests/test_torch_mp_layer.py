@@ -30,11 +30,14 @@ from _torch_helpers import np_tree, tt
 
 NX, B, H, DTW, V = 24, 3, 32, 10, 2
 SWITCHES = [(True, True), (False, False)]
+# the 2-D models' window and variables: D = 2 tw = 50, V = 3 (t, a, b)
+DTW_2D, V_2D = 50, 3
 
 
-def layer_case(graph, final_act, residual, seed, dtype):
+def layer_case(graph, final_act, residual, seed, dtype, DTW=DTW, V=V):
     """(numpy inputs h, u, px, v, idx, mask; the JAX layer; its flax params
-    drawn in float32; the port's GNNLayer with the same weights)."""
+    drawn in float32; the port's GNNLayer with the same weights), the
+    window DTW wide with V variables."""
     rng = np.random.default_rng(seed)
     x = np.linspace(0.0, 16.0, NX)
     if graph == "radius":
@@ -91,6 +94,29 @@ def test_layer_matches_xla_f64(graph, final_act, residual):
     h, u, px, v, idx, mask = arrays
     want = layer.apply(np_tree(p), *map(jnp.asarray, (h, u, px, v, idx,
                                                       mask)))
+    np.testing.assert_allclose(_port(m, arrays, torch.float64), want,
+                               rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("final_act,residual", SWITCHES)
+def test_layer_d50_v3_matches_pallas_interpret_f32(final_act, residual):
+    """The 2-D models' widths through the JAX kernel in interpret mode."""
+    arrays, layer, p, m = layer_case("radius", final_act, residual, 5,
+                                     torch.float32, DTW_2D, V_2D)
+    h, u, px, v, idx, mask = arrays
+    F = lambda a: jnp.asarray(a, jnp.float32)
+    ega = (edge_matrices(jnp.asarray(idx), F(mask)), True, "float32")
+    want = layer.apply(p, F(h), F(u), F(px), F(v), jnp.asarray(idx),
+                       F(mask), ega=ega)
+    np.testing.assert_allclose(_port(m, arrays, torch.float32), want,
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("final_act,residual", SWITCHES)
+def test_layer_d50_v3_matches_xla_f64(final_act, residual):
+    arrays, layer, p, m = layer_case("radius", final_act, residual, 6,
+                                     torch.float64, DTW_2D, V_2D)
+    want = layer.apply(np_tree(p), *map(jnp.asarray, arrays))
     np.testing.assert_allclose(_port(m, arrays, torch.float64), want,
                                rtol=1e-10, atol=1e-10)
 

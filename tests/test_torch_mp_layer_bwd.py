@@ -26,7 +26,7 @@ from msmp_pde_tpu.ops import mp_pallas
 from msmp_pde_torch.ops import mp_layer, mp_pair
 
 from _torch_helpers import np_tree, tt
-from test_torch_mp_layer import SWITCHES, layer_case
+from test_torch_mp_layer import DTW_2D, SWITCHES, V_2D, layer_case
 from test_torch_mp_pair_bwd import _detached, _pair_case, _torch_args
 
 
@@ -94,6 +94,40 @@ def test_layer_grads_match_xla_f64(graph, final_act, residual):
     arrays, layer, p, m = layer_case(graph, final_act, residual, 20,
                                      torch.float64)
     g = np.random.default_rng(21).normal(size=arrays[0].shape)
+    J = lambda a: jnp.asarray(a, jnp.float64)
+    h, u, px, v, idx, mask = arrays
+    want = _jax_grads(layer, np_tree(p), (J(h), J(u), J(px), J(v), idx,
+                                          J(mask)), J(g), None)
+    for got in _port_grads(m, arrays, g, torch.float64):
+        for k, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-8,
+                                       atol=1e-8, err_msg=str(k))
+
+
+@pytest.mark.parametrize("final_act,residual", SWITCHES)
+def test_layer_d50_v3_grads_match_pallas_interpret_f32(final_act, residual):
+    """The 2-D models' widths (D = 50, V = 3) through the JAX backward
+    kernel in interpret mode."""
+    arrays, layer, p, m = layer_case("radius", final_act, residual, 12,
+                                     torch.float32, DTW_2D, V_2D)
+    g = np.random.default_rng(13).normal(size=arrays[0].shape)
+    F = lambda a: jnp.asarray(a, jnp.float32)
+    h, u, px, v, idx, mask = arrays
+    ega = (mp_pallas.edge_matrices(jnp.asarray(idx), F(mask)), True,
+           "float32")
+    want = _jax_grads(layer, p, (F(h), F(u), F(px), F(v), idx, F(mask)),
+                      F(g), ega)
+    for got in _port_grads(m, arrays, g, torch.float32):
+        for k, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(a.numpy().reshape(np.shape(b)), b,
+                                       rtol=5e-4, atol=5e-5, err_msg=str(k))
+
+
+@pytest.mark.parametrize("final_act,residual", SWITCHES)
+def test_layer_d50_v3_grads_match_xla_f64(final_act, residual):
+    arrays, layer, p, m = layer_case("radius", final_act, residual, 22,
+                                     torch.float64, DTW_2D, V_2D)
+    g = np.random.default_rng(23).normal(size=arrays[0].shape)
     J = lambda a: jnp.asarray(a, jnp.float64)
     h, u, px, v, idx, mask = arrays
     want = _jax_grads(layer, np_tree(p), (J(h), J(u), J(px), J(v), idx,

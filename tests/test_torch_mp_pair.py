@@ -51,7 +51,9 @@ def _port_layer(p, H, dtw, V, dtype):
     return m.to(dtype)
 
 
-CASES = [(24, 3, 32, 10, 2, 2), (40, 2, 96, 25, 1, 3)]
+# the last case has the 2-D models' window and variables: D = 2 tw = 50,
+# V = 3 (t, a, b)
+CASES = [(24, 3, 32, 10, 2, 2), (40, 2, 96, 25, 1, 3), (24, 2, 32, 50, 3, 3)]
 
 
 @pytest.mark.parametrize("nx,B,H,dtw,V,n", CASES)
