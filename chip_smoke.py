@@ -120,7 +120,19 @@ Phases, each of which fails the run on error:
      MSMP-PDE2D at batch 48, MSG2-PDE2D and GLEMGated2D served over HTTP;
      timings of the four message-passing kernels at D = 50 and of
      MSMP-PDE2D's rollouts and train step, beside MSMP-PDE's of phases 6
-     and 11.
+     and 11;
+ 24. the seven grid models at their reference widths (BaseCNN, FNO, VNO
+     on E1's grid, FNOP on E3's, BaseCNN2D, FNO2D, FNO2DP on RP's; weights
+     from a numpy seed through params_from_flax): the forward at batch 16
+     in float32 against the same module in float64 on the card (TOL_GRID
+     of max|out|), a step's loss and gradients at unrolled 0 and 1 against
+     the float64 step, no launch of a kernel of the table; each model's
+     forward, step and rollout times; fit of BaseCNN one epoch on phase
+     17's E1 data and of FNO2DP on phase 23's RP data, each resumed and
+     served over HTTP (equal to RolloutEngine.rollout); the eval CLI on
+     FNO2DP's checkpoint and on phase 18's MSMP-PDE checkpoint (its L2
+     norms equal compute_l2_norms); the cv CLI with BaseCNN one epoch on
+     E1's 64 merged samples.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -221,8 +233,13 @@ def expected_launches(model, forwards, grad_steps=0):
     forward with the LEM encoder (none with the MLP or the LSTM); a pair
     kernel a sigmoid-gated pair, a layer kernel an ungated layer and two
     a gradient-gated pair (gate and layer), none for attention layers;
-    the twin-tower model runs two towers."""
+    the twin-tower model runs two towers. A grid model (CNN, FNO) launches
+    none."""
+    from msmp_pde_torch.models.gnn import MPSolver
+
     want = dict.fromkeys(COUNTERS, 0)
+    if not isinstance(model, MPSolver):
+        return want
     towers = ((model.diff_tower, model.scale_tower) if model.twin_scale
               else (model,))
     for m in towers:
@@ -411,16 +428,34 @@ def flax_tree(model, seed):
     fan-in of the flax initializer (the LEM's and the LSTM's, and an
     attention layer's q, k and bias: the hidden width; a twin tower's
     leaves as its own model's). The attention layer's bias, zeros in
-    flax, is drawn too."""
+    flax, is drawn too. A grid model's leaves as its flax initializers
+    draw them: a spectral weight [c_in, c_out, modes, 2] scale U(0, 1),
+    scale = 1 / (c_in c_out) (msmp_pde_tpu/models/fno.py:41-48), BaseCNN's
+    kernels within the Xavier bound, the biases and Dense leaves within
+    the fan-in bound."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     sd = model.state_dict()
-    H = model.hidden
+    H = getattr(model, "hidden", None)  # a grid model has none
     tree = {}
     for key, val in sd.items():
         parts = key.split(".")
+        node = tree.setdefault("params", {})
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        if val.dim() == 4:  # spectral
+            lo, hi = 0.0, 1.0 / (val.shape[0] * val.shape[1])
+            node[parts[-1]] = rng.uniform(lo, hi, size=tuple(val.shape)
+                                          ).astype(np.float32)
+            continue
         mod, leaf = parts[-2], parts[-1]
+        if parts[0].startswith("_CircularConv") and leaf == "kernel":
+            o, c, k = val.shape
+            b = math.sqrt(6.0 / (c * k + o * k))
+            node[leaf] = rng.uniform(-b, b, size=tuple(val.shape)).astype(
+                np.float32)
+            continue
         if ("embedding_lem" in parts or "lstm" in parts
                 or leaf in ("att_q", "att_k")
                 or (leaf == "bias" and mod.startswith(("gnn_", "gate_")))):
@@ -435,9 +470,6 @@ def flax_tree(model, seed):
         else:
             fan = sd[".".join(parts[:-1] + ["kernel"])].shape[0]
         b = 1.0 / math.sqrt(fan)
-        node = tree.setdefault("params", {})
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
         node[leaf] = rng.uniform(-b, b, size=tuple(val.shape)).astype(
             np.float32)
     return tree
@@ -519,7 +551,10 @@ def reference_forward(model, window, pos_x, var_vec, idx, mask):
 
 
 def plain_forward(trainer):
-    """``trainer.forward`` through ``reference_forward``."""
+    """``trainer.forward`` through ``reference_forward``; a grid model's
+    forward itself (it runs no kernel of the table)."""
+    if trainer.kind == "grid":
+        return trainer.forward
     model, spec = trainer.model, trainer.spec
 
     def forward(window, steps, variables, lem_state=None):
@@ -1442,11 +1477,12 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
 
 def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
               epochs=2, per_window=False):
-    """Phases 18 and 23: fit ``model`` (MSMP-PDE or its 2-D version at
-    full width) on ``experiment``'s data for ``epochs`` epochs, the
-    checkpoint and resume, the L2 norms on both paths, and the server on
-    the checkpoint answering a request with the test set's equation
-    variables. Returns the fit's launch counts.
+    """Phases 18, 23 and 24: fit ``model`` (MSMP-PDE or its 2-D version
+    at full width, or a grid model at its reference widths) on
+    ``experiment``'s data for ``epochs`` epochs, the checkpoint and
+    resume, the L2 norms on both paths (one path for a grid model), and
+    the server on the checkpoint answering a request with the test set's
+    equation variables. Returns the fit's launch counts.
 
     The L2 norms of the two paths agree within TOL_L2. With
     ``per_window`` (phase 23) the kernel path's 8-window rollout of the
@@ -1483,9 +1519,14 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
     exp = setup_experiment(args, data_dir=data_dir)
     trainer, t_res = exp.trainer, exp.t_res
     model = trainer.model
-    check(model.hidden == 128 and model.layers == 6
-          and model.gate == "sigmoid" and model.encoder == "lem",
-          f"fit: not {name} at full width")
+    if trainer.kind == "grid":
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == GRID_PARAMS[name], f"fit: {name} has {n_params} "
+              f"parameters, not {GRID_PARAMS[name]}")
+    else:
+        check(model.hidden == 128 and model.layers == 6
+              and model.gate == "sigmoid" and model.encoder == "lem",
+              f"fit: not {name} at full width")
     data = {m: train.device_arrays(exp.datasets[m], trainer.device)
             for m in E1_SAMPLES}
     save_path = str(Path(work_dir) / "models" / f"{name}_{experiment}.pt")
@@ -1541,11 +1582,10 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
           "restored bitwise; --resume starts at epoch "
           f"{epoch + 1}")
 
-    # the paper's metric on the valid set, kernel path vs plain path
+    # the paper's metric on the valid set, kernel path vs plain path (a
+    # grid model has one path: its norms and their launches, none)
     u_v, _, var_v = data["valid"]
     quiet = dict(log=lambda *a: None)
-    plain = types.SimpleNamespace(tw=trainer.tw, d=trainer.d,
-                                  forward=plain_forward(trainer))
     reset_counts()
     t0 = time.perf_counter()
     lk = metrics.compute_l2_norms(trainer, u_v, var_v, TRAIN_BATCH,
@@ -1554,21 +1594,28 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
     d = launch_counts()
     check(d == expected_launches(model, windows),
           f"compute_l2_norms launches {nonzero(d)}")
-    t0 = time.perf_counter()
-    lp = metrics.compute_l2_norms(plain, u_v, var_v, TRAIN_BATCH,
-                                  args.nr_gt_steps, t_res, **quiet)
-    p_s = time.perf_counter() - t0
-    rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
-    print(f"compute_l2_norms valid: kernel path L2 {lk[0]:.6f}, rel "
-          f"{100 * lk[1]:.4f} % ({k_s:.3f} s); plain path L2 {lp[0]:.6f}, "
-          f"rel {100 * lp[1]:.4f} % ({p_s:.3f} s); max relative difference "
-          f"{rel:.3e}")
-    if per_window:
-        held_per_window(trainer, metrics, u_v, var_v, args.nr_gt_steps,
-                        t_res, windows)
+    if trainer.kind == "grid":
+        check(all(np.isfinite(lk)), f"compute_l2_norms: {lk}")
+        print(f"compute_l2_norms valid: L2 {lk[0]:.6f}, rel "
+              f"{100 * lk[1]:.4f} % ({k_s:.3f} s), no kernel launched")
     else:
-        check(rel <= TOL_L2, f"compute_l2_norms: kernel vs plain {rel:.3e} "
-              f"> {TOL_L2}")
+        plain = types.SimpleNamespace(tw=trainer.tw, d=trainer.d,
+                                      forward=plain_forward(trainer))
+        t0 = time.perf_counter()
+        lp = metrics.compute_l2_norms(plain, u_v, var_v, TRAIN_BATCH,
+                                      args.nr_gt_steps, t_res, **quiet)
+        p_s = time.perf_counter() - t0
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        print(f"compute_l2_norms valid: kernel path L2 {lk[0]:.6f}, rel "
+              f"{100 * lk[1]:.4f} % ({k_s:.3f} s); plain path L2 "
+              f"{lp[0]:.6f}, rel {100 * lp[1]:.4f} % ({p_s:.3f} s); max "
+              f"relative difference {rel:.3e}")
+        if per_window:
+            held_per_window(trainer, metrics, u_v, var_v, args.nr_gt_steps,
+                            t_res, windows)
+        else:
+            check(rel <= TOL_L2, f"compute_l2_norms: kernel vs plain "
+                  f"{rel:.3e} > {TOL_L2}")
 
     # the server on the checkpoint and the dataset's grid
     sargs = serve.build_parser().parse_args([
@@ -2048,6 +2095,195 @@ def rp_datagen_phase(data_dir, on):
     print(f"PDEDataset: RP train u_super {ds.u_super.shape} "
           f"{ds.u_super.dtype}, u_base {ds.u_base.shape}, x {ds.x.shape}")
 
+# phase 24: the grid models, their parameter counts at the reference
+# widths (the JAX modules' at nx 100, tw 25; FNOP with E3's three
+# variables, the 2-D ones with a and b)
+GRID_PARAMS = {"BaseCNN": 69905, "FNO": 554201, "FNOP": 554393,
+               "VNO": 554201, "BaseCNN2D": 667570, "FNO2D": 2192818,
+               "FNO2DP": 2193074}
+# phase 24, relative to max|out|: the float32 forward against the same
+# module in float64. Float32 rounds at 6e-8; a grid forward is at most
+# ~10 layers of sums over <= 1,152 terms (BaseCNN2D's convolutions 128 x
+# 9, the FFTs over 100 points, the channel mixes over 128 x 16 modes),
+# whose rounding grows with sqrt(terms) and compounds layer by layer to
+# ~1e-6 of the output's scale; 1e-5 leaves a tenfold margin and is
+# tighter than 1e-4.
+TOL_GRID = 1e-5
+
+
+def grid_models_phase(rand, dev, on):
+    """Phase 24, the models: the seven grid models at the reference widths
+    (BaseCNN, FNO and VNO on E1's grid, FNOP on E3's with alpha, beta and
+    gamma, BaseCNN2D, FNO2D and FNO2DP on RP's with a and b; weights from
+    a numpy seed through params_from_flax): the forward at batch 16 in
+    float32 (TF32 off) against the same module in float64 on the card
+    within TOL_GRID of max|out|, a step's loss (TRAIN_LOSS_RTOL) and every
+    gradient (``scale_aware``) at unrolled 0 and 1 against the float64
+    step (at 1 from the float32 path's pushed window,
+    ``f64_step_grads``), no launch of a kernel of the table in any of
+    them; then each model's forward, step and rollout times. Returns
+    {name: trainer}."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.models.registry import GRID
+    from msmp_pde_torch.serving.engine import (
+        RolloutEngine,
+        build_serving_trainer,
+    )
+    from msmp_pde_torch.tools.model_times import (
+        experiment_of,
+        time_rollouts,
+        time_train_steps,
+        train_data,
+    )
+
+    trainers = {}
+    for i, name in enumerate(GRID):
+        experiment = experiment_of(name)
+        tr = weighted_trainer(experiment, name, 70 + i, dev)
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        check(tr.kind == "grid" and n_params == GRID_PARAMS[name],
+              f"{name}: {n_params} parameters, not {GRID_PARAMS[name]}")
+        u_all, var_all = train_data(tr, TRAIN_BATCH, seed=80 + i)
+        B, nx, dtw = TRAIN_BATCH, tr.spec.nx, tr.d * tr.tw
+        window = rand(B, nx, dtw)
+        steps = torch.full((B,), tr.tw, dtype=torch.int64, device=dev)
+        tr64 = double_trainer(tr)
+        reset_counts()
+        with torch.no_grad():
+            out, state = tr.forward(window, steps, var_all)
+            ref, _ = tr64.forward(window.double(), steps,
+                                  {k: v.double() for k, v in var_all.items()})
+        torch.cuda.synchronize()
+        check(out.shape == (B, nx, dtw) and state is None
+              and bool(torch.isfinite(out).all()),
+              f"{name} output {tuple(out.shape)}")
+        scale = ref.abs().max().item()
+        e = (out.double() - ref).abs().max().item()
+        print(f"{name} ({experiment}, {n_params} parameters) forward B={B} "
+              f"float32 vs float64 on the card: max |diff| = {e:.3e} "
+              f"(output max |.| {scale:.3e}; bound {TOL_GRID * scale:.3e})")
+        check(e <= TOL_GRID * scale, f"{name} float32 forward differs from "
+              f"float64 by {e:.3e} > {TOL_GRID} x {scale:.3e}")
+        names = [n for n, _ in tr.model.named_parameters()]
+        rng = np.random.default_rng(90 + i)
+        for unrolled in (0, 1):
+            idx, st = step_batch(rng, TRAIN_BATCH, unrolled, dev)
+            loss = tr.step_loss(u_all, var_all, idx, st, unrolled)
+            grads = torch.autograd.grad(loss, list(tr.model.parameters()))
+            loss64, g64 = f64_step_grads(tr, u_all, var_all, idx, st,
+                                         unrolled)
+            rel = abs(loss.item() - loss64.item()) / abs(loss64.item())
+            check(rel <= TRAIN_LOSS_RTOL, f"{name} step unrolled={unrolled}"
+                  f": loss {loss.item()} vs float64 {loss64.item()}")
+            scales = grad_scales(zip(names, g64))
+            worst = 0.0
+            for pname, a, b in zip(names, grads, g64):
+                check(bool(torch.isfinite(a).all()), f"{pname}: not finite")
+                ok, err = scale_aware(a.double(), b, scales[pname])
+                worst = max(worst, err / scales[pname])
+                check(ok, f"{name} step unrolled={unrolled}: {pname} grad "
+                      f"differs from float64 by {err:.3e} (scale "
+                      f"{scales[pname]:.3e})")
+            print(f"{name} train step B={TRAIN_BATCH} unrolled={unrolled} "
+                  f"against float64: loss {loss.item():.6f} (rel "
+                  f"{rel:.2e}); {len(names)} grads within the scale-aware "
+                  f"bound (largest {worst:.2e} of a scale)")
+        counts = launch_counts()
+        check(not any(counts.values()), f"{name}: launches "
+              f"{nonzero(counts)}, expected none")
+        with torch.no_grad():
+            ms = timed(lambda: tr.forward(window, steps, var_all), reps=5)
+            hms = host_ms(lambda: tr.forward(window, steps, var_all))
+        print(f"{name} forward @bucket 16: {ms:.4f} ms (CUDA events; host "
+              f"enqueue {hms:.4f} ms; no kernel of the table)")
+        # five profiled steps: the profiler's host-side processing of a
+        # 50-step trace of a grid model takes ~19 s (an H100 machine's host)
+        time_train_steps(tr, u_all, name, var_all)
+        engine = RolloutEngine(
+            build_serving_trainer(experiment, name, device=dev),
+            {k: v.detach() for k, v in tr.model.state_dict().items()},
+            batch_buckets=BUCKETS)
+        time_rollouts(engine, name)
+        trainers[name] = tr
+    print(f"grid model timings on {on}")
+    return trainers
+
+
+def eval_phase(data_dir, work_dir, experiment, name, ckpt):
+    """Phase 24, the eval CLI on ``ckpt`` (run in ``work_dir``): its test
+    L2 / rel-L2 equal ``compute_l2_norms`` on the checkpoint's weights,
+    its launches those of its forwards (none for a grid model). Returns
+    eval's metrics."""
+    from msmp_pde_torch.training import eval as evaluate
+    from msmp_pde_torch.training import metrics, train
+    from msmp_pde_torch.training.setup import setup_experiment
+    from msmp_pde_torch.utils.checkpoint import restore_params
+
+    args = evaluate.build_parser().parse_args([
+        f"--experiment={experiment}", f"--model={name}",
+        f"--model_to_test={ckpt}", f"--data_dir={data_dir}",
+        "--batch_size=16", "--device=cuda"])
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(work_dir):
+        out = evaluate.main(args)
+    took = time.perf_counter() - t0
+    counts = launch_counts()
+    exp = setup_experiment(args, modes=("test",), data_dir=data_dir)
+    tr = exp.trainer
+    tr.model.load_state_dict(restore_params(ckpt), strict=True)
+    u, _, var = train.device_arrays(exp.datasets["test"], tr.device)
+    want = metrics.compute_l2_norms(tr, u, var, 16, args.nr_gt_steps,
+                                    exp.datasets["test"].nt,
+                                    log=lambda *a: None)
+    got = (out["test_L2"], out["test_rel_L2"])
+    check(got == want, f"eval {name}: L2 {got} vs compute_l2_norms {want}")
+    # 8 windows each: the L2 norms, the unrolled losses, the store
+    forwards = 3 * 8
+    check(counts == expected_launches(tr.model, forwards),
+          f"eval {name}: launches {nonzero(counts)}")
+    print(f"eval CLI on {name}'s checkpoint ({experiment}): test L2 "
+          f"{got[0]:.6f}, rel-L2 {100 * got[1]:.4f} %, equal to "
+          f"compute_l2_norms; unrolled loss {out['test_loss']:.5f}; figures "
+          f"{'written' if out['figures'] else 'skipped (no matplotlib)'}; "
+          f"launches {nonzero(counts) or 'none'}; {took:.3f} s")
+    return out
+
+
+def cv_phase(data_dir, work_dir):
+    """Phase 24, the cv CLI: BaseCNN one epoch on E1's 64 merged samples,
+    re-split 51/6/7 from seed 0 + rep 0, batch 16; finite results, the
+    checkpoint under --cv_folder, no launch of a kernel of the table."""
+    import numpy as np
+
+    from msmp_pde_torch.training import cv
+
+    folder = str(Path(work_dir) / "cvE1")
+    args = cv.build_parser().parse_args([
+        "--experiment=E1", "--model=BaseCNN", "--num_epochs=1",
+        "--batch_size=16", "--print_interval=1000", "--device=cuda",
+        f"--data_dir={data_dir}", f"--cv_folder={folder}"])
+    sizes = [len(a) for a in cv.split_indices(64, 0, 0)]
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cv.main(args)
+    took = time.perf_counter() - t0
+    counts = launch_counts()
+    check(not any(counts.values()), f"cv: launches {nonzero(counts)}")
+    (h,) = res["history"]
+    check(sizes == [51, 6, 7] and h["losses"].shape == (250, 3)
+          and bool(np.isfinite(h["losses"]).all()), "cv: the epoch")
+    check(all(np.isfinite(res[k]) for k in ("valid_L2", "test_L2")),
+          "cv: the L2 norms")
+    ckpts = list(Path(folder).glob("BaseCNN_CE_E1_rep0_*.pt"))
+    check(len(ckpts) == 1, f"cv: checkpoints {ckpts}")
+    print(f"cv CLI: BaseCNN on E1's 64 merged samples split {sizes}, one "
+          f"epoch of {h['losses'].size} steps in {took:.3f} s, valid rel-L2 "
+          f"{100 * res['valid_rel_L2']:.3f} %, test rel-L2 "
+          f"{100 * res['test_rel_L2']:.3f} %, checkpoint {ckpts[0].name}")
+
 
 def main():
     import tempfile
@@ -2347,19 +2583,21 @@ def main():
     # 20. the slice's main path: fit MSGMP-PDE on the E1 data; serve
     #     SaveMSMP-PDE and MSSMP-PDE across the data horizon
     on = card()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        data_dir = str(Path(work) / "data")
-        t0 = time.perf_counter()
-        datagen_phase(data_dir, on)
-        t1 = time.perf_counter()
-        fit_counts = fit_phase(data_dir, work, on)
-        t2 = time.perf_counter()
-        print(f"phases 17 and 18: {t1 - t0:.3f} s and {t2 - t1:.3f} s")
-        print(f"fit main path launches: {nonzero(fit_counts)}")
-        variant_trs = variants_phase(rand, u_all, T)
-        t3 = time.perf_counter()
-        msgmp_tr, msgmp_counts, msgmp_fit_s = msgmp_fit_phase(data_dir, work,
-                                                              on)
+    # E1's data and phase 18's checkpoint stay for phase 24; each directory
+    # is removed after it, or at exit where a phase fails
+    e1_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    work = e1_dir.name
+    data_dir = str(Path(work) / "data")
+    t0 = time.perf_counter()
+    datagen_phase(data_dir, on)
+    t1 = time.perf_counter()
+    fit_counts = fit_phase(data_dir, work, on)
+    t2 = time.perf_counter()
+    print(f"phases 17 and 18: {t1 - t0:.3f} s and {t2 - t1:.3f} s")
+    print(f"fit main path launches: {nonzero(fit_counts)}")
+    variant_trs = variants_phase(rand, u_all, T)
+    t3 = time.perf_counter()
+    msgmp_tr, msgmp_counts, msgmp_fit_s = msgmp_fit_phase(data_dir, work, on)
     variant_params = {n: {k: v.detach() for k, v in
                           tr.model.state_dict().items()}
                       for n, tr in variant_trs.items()}
@@ -2463,11 +2701,12 @@ def main():
     t23 = time.perf_counter()
 
     # 23. RP on the card, fit and serve; the 2-D main paths' launches ----
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_rp_") as work:
-        data_dir = str(Path(work) / "data")
-        rp_datagen_phase(data_dir, on)
-        fit2d_counts = fit_phase(data_dir, work, on, "RP", "MSMP-PDE2D",
-                                 epochs=1, per_window=True)
+    rp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_rp_")
+    rp_work = rp_dir.name
+    rp_data = str(Path(rp_work) / "data")
+    rp_datagen_phase(rp_data, on)
+    fit2d_counts = fit_phase(rp_data, rp_work, on, "RP", "MSMP-PDE2D",
+                             epochs=1, per_window=True)
     print(f"MSMP-PDE2D fit main path launches: {nonzero(fit2d_counts)}")
     msg2_counts, msg2_epoch_s = train_main_path(
         trs2d["MSG2-PDE2D"], u2, "MSG2-PDE2D", var2)
@@ -2489,8 +2728,26 @@ def main():
     time_rollouts(engines2d["MSMP-PDE2D"], "MSMP-PDE2D")
     time_train_steps(trs2d["MSMP-PDE2D"], u2, "MSMP-PDE2D", var2)
     print(f"MSMP-PDE2D and MSMP-PDE timings on {on}")
+    t24 = time.perf_counter()
     print(f"phases 21, 22 and 23: {t22 - t21:.3f} s, {t23 - t22:.3f} s and "
-          f"{time.perf_counter() - t23:.3f} s")
+          f"{t24 - t23:.3f} s")
+
+    # 24. the grid models: full width against float64, fit, resume, serve,
+    #     eval (also of phase 18's MSMP-PDE) and cv --------------------------
+    grid_models_phase(rand, dev, on)
+    for experiment, name, ddir, wdir in (("E1", "BaseCNN", data_dir, work),
+                                         ("RP", "FNO2DP", rp_data, rp_work)):
+        counts = fit_phase(ddir, wdir, on, experiment, name, epochs=1)
+        check(not any(counts.values()), f"{name} fit: launches "
+              f"{nonzero(counts)}")
+    eval_phase(rp_data, rp_work, "RP", "FNO2DP",
+               str(Path(rp_work) / "models" / "FNO2DP_RP.pt"))
+    eval_phase(data_dir, work, "E1", "MSMP-PDE",
+               str(Path(work) / "models" / "MSMP-PDE_E1.pt"))
+    cv_phase(data_dir, work)
+    e1_dir.cleanup()
+    rp_dir.cleanup()
+    print(f"phase 24: {time.perf_counter() - t24:.3f} s")
 
     kernels = [
         {"name": "lem_fwd", "route": "cuda",

@@ -4,7 +4,8 @@ Parameters keep the flax layout so that converted weights load as they
 are: a Dense kernel is ``[in, out]`` and applies as ``x @ w + b``; a conv
 kernel is ``(O, I, K)``, which is already PyTorch's layout. Every
 parameter initializes U(-1/sqrt(fan_in), +1/sqrt(fan_in)) from an explicit
-``torch.Generator``.
+``torch.Generator``, but for the Xavier option of ``Conv1d`` (BaseCNN's
+kernels).
 """
 from __future__ import annotations
 
@@ -40,15 +41,23 @@ class Dense(nn.Module):
 
 class Conv1d(nn.Module):
     """1-D convolution over the last axis, valid padding: input
-    ``[..., C_in, W]`` -> ``[..., C_out, W_out]`` (flax ``TorchConv1d``)."""
+    ``[..., C_in, W]`` -> ``[..., C_out, W_out]`` (flax ``TorchConv1d``).
+    With ``xavier`` the kernel draws U(+-sqrt(6 / (fan_in + fan_out))),
+    fan_out = features * kernel_size; the bias keeps the fan-in bound."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
-                 stride: int, generator: torch.Generator):
+                 stride: int, generator: torch.Generator,
+                 xavier: bool = False):
         super().__init__()
         fan_in = in_channels * kernel_size
         self.stride = stride
-        self.kernel = uniform_param((features, in_channels, kernel_size),
-                                    fan_in, generator)
+        shape = (features, in_channels, kernel_size)
+        if xavier:
+            b = (6.0 / (fan_in + features * kernel_size)) ** 0.5
+            self.kernel = nn.Parameter(
+                torch.empty(shape).uniform_(-b, b, generator=generator))
+        else:
+            self.kernel = uniform_param(shape, fan_in, generator)
         self.bias = uniform_param((features,), fan_in, generator)
 
     def forward(self, x):

@@ -1,16 +1,23 @@
 """Model registry (counterpart of msmp_pde_tpu/models/registry.py).
 
-The nineteen graph models are ported: the 1-D MP-PDE, Gated, LEM,
-MSMP-PDE, MSSMP-PDE, MSGMP-PDE (hidden 164 whatever ``hidden`` says, as in
-the JAX registry), SaveMSMP-PDE, LSTMGated and LSTM, and the 2-D MP-PDE2D,
-Gated2D, MSMP-PDE2D, MSGMP-PDE2D (hidden 164), SaveMSMP-PDE2D, MSG2-PDE2D
-(gradient gate), LSTMGated2D, LEM2D, GLEMGated2D (attention layers) and
-LSTM2D; the grid models raise.
+26 of the 27 names are ported. The nineteen graph models: the 1-D MP-PDE,
+Gated, LEM, MSMP-PDE, MSSMP-PDE, MSGMP-PDE (hidden 164 whatever
+``hidden`` says, as in the JAX registry), SaveMSMP-PDE, LSTMGated and
+LSTM, and the 2-D MP-PDE2D, Gated2D, MSMP-PDE2D, MSGMP-PDE2D (hidden 164),
+SaveMSMP-PDE2D, MSG2-PDE2D (gradient gate), LSTMGated2D, LEM2D,
+GLEMGated2D (attention layers) and LSTM2D. The seven grid models: BaseCNN,
+FNO, FNOP and VNO (1-D) and BaseCNN2D, FNO2D and FNO2DP (the
+two-component system). FNO2DPU raises (ROADMAP.md Queue 1 items 7 and
+12).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import torch
+
+from msmp_pde_torch.models.cnn import BaseCNN
+from msmp_pde_torch.models.fno import FNO1d, FNO2d, VNO1d
 from msmp_pde_torch.models.gnn import MPSolver
 
 # name -> MPSolver's keywords (msmp_pde_tpu/models/registry.py:53-64)
@@ -42,7 +49,12 @@ _GRAPH_2D = {
 }
 _GRAPH.update({k: dict(v, n_components=2) for k, v in _GRAPH_2D.items()})
 
-PORTED = tuple(_GRAPH)
+# the equation variables the FNO Param variants take
+# (msmp_pde_tpu/models/registry.py:44-50)
+FNO_VARS = ("alpha", "beta", "gamma", "D", "r", "a", "b")
+GRID = ("BaseCNN", "FNO", "FNOP", "VNO", "BaseCNN2D", "FNO2D", "FNO2DP")
+
+PORTED = tuple(_GRAPH) + GRID
 
 MODEL_REGISTRY = (
     "MP-PDE", "BaseCNN", "Gated", "LEM", "MSMP-PDE", "MSSMP-PDE", "MSGMP-PDE",
@@ -55,15 +67,33 @@ MODEL_REGISTRY = (
 
 def get_model(name: str, *, tw: int, n_eq_vars: int, L: float, tmax: float,
               dt: float, n_layers: int = 6, hidden: int = 128,
-              seed: int = 0) -> Tuple[MPSolver, str]:
-    """(module, kind). The module takes ``1 + n_eq_vars`` model variables
-    (normalized time first)."""
+              eq_var_names: Tuple[str, ...] = (), positions=None,
+              seed: int = 0) -> Tuple[torch.nn.Module, str]:
+    """(module, kind). A graph module takes ``1 + n_eq_vars`` model
+    variables (normalized time first); a grid module takes the variables
+    of ``eq_var_names`` that are in FNO_VARS (the Param variants) and
+    ignores ``hidden`` and ``n_layers``. VNO builds its transform from
+    ``positions``, the grid's [nx] coordinates."""
     if name in _GRAPH:
         kw = {"hidden": hidden, **_GRAPH[name]}  # MSGMP-PDE*'s 164 wins
         return MPSolver(tw, n_vars=1 + n_eq_vars, layers=n_layers, L=L,
                         tmax=tmax, dt=dt, seed=seed, **kw), "graph"
-    if name in MODEL_REGISTRY:
+    gen = torch.Generator().manual_seed(seed)
+    n_vars = sum(v in FNO_VARS for v in eq_var_names)
+    grid = {
+        "BaseCNN": lambda: BaseCNN(tw, dt, gen),
+        "BaseCNN2D": lambda: BaseCNN(tw, dt, gen, n_components=2),
+        "FNO": lambda: FNO1d(tw, gen, domain=(0.0, L)),
+        "FNOP": lambda: FNO1d(tw, gen, domain=(0.0, L), n_vars=n_vars),
+        "VNO": lambda: VNO1d(tw, positions, gen, domain=(0.0, L)),
+        "FNO2D": lambda: FNO2d(tw, gen, domain=(0.0, L)),
+        "FNO2DP": lambda: FNO2d(tw, gen, domain=(0.0, L), n_vars=n_vars),
+    }
+    if name in grid:
+        return grid[name](), "grid"
+    if name == "FNO2DPU":
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md Queue 1 item 11, "
-            "the grid models)")
+            "FNO2DPU is not ported yet: it resamples through the "
+            "interpolation matrix on RPU's grid (ROADMAP.md Queue 1 items 7 "
+            "and 12)")
     raise ValueError(f"unknown model {name!r}")

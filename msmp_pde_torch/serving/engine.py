@@ -10,7 +10,9 @@ the fused gated-pair kernel once per pair (sigmoid-gated models) or the
 single-layer kernel once per layer (ungated models) and twice a layer
 (MSG2-PDE2D's gradient gate); the attention layers of GLEMGated2D are
 plain torch ops; the twin-tower model (MSSMP-PDE) runs two such towers.
-The 2-D models' windows advance per component. The stateful model
+The 2-D models' windows advance per component. A grid model (CNN,
+FNO) runs torch ops alone, on windows mapped to its grid layout by
+``Trainer.forward``. The stateful model
 (SaveMSMP-PDE) carries its LEM state from window to window, reset per
 sample past the data horizon (``reset_past_horizon``).
 """

@@ -16,8 +16,9 @@ Protocol (stdlib only, npz over HTTP):
   d, nx] when ``format=trajectory``.
 
 ``--model`` is a ported registry name (models/registry.py::PORTED): one of
-the nine 1-D graph models (E1-E3, kdv) or their ten 2-D versions (RP, MSWG,
-MSWG3; windows [B, nx, 2 tw], the variables a and b).
+the nine 1-D graph models or the 1-D grid models BaseCNN, FNO, FNOP and
+VNO (E1-E3, kdv), or the ten 2-D graph models or BaseCNN2D, FNO2D and
+FNO2DP (RP, MSWG, MSWG3; windows [B, nx, 2 tw], the variables a and b).
 ``--checkpoint`` is the train CLI's checkpoint (utils/checkpoint.py) or an
 ``.npz`` keyed by ``/``-joined flax paths (utils/convert.py). The grid
 comes from the test mode of ``--data_dir``'s dataset file where there is

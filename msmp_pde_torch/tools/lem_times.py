@@ -66,10 +66,10 @@ def lem_args(rand, T, N, H):
             rand(H, H, scale=H ** -.5))
 
 
-def kernels_us(fn):
-    """[(kernel name, mean card microseconds a call)] over CALLS calls of
-    fn, from torch.profiler, in the order of their total time; None where
-    the trace holds no device time."""
+def kernels_us(fn, calls=CALLS):
+    """[(kernel name, mean card microseconds a call)] over ``calls`` calls
+    of fn, from torch.profiler, in the order of their total time; None
+    where the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -77,7 +77,7 @@ def kernels_us(fn):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(CALLS):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
     except RuntimeError as e:  # no CUPTI tracing on this machine
@@ -91,7 +91,7 @@ def kernels_us(fn):
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
         if t:
-            out.append((e.key, t / CALLS))
+            out.append((e.key, t / calls))
     return sorted(out, key=lambda kv: -kv[1]) or None
 
 

@@ -4,14 +4,17 @@
     PYTHONPATH=<another checkout> python3 <this file> [--model ...]
         # that checkout's
 
-Builds ``--model`` (default MSGMP-PDE) on E1's uniform grid, or RP's for a
-2-D model (``...2D``), at full width (nx 100, tw 25, six
-layers or pairs, its own random initialization from seed 0) with the
+Builds ``--model`` (default MSGMP-PDE) on E1's uniform grid, RP's for a
+2-D model (a name with ``2D``: the graph models, BaseCNN2D, FNO2D and
+FNO2DP) and E3's for FNOP (E1's grid shape, with its three equation
+variables), at full width (nx 100, tw 25, six layers or pairs, or the
+grid models' widths, its own random initialization from seed 0) with the
 ``msmp_pde_torch`` on the path, and prints, after the card's name and power
 limit, what ``time_rollouts`` and ``time_train_steps`` measure (rollouts at
 buckets 1, 4 and 16; a train step at batch 16 of ``smooth`` trajectories).
 The step's time is the larger of the card's and the host's. Needs a CUDA
-card. Of the port it uses only modules that older checkouts have too, so
+card. Of the port it uses only modules that older checkouts have too
+(``kernels_us`` takes its ``calls`` from the grid models' slice on), so
 that one checkout's copy times another's kernels and host path.
 ``chip_smoke.py`` times its models through the same functions.
 """
@@ -23,7 +26,6 @@ import numpy as np
 import torch
 
 from msmp_pde_torch.serving.engine import RolloutEngine, build_serving_trainer
-from msmp_pde_torch.tools.fwd_times import CALLS
 from msmp_pde_torch.tools.lem_times import card, kernels_us
 from msmp_pde_torch.training.setup import build_trainer
 
@@ -31,6 +33,9 @@ BUCKETS = (1, 4, 16)
 N_WINDOWS = 8
 BATCH = 16
 STEPS = 5    # steps a round of CUDA events
+# steps torch.profiler traces for the card's busy time a step: its
+# host-side processing takes seconds a step of a few hundred ops
+PROFILE_STEPS = 5
 REQUESTS = 100  # rollout requests a bucket: p90 has 10 beyond it
 
 
@@ -91,7 +96,7 @@ def time_train_steps(trainer, u_all, name, var_all=None):
     and 1: CUDA events around STEPS steps (median of 5 rounds), the host's
     time to enqueue a step from an idle card, and the card's busy time a
     step: the sum of its kernels' device time from torch.profiler over
-    CALLS steps ("not measured" where the trace holds none)."""
+    PROFILE_STEPS steps ("not measured" where the trace holds none)."""
     dev = u_all.device
     tx = trainer.make_optimizer(1e-4, 0.4, [1, 5, 10, 15], 250)
     idx = torch.arange(BATCH, device=dev)
@@ -117,13 +122,21 @@ def time_train_steps(trainer, u_all, name, var_all=None):
             run()
         host = (time.perf_counter() - t0) / STEPS * 1e3
         torch.cuda.synchronize()
-        ks = kernels_us(run)  # a mean over CALLS calls
+        ks = kernels_us(run, PROFILE_STEPS)  # a mean over the steps
         busy = (f"{sum(us for _, us in ks) / 1e3:.3f} ms ({len(ks)} "
-                f"kernels, over {CALLS} steps)" if ks else "not measured")
+                f"kernels, over {PROFILE_STEPS} steps)" if ks
+                else "not measured")
         ms = float(np.median(rounds))
         print(f"{name} train step @batch {BATCH} unrolled={unrolled}: "
               f"{ms:.3f} ms (CUDA events), {BATCH / ms * 1e3:.1f} "
               f"samples/s, host enqueue {host:.3f} ms, card busy {busy}")
+
+
+def experiment_of(model: str) -> str:
+    """The experiment whose uniform grid times ``model``."""
+    if "2D" in model:
+        return "RP"
+    return "E3" if model == "FNOP" else "E1"
 
 
 def main(argv=None):
@@ -138,7 +151,7 @@ def main(argv=None):
     print(card())
     import msmp_pde_torch
     print(f"msmp_pde_torch from {msmp_pde_torch.__file__}")
-    experiment = "RP" if args.model.endswith("2D") else "E1"
+    experiment = experiment_of(args.model)
     engine = RolloutEngine(build_serving_trainer(experiment, args.model,
                                                  device="cuda"),
                            batch_buckets=BUCKETS)

@@ -1,0 +1,234 @@
+"""Offline evaluation CLI (counterpart of msmp_pde_tpu/training/eval.py):
+
+    python -m msmp_pde_torch.training.eval --experiment=E1 --model=BaseCNN \
+        --model_to_test=models/<run>.pt [--n_more_rollout=N] [--device=cuda]
+
+Loads a checkpoint (the train CLI's ``.pt`` or an ``.npz`` of flax paths,
+as the server does) into any ported model, and prints on the test set the
+space-time L2 / relative-L2 norms, the short-horizon norms
+(``--short_horizon_windows``), the unrolled losses and the rollout store
+behind the reference's figures, written to ``plots/`` where matplotlib
+imports (one line says they were skipped where it does not, as on a
+machine without it). ``--n_more_rollout`` rolls past the data horizon and
+writes the predictions to ``plots/long_rollout_pred.npy``. ``main``
+returns every metric printed, and the rollout store.
+
+``--ks_spectrum`` waits for KS (ROADMAP.md Queue 1 item 15); ``--dp`` > 1
+for item 13. ``--device`` is cuda by default and raises without it.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+PLOTS = "plots"
+
+
+def plot_2d_system(pred, true, n=1, out_path=f"{PLOTS}/plot2d.png",
+                   dpi=400):
+    """The reference's 2x2 system heatmap figure: ground truth left,
+    prediction right, one row per component, color scale [-3, 3],
+    viridis, a shared colorbar."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    d = pred.shape[2]
+    fig, axes = plt.subplots(ncols=2, nrows=max(d, 1), sharex=True,
+                             sharey=True, figsize=(10, 5), squeeze=False)
+    vmin, vmax, cmap = -3, 3, "viridis"
+    axes[0][0].set_title("Ground Truth")
+    axes[0][1].set_title("Prediction")
+    for di in range(d):
+        axes[di][0].imshow(true[n - 1, :, di, :].T, vmin=vmin, vmax=vmax,
+                           cmap=cmap, aspect="auto")
+        im = axes[di][1].imshow(pred[n - 1, :, di, :].T, vmin=vmin,
+                                vmax=vmax, cmap=cmap, aspect="auto")
+        axes[di][0].set_ylabel("Grid Point")
+        twin = axes[di][1].twinx()
+        twin.set_ylabel(rf"$u_{di + 1}$", fontsize=15, rotation=0,
+                        labelpad=8)
+        twin.set_yticks([])
+    for ax in axes[-1]:
+        ax.set_xlabel("Timestep")
+    fig.subplots_adjust(right=0.8)
+    cbar_ax = fig.add_axes([0.93, 0.18, 0.01, 0.7])
+    fig.colorbar(im, cax=cbar_ax)
+    plt.tight_layout(rect=[0, 0, 0.95, 1])
+    fig.savefig(out_path, dpi=dpi)
+    plt.close(fig)
+
+
+def _curves(plt, preds, trues, x, titles, ylabels=None):
+    """Prediction above ground truth, one curve a timestep colored by
+    time; returns (fig, cmap, axes)."""
+    T = preds.shape[1]
+    fig, (ax1, ax2) = plt.subplots(2, sharex=True, sharey=True)
+    cmap = plt.get_cmap("viridis")
+    for ti in range(T):
+        c = cmap(ti / max(T - 1, 1))
+        ax1.plot(x, preds[0, ti, 0], color=c, lw=0.5)
+        ax2.plot(x, trues[0, ti, 0], color=c, lw=0.5)
+    ax1.set_title(titles[0])
+    ax2.set_title(titles[1])
+    if ylabels:
+        ax1.set_ylabel(ylabels[0])
+        ax2.set_ylabel(ylabels[1])
+    ax2.set_xlabel(r"$x$")
+    return fig, cmap, (ax1, ax2)
+
+
+def plot_rollouts(preds, trues, x, out_dir=PLOTS, start_step=50, dpi=400):
+    """The reference's figures: per-timestep rollout curves (plot1d.png),
+    pred/true heatmaps (plot2d.png; the 2x2 system figure at d = 2) and
+    the log-scale per-timestep relative error (plot_relerror.png).
+    preds, trues: [N, T, d, nx]."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.cm as cm
+    import matplotlib.colors as mcolors
+    import matplotlib.pyplot as plt
+
+    from msmp_pde_torch.training.metrics import compute_space_l2_norms
+
+    os.makedirs(out_dir, exist_ok=True)
+    T, d = preds.shape[1], preds.shape[2]
+    if d == 1:
+        fig, cmap, (ax1, ax2) = _curves(
+            plt, preds, trues, x, ("Prediction", "Ground Truth"),
+            (r"$u_{\theta}(x)$", r"$u(x)$"))
+        ax1.margins(x=0)
+        ax2.margins(x=0)
+        cbar = fig.colorbar(
+            cm.ScalarMappable(norm=mcolors.Normalize(vmin=0, vmax=T),
+                              cmap=cmap), ax=[ax1, ax2])
+        cbar.set_label("Timestep", rotation=270, labelpad=16)
+        fig.savefig(f"{out_dir}/plot1d.png", dpi=dpi)
+        plt.close(fig)
+
+        fig, (ax2, ax1) = plt.subplots(2, sharex=True, sharey=True)
+        ax1.imshow(preds[0, :, 0].T, aspect="auto")
+        ax2.imshow(trues[0, :, 0].T, aspect="auto")
+        ax1.set_title("Prediction")
+        ax2.set_title("Ground Truth")
+        ax1.set_xlabel("Timestep")
+        ax1.set_ylabel("Grid Point")
+        ax2.set_ylabel("Grid Point")
+        fig.savefig(f"{out_dir}/plot2d.png", dpi=dpi)
+        plt.close(fig)
+    else:
+        plot_2d_system(preds, trues, n=1, out_path=f"{out_dir}/plot2d.png",
+                       dpi=dpi)
+        fig, _, _ = _curves(plt, preds, trues, x,
+                            ("Prediction ($u_1$)", "Ground Truth ($u_1$)"))
+        fig.savefig(f"{out_dir}/plot1d.png", dpi=dpi)
+        plt.close(fig)
+
+    _, rel = compute_space_l2_norms(preds, trues)
+    fig, ax = plt.subplots()
+    ax.set_yscale("log")
+    ax.set_xlabel("Timestep")
+    ax.set_ylabel("Relative Error %")
+    fig.suptitle("Rollout Relative Error")
+    ax.plot(list(range(start_step, start_step + T)), 100 * rel)
+    fig.tight_layout()
+    fig.savefig(f"{out_dir}/plot_relerror.png", dpi=dpi)
+    plt.close(fig)
+
+
+def _matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def main(args):
+    """Returns {test_L2, test_rel_L2, [test_L2_short, test_rel_L2_short,]
+    test_loss, test_base_loss, preds, trues, figures}: the metrics printed,
+    the rollout store ([N, T, d, nx] each) and whether the figures were
+    written."""
+    from msmp_pde_torch.device import resolve_device
+    from msmp_pde_torch.serving.serve import load_checkpoint
+    from msmp_pde_torch.training import metrics
+    from msmp_pde_torch.training.setup import setup_experiment
+    from msmp_pde_torch.training.train import device_arrays
+
+    if args.ks_spectrum:
+        raise NotImplementedError(
+            "--ks_spectrum needs the KS family, not ported yet (ROADMAP.md "
+            "Queue 1 item 15)")
+    if args.dp > 1:
+        raise NotImplementedError(
+            "data parallelism is not ported yet (ROADMAP.md Queue 1 item 13)")
+    dev = resolve_device(args.device)
+    exp = setup_experiment(args, modes=("test",), data_dir=args.data_dir)
+    trainer = exp.trainer
+    trainer.model.load_state_dict(load_checkpoint(args.model_to_test),
+                                  strict=True)
+    trainer.model.eval()
+    print(f"Loaded checkpoint {args.model_to_test} (device {dev})")
+    t_res = exp.datasets["test"].nt
+    u_test, ub_test, var_test = device_arrays(exp.datasets["test"], dev)
+    bs, gt = args.batch_size, args.nr_gt_steps
+    out = {}
+
+    print("**Dimensionless L2 errors (test)**")
+    out["test_L2"], out["test_rel_L2"] = metrics.compute_l2_norms(
+        trainer, u_test, var_test, bs, gt, t_res)
+    shw = args.short_horizon_windows
+    if shw:
+        print(f"**Short-horizon L2 errors (first {shw} rollout windows)**")
+        out["test_L2_short"], out["test_rel_L2_short"] = \
+            metrics.compute_l2_norms(trainer, u_test, var_test, bs, gt,
+                                     t_res, max_windows=shw)
+    out["test_loss"], out["test_base_loss"] = metrics.test_unrolled_losses(
+        trainer, u_test, ub_test, var_test, bs, gt, t_res,
+        args.base_resolution[1])
+    preds, trues = metrics.rollout_store(
+        trainer, u_test, var_test, bs, gt, t_res,
+        n_more_rollout=args.n_more_rollout)
+    out["preds"], out["trues"] = preds, trues
+    horizon = preds.shape[1] - args.n_more_rollout * args.time_window
+    out["figures"] = _matplotlib()
+    if out["figures"]:
+        plot_rollouts(preds[:, :horizon], trues[:, :horizon],
+                      trainer.spec.x.cpu().numpy(),
+                      start_step=args.time_window * gt)
+        print(f"Plots written to {PLOTS}/")
+    else:
+        print("matplotlib does not import here: the figures were skipped")
+    if args.n_more_rollout:
+        os.makedirs(PLOTS, exist_ok=True)
+        np.save(f"{PLOTS}/long_rollout_pred.npy", preds)
+        if out["figures"]:
+            plot_2d_system(preds, trues, n=1,
+                           out_path=f"{PLOTS}/long_rollout2d.png")
+        print(f"Long rollout ({args.n_more_rollout} extra windows): "
+              f"{PLOTS}/long_rollout_pred.npy"
+              + (f" + {PLOTS}/long_rollout2d.png" if out["figures"] else ""))
+    return out
+
+
+def build_parser():
+    from msmp_pde_torch.training.train import build_parser as train_parser
+
+    p = train_parser()
+    p.description = "Evaluate a trained neural PDE solver"
+    p.add_argument("--model_to_test", type=str, required=True,
+                   help="the train CLI's checkpoint, or an .npz of the flax "
+                        "params keyed by '/'-joined paths")
+    p.add_argument("--n_more_rollout", type=int, default=0,
+                   help="extra rollout windows past the data horizon")
+    p.add_argument("--ks_spectrum", action="store_true",
+                   help="KS energy spectrum figure (not ported: ROADMAP.md "
+                        "Queue 1 item 15)")
+    return p
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

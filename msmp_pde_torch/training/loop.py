@@ -1,5 +1,5 @@
-"""Training loop for graph models: pushforward trick and temporal bundling
-(counterpart of msmp_pde_tpu/training/loop.py).
+"""Training loop: pushforward trick and temporal bundling (counterpart of
+msmp_pde_tpu/training/loop.py), for graph and grid models.
 
 One optimizer step slices the batch's windows from trajectories kept on
 the device, rolls the model forward ``unrolled`` times under
@@ -8,8 +8,10 @@ the device, rolls the model forward ``unrolled`` times under
 applies AdamW. On the card the forward with grad runs the stash variant
 of the LEM-scan kernel and the fused-pair or single-layer forward kernels,
 and the backward the matching backward kernels (the pair's through the
-single-layer backward where its fused backward does not fit). The JAX package runs a whole
-pass as one jitted scan; here it is a Python loop over eager steps.
+single-layer backward where its fused backward does not fit). A grid model
+(CNN, FNO) runs no custom kernel: its convolutions, FFTs and products are
+torch ops. The JAX package runs a whole pass as one jitted scan; here it
+is a Python loop over eager steps.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from msmp_pde_torch.data.graph import (
     slice_windows,
 )
 from msmp_pde_torch.models.common import assemble_variables
+from msmp_pde_torch.models.registry import FNO_VARS
 
 
 def make_var_fns(eq_norms: Dict[str, float], tmax: float):
@@ -43,10 +46,44 @@ def make_var_fns(eq_norms: Dict[str, float], tmax: float):
     return graph_vars
 
 
+def make_grid_vars(eq_norms: Dict[str, float]):
+    """The grid path's variable columns: each raw equation variable of
+    (alpha, beta, gamma, D, r, a, b) present in ``eq_norms`` over its
+    norm, ``[B, n]``, or None where there is none. No time column, no beta
+    negation, and b stays b (msmp_pde_tpu/training/loop.py:74-85)."""
+    names = tuple(n for n in FNO_VARS if n in eq_norms)
+
+    def grid_vars(variables):
+        if not names:
+            return None
+        return torch.stack([variables[n] / eq_norms[n] for n in names],
+                           dim=-1)
+
+    return grid_vars
+
+
+def window_to_grid(window, d: int, tw: int):
+    """[B, nx, d*tw] (component-major) -> [B, tw, nx] or [B, tw, d, nx]."""
+    if d == 1:
+        return window.transpose(1, 2)
+    B, nx, _ = window.shape
+    return window.reshape(B, nx, d, tw).permute(0, 3, 2, 1)
+
+
+def grid_to_window(grid, d: int, tw: int):
+    """Inverse of ``window_to_grid``."""
+    if d == 1:
+        return grid.transpose(1, 2)
+    B, nx = grid.shape[0], grid.shape[-1]
+    return grid.permute(0, 3, 2, 1).reshape(B, nx, d * tw)
+
+
 @dataclasses.dataclass
 class Trainer:
-    """One graph model on its static graph. ``model`` lives on the spec's
-    device and holds the parameters a step updates in place."""
+    """One model on its grid: a graph model (kind "graph") on the spec's
+    static graph, or a grid model (kind "grid") on the raw grid layout.
+    ``model`` lives on the spec's device and holds the parameters a step
+    updates in place."""
 
     model: torch.nn.Module
     kind: str
@@ -54,11 +91,10 @@ class Trainer:
     eq_norms: Dict[str, float]
 
     def __post_init__(self):
-        if self.kind != "graph":
-            raise NotImplementedError("grid models are not ported yet")
         self.tw = self.spec.tw
         self.d = self.spec.n_components
         self.graph_vars = make_var_fns(self.eq_norms, self.spec.tmax)
+        self.grid_vars = make_grid_vars(self.eq_norms)
         self._steps = {}
 
     @property
@@ -72,7 +108,13 @@ class Trainer:
 
     def forward(self, window, steps, variables, lem_state=None):
         """window [B, nx, d*tw]; steps [B] label-window start indices (the
-        time feature); variables {name: [B]}."""
+        time feature of a graph model); variables {name: [B]}. Returns
+        (prediction [B, nx, d*tw], the LEM's new state or None); a grid
+        model takes no state and returns None."""
+        if self.kind == "grid":
+            out = self.model(window_to_grid(window, self.d, self.tw),
+                             self.grid_vars(variables))
+            return grid_to_window(out, self.d, self.tw), None
         spec = self.spec
         pos_x = spec.x.expand(window.shape[0], spec.nx)
         return self.model(window, pos_x, spec.t_grid[steps],

@@ -5,7 +5,8 @@ relative-L2 norms.
 Each metric loops over batches of ``batch_size`` samples (the last may be
 short) under ``torch.inference_mode``; each batch's rollout is an eager
 loop of ``Trainer.forward`` calls, so on the card a forward runs the
-LEM-scan kernel and the message-passing forward kernels without stash.
+LEM-scan kernel and the message-passing forward kernels without stash (a
+grid model's forward runs torch ops alone).
 
 Averages follow the JAX package: a one-step or unrolled loss is averaged
 over the batches' values, each batch's value divided by its own size, so

@@ -121,7 +121,10 @@ def build_trainer(experiment: str, model: str, *,
                   seed: int = 0, grid=None, parameter_ablation: bool = False):
     """The ``Trainer`` of ``model`` on ``experiment``'s uniform grid, or on
     ``grid`` (a ``PDEDataset`` or ``GridInfo``), with weights random from
-    ``seed``. ``device`` defaults to CUDA and raises without it."""
+    ``seed``: a graph model, or a grid model with the experiment's
+    equation variables and the grid's positions (VNO's transform), as
+    msmp_pde_tpu/training/setup.py:134-146 builds it. ``device`` defaults
+    to CUDA and raises without it."""
     from msmp_pde_torch.data.graph import build_graph_spec
     from msmp_pde_torch.device import resolve_device
     from msmp_pde_torch.models.registry import get_model
@@ -140,7 +143,8 @@ def build_trainer(experiment: str, model: str, *,
     m, kind = get_model(
         model, tw=time_window, n_eq_vars=len(eq_norms),
         L=float(getattr(pde, "L", 16.0)), tmax=grid.tmax, dt=grid.dt,
-        n_layers=n_graph_layers, seed=seed,
+        n_layers=n_graph_layers, eq_var_names=tuple(eq_norms),
+        positions=np.asarray(grid.x), seed=seed,
     )
     return Trainer(model=m.to(dev), kind=kind, spec=spec, eq_norms=eq_norms)
 

@@ -13,10 +13,14 @@ losses, the space-time L2 norms and a best-val checkpoint
 
 ``--experiment`` is E1, E2, E3 or kdv (1-D), or RP, MSWG or MSWG3 (the
 two-component advection system, with the 2-D models). ``--model`` is one
-of the nineteen ported graph models (models/registry.py::PORTED: the nine
-1-D ones and their ten 2-D versions, MP-PDE2D ... LSTM2D). ``--device`` is
-cuda by default and raises without it. ``--dp`` > 1,
-``--mp_precision`` other than float32 and ``--mp_remat`` are not ported.
+of the 26 ported registry names (models/registry.py::PORTED): the nine
+1-D graph models and their ten 2-D versions (MP-PDE2D ... LSTM2D), the
+1-D grid models BaseCNN, FNO, FNOP (the equation variables of E2 or E3)
+and VNO, and the 2-D BaseCNN2D, FNO2D and FNO2DP (a and b); FNO2DPU
+raises. ``--device`` is cuda by default and raises without it. ``--dp``
+> 1, ``--mp_precision`` other than float32 and ``--mp_remat`` are not
+ported. cuDNN's TF32 stays at PyTorch's default (on) for the
+convolutions, as for every CLI of the port.
 """
 from __future__ import annotations
 
@@ -42,10 +46,11 @@ def device_arrays(ds, device):
     return u, ub, var
 
 
-# the only entry point whose argv a watchdog re-exec may replay; fit()
+# the entry points whose argv a watchdog re-exec may replay; fit()
 # embedded in any other process must not re-exec that host with its
 # unrelated argv (the watchdog stays off there)
-_CLI_MODULES = ("msmp_pde_torch.training.train",)
+_CLI_MODULES = ("msmp_pde_torch.training.train",
+                "msmp_pde_torch.training.cv")
 
 
 def _running_as_cli() -> bool:
@@ -56,7 +61,8 @@ def _running_as_cli() -> bool:
         return True
     # launched by file path (python .../train.py): __spec__ is None but
     # argv replay is equally safe, _stall_recovery re-execs sys.argv[0]
-    if spec is None and os.path.basename(sys.argv[0]) == "train.py":
+    if spec is None and os.path.basename(sys.argv[0]) in ("train.py",
+                                                          "cv.py"):
         return True
     return os.environ.get("MSMP_WATCHDOG_FORCE", "") == "1"
 

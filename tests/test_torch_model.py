@@ -110,7 +110,7 @@ def test_plain_impl_equals_default_on_cpu(V):
     torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", ["BaseCNN", "VNO", "FNO2D", "FNO"])
+@pytest.mark.parametrize("name", ["FNO2DPU"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(name, tw=TW, n_eq_vars=0, L=L, tmax=TMAX, dt=DT)
