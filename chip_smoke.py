@@ -132,7 +132,24 @@ Phases, each of which fails the run on error:
      served over HTTP (equal to RolloutEngine.rollout); the eval CLI on
      FNO2DP's checkpoint and on phase 18's MSMP-PDE checkpoint (its L2
      norms equal compute_l2_norms); the cv CLI with BaseCNN one epoch on
-     E1's 64 merged samples.
+     E1's 64 merged samples;
+ 25. the wave equation, KF and KS: WE1, WE2, WE3 and KF through the
+     generate CLI on the card (32/16/16 samples, float64; the schema, WE's
+     int boundaries and WE3's quirk, the first train chunk at pde_250-100
+     against the port's CPU solve of the same draws, PDEDataset); KS
+     through generate_ks at the reference's dt 0.00025 and tend 100,
+     restricted to the resolutions fit reads, 250-200 and 250-100 (its
+     CUDA graphs' replays bitwise equal to the eager loop, the card
+     against the CPU over the first 9,575 fine steps, and over the whole
+     horizon against a CPU process started before, the distance printed);
+     the four message-passing kernels on WE's k-NN graph (K = 3, unequal
+     in-degrees) at V = 3 and V = 1 against their plain versions; fit of
+     MSMP-PDE one epoch on WE3 and on KS (--short_horizon_windows 2),
+     each resumed, held window by window and served with --data_dir;
+     eval --ks_spectrum on the KS checkpoint (the diagnostics against the
+     CPU's and the plain path's); one train_epoch of MP-PDE on WE3 and a
+     forced-fallback step of MSMP-PDE at batch 48 on WE3's grid; the
+     k-NN kernels' times and MSMP-PDE's step on WE3.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -1438,10 +1455,12 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
     # the metrics' forwards: the one-step losses at 9 steps and the 8-window
     # rollout of the unrolled loss, on one batch of the valid set; where
     # the validation loss improved, the same on the test set and the two
-    # sets' L2 norms
+    # sets' L2 norms; with --short_horizon_windows, its windows on the
+    # valid set, and on the test set where it improved
     steps_at, windows = 9, 8
-    fwd = sum(steps_at + windows
-              + (steps_at + 3 * windows if h["improved"] else 0)
+    shw = getattr(args, "short_horizon_windows", 0)  # valid, and test
+    fwd = sum(steps_at + windows + shw
+              + (steps_at + 3 * windows + shw if h["improved"] else 0)
               for h in hist)
     summed = dict.fromkeys(COUNTERS, 0)
     for _, d in per_step:
@@ -1476,13 +1495,14 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
 
 
 def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
-              epochs=2, per_window=False):
+              epochs=2, per_window=False, extra=()):
     """Phases 18, 23 and 24: fit ``model`` (MSMP-PDE or its 2-D version
     at full width, or a grid model at its reference widths) on
     ``experiment``'s data for ``epochs`` epochs, the checkpoint and
     resume, the L2 norms on both paths (one path for a grid model), and
     the server on the checkpoint answering a request with the test set's
-    equation variables. Returns the fit's launch counts.
+    equation variables; ``extra``: more train CLI arguments. Returns the
+    fit's launch counts.
 
     The L2 norms of the two paths agree within TOL_L2. With
     ``per_window`` (phase 23) the kernel path's 8-window rollout of the
@@ -1515,7 +1535,7 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
         f"--experiment={experiment}", f"--model={name}",
         f"--num_epochs={epochs}", "--batch_size=16", "--unrolling=1",
         "--lr=1e-4", "--print_interval=100", "--device=cuda",
-        f"--data_dir={data_dir}"])
+        f"--data_dir={data_dir}", *extra])
     exp = setup_experiment(args, data_dir=data_dir)
     trainer, t_res = exp.trainer, exp.t_res
     model = trainer.model
@@ -1730,13 +1750,14 @@ VARIANTS = ("MSSMP-PDE", "MSGMP-PDE", "SaveMSMP-PDE", "LSTMGated", "LSTM")
 STATEFUL_STEPS = (25, 200, 150, 225)
 
 
-def weighted_trainer(experiment, name, seed, dev):
-    """``build_trainer`` of ``name`` with weights from ``flax_tree`` of a
-    numpy seed through params_from_flax."""
+def weighted_trainer(experiment, name, seed, dev, grid=None):
+    """``build_trainer`` of ``name`` (on ``grid``, default the uniform
+    one) with weights from ``flax_tree`` of a numpy seed through
+    params_from_flax."""
     from msmp_pde_torch.training.setup import build_trainer
     from msmp_pde_torch.utils.convert import params_from_flax
 
-    tr = build_trainer(experiment, name, device=dev)
+    tr = build_trainer(experiment, name, device=dev, grid=grid)
     tr.model.load_state_dict(params_from_flax(flax_tree(tr.model, seed)),
                              strict=True)
     return tr
@@ -2211,7 +2232,7 @@ def grid_models_phase(rand, dev, on):
     return trainers
 
 
-def eval_phase(data_dir, work_dir, experiment, name, ckpt):
+def eval_phase(data_dir, work_dir, experiment, name, ckpt, extra=()):
     """Phase 24, the eval CLI on ``ckpt`` (run in ``work_dir``): its test
     L2 / rel-L2 equal ``compute_l2_norms`` on the checkpoint's weights,
     its launches those of its forwards (none for a grid model). Returns
@@ -2224,7 +2245,7 @@ def eval_phase(data_dir, work_dir, experiment, name, ckpt):
     args = evaluate.build_parser().parse_args([
         f"--experiment={experiment}", f"--model={name}",
         f"--model_to_test={ckpt}", f"--data_dir={data_dir}",
-        "--batch_size=16", "--device=cuda"])
+        "--batch_size=16", "--device=cuda", *extra])
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.chdir(work_dir):
@@ -2285,6 +2306,400 @@ def cv_phase(data_dir, work_dir):
           f"{100 * res['test_rel_L2']:.3f} %, checkpoint {ckpts[0].name}")
 
 
+# phase 25: the wave equation, KF and KS. The datagen CLI's families of
+# this phase (KS through generate_ks, restricted to the resolutions fit
+# reads, 250-200 and 250-100)
+FAMILIES = ("WE1", "WE2", "WE3", "KF")
+KS_RES = [(250, 200), (250, 100)]
+# KS on the card against the CPU, float64: fine steps kept over the first
+# 9,575 (t = 2.39, the transient's 8,001 and one output step), covering
+# every CUDA graph of the binary decomposition
+KS_SHORT_SAVE = (1, 7, 600, 1100, 8001, 9575)
+# the CPU's run of KS over the whole horizon: train sample 0 at 250-100
+KS_CPU_CODE = """
+import sys, time
+import numpy as np, torch
+torch.set_num_threads(1)
+from msmp_pde_torch.datagen import generate, ics
+ks = generate.ks_pdes(100.0, 0.00025, [(250, 100)])["pde_250-100"]
+draws = ics.sample_sine_params(np.random.default_rng(0), 32, ks.n_waves,
+                               ks.lmin, ks.lmax)
+t0 = time.perf_counter()
+(u, valid), = generate.ks_solve([ks], [a[:1] for a in draws],
+                                torch.float64, "cpu")
+np.save(sys.argv[1], u.numpy())
+print(time.perf_counter() - t0)
+"""
+
+
+def family_datagen_phase(data_dir, on, experiment):
+    """Phase 25, datagen of WE1-3 or KF through the generate CLI on the
+    card (32/16/16 samples, chunk 32, float64) into ``data_dir``: the
+    schema (every resolution's keys and attributes, WE's Chebyshev x and
+    its boundaries as ints, WE3's bc_right Dirichlet, c; KF's r and D by
+    groups within their ranges), finite values, the first train chunk at
+    pde_250-100 against the port's CPU solve of the same draws
+    (TOL_DATAGEN), and PDEDataset reading it."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.data.dataset import PDEDataset
+    from msmp_pde_torch.datagen import generate, hdf5_io
+    from msmp_pde_torch.equations.we import BC_NAMES
+    from msmp_pde_torch.training.setup import data_family, pde_for_experiment
+
+    argv = [f"--experiment={experiment}", "--chunk=32", "--seed=0",
+            "--device=cuda", "--dtype=float64", f"--data_dir={data_dir}"]
+    argv += [f"--{m}_samples={n}" for m, n in E1_SAMPLES.items()]
+    args = generate.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    seconds = generate.main(args)
+    took = time.perf_counter() - t0
+    print(f"{experiment} datagen in all (float64, the CLI's wall clock): "
+          f"{took:.3f} s, the solves {sum(seconds.values()):.3f} s ({on})")
+    we = data_family(experiment) == "WE"
+    pdes = generate.we_pdes(100.0) if we else generate.kf_pdes(5.0)
+    npz = Path(data_dir) / f"{data_family(experiment)}_{experiment}.npz"
+    check(npz.is_file(), f"datagen wrote no {npz}")
+    with hdf5_io.open_dataset(str(npz)) as f:
+        for mode, n in E1_SAMPLES.items():
+            for key, pde in pdes.items():
+                name = f"{mode}/{key}"
+                u, a = f.array(name), f.attrs(name)
+                x = pde.x if we else np.linspace(0.0, 16.0, pde.nx)
+                check(u.shape == (n, pde.nt, pde.nx)
+                      and u.dtype == np.float64, f"{name}: {u.shape}")
+                check(bool(np.isfinite(u).all()), f"{name}: not finite")
+                check(int(a["nt"]) == pde.nt and int(a["nx"]) == pde.nx
+                      and float(a["dt"]) == pde.dt
+                      and float(a["dx"]) == pde.dx
+                      and float(a["tmin"]) == 0.0
+                      and float(a["tmax"]) == pde.tmax
+                      and np.array_equal(a["x"], x),
+                      f"{name}: attributes {a}")
+            if we:
+                left, right = (f.array(f"{mode}/bc_{s}")
+                               for s in ("left", "right"))
+                want_left = {"WE1": {0}, "WE2": {1}, "WE3": {0, 1}}
+                check(left.dtype.kind == right.dtype.kind == "i"
+                      and set(left) <= want_left[experiment]
+                      and np.array_equal(
+                          right, left if experiment != "WE3"
+                          else np.zeros(n, int))
+                      and np.array_equal(f.array(f"{mode}/c"),
+                                         np.full(n, 2.0)),
+                      f"{experiment} {mode}: the boundaries {left} {right}")
+            else:
+                for name, (lo, hi) in zip(
+                        ("r", "D"), generate.KF_EXPERIMENTS["KF"][1:]):
+                    v = f.array(f"{mode}/{name}")
+                    check(v.shape == (n,) and lo <= v.min()
+                          and v.max() <= hi and bool(np.all(
+                              v.reshape(-1, args.batch_size)
+                              == v[::args.batch_size, None])),
+                          f"{mode}/{name}: {v}")
+        chunk = f.array("train/pde_250-100")[:32]
+    pde = pdes["pde_250-100"]
+    t0 = time.perf_counter()
+    if we:
+        bc_l, bc_r, starts = generate.draw_we_mode(
+            np.random.default_rng(0), 32, generate.WE_EXPERIMENTS[experiment])
+        cpu = np.empty_like(chunk)
+        for bl in np.unique(bc_l):
+            sel = bc_l == bl
+            pde.bc_left, pde.bc_right = BC_NAMES[bl], BC_NAMES[bc_r[sel][0]]
+            cpu[sel] = generate.we_solve(
+                pde, generate.we_initial_state(pde.x, starts[sel], 2.0), 2.0,
+                torch.float64, "cpu")[:, ::-1]
+    else:
+        draws = generate.draw_kf_chunk(
+            np.random.default_rng(0), 32, args.batch_size,
+            *generate.KF_EXPERIMENTS["KF"][1:], pdes["pde_250-200"])
+        cpu = generate.kf_solver(pde, torch.float64, "cpu")(
+            *(torch.as_tensor(d) for d in draws)).numpy()
+    e = float(np.abs(cpu - chunk).max())
+    print(f"{experiment} train chunk 0 at pde_250-100: max |card - CPU| = "
+          f"{e:.3e} (max |u| {np.abs(cpu).max():.3f}; the CPU solve took "
+          f"{time.perf_counter() - t0:.3f} s)")
+    check(e <= TOL_DATAGEN, f"{experiment} datagen: the card's chunk "
+          f"differs from the CPU's by {e:.3e} > {TOL_DATAGEN}")
+    ds = PDEDataset(str(npz), pde_for_experiment(experiment, (250, 100)),
+                    "train")
+    check(ds.u_super.shape == (32, 250, 100)
+          and ds.u_super.dtype == np.float32
+          and bool(np.isfinite(ds.u_super).all()), f"PDEDataset on "
+          f"{experiment}")
+    print(f"PDEDataset: {experiment} train u_super {ds.u_super.shape}, "
+          f"variables {sorted(ds.variables)}, x {ds.x[:3]} ...")
+    return took
+
+
+def ks_datagen_phase(data_dir, on):
+    """Phase 25, KS datagen: ``generate_ks`` at the reference's dt 0.00025
+    and tend 100 (400,000 fine steps, a transient of 8,001), restricted to
+    KS_RES, 32/16/16 samples (one batch of 64 a resolution, the two on a
+    stream each): the schema, every trajectory valid and finite, the time
+    and its ms per 1,000 fine steps; each resolution alone over 20,000
+    steps; on the card the CUDA graphs' replays bitwise equal to the eager
+    loop of the same step; the card against the CPU over KS_SHORT_SAVE
+    (TOL_DATAGEN); PDEDataset reading it."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.data.dataset import PDEDataset
+    from msmp_pde_torch.datagen import generate, hdf5_io, ics
+    from msmp_pde_torch.training.setup import pde_for_experiment
+
+    argv = ["--experiment=KS", "--chunk=32", "--seed=0", "--device=cuda",
+            "--dtype=float64", f"--data_dir={data_dir}"]
+    argv += [f"--{m}_samples={n}" for m, n in E1_SAMPLES.items()]
+    args = generate.build_parser().parse_args(argv)
+    tend, dt = generate.KS_EXPERIMENTS["KS"]
+    t0 = time.perf_counter()
+    seconds = generate.generate_ks(args, tend, dt, resolutions=KS_RES)
+    took = time.perf_counter() - t0
+    kss = generate.ks_pdes(tend, dt, KS_RES)
+    steps = next(iter(kss.values())).nsteps
+    solve_s = seconds[("all", "all resolutions")]
+    print(f"KS datagen (float64, dt {dt}, {steps} fine steps, the "
+          f"resolutions {', '.join(kss)} only, 64 samples a batch): "
+          f"{took:.3f} s, the solves {solve_s:.3f} s together, "
+          f"{1e3 * solve_s / (steps / 1000):.3f} ms per 1,000 fine steps "
+          f"of both ({on})")
+    npz = Path(data_dir) / "KS_KS.npz"
+    check(npz.is_file(), f"datagen wrote no {npz}")
+    with hdf5_io.open_dataset(str(npz)) as f:
+        for mode, n in E1_SAMPLES.items():
+            for key, ks in kss.items():
+                name = f"{mode}/{key}"
+                u, a = f.array(name), f.attrs(name)
+                check(u.shape == (n, 250, ks.nx)
+                      and bool(np.isfinite(u).all()), f"{name}: {u.shape}")
+                check(int(a["nt"]) == 250 and int(a["nx"]) == ks.nx
+                      and float(a["dt"]) == tend / 250
+                      and float(a["dx"]) == ks.dx
+                      and float(a["tmin"]) == 0.0
+                      and float(a["tmax"]) == tend
+                      and np.array_equal(a["x"], np.linspace(
+                          0.0, 2 * np.pi * ks.L, ks.nx)),
+                      f"{name}: attributes {a}")
+    dev = torch.device("cuda")
+    for key, ks in kss.items():
+        params = ics.sample_sine_params(np.random.default_rng(0), 32,
+                                        ks.n_waves, ks.lmin, ks.lmax)
+        x = torch.as_tensor(np.linspace(0.0, 2 * np.pi * ks.L, ks.nx),
+                            device=dev)
+        A, _, phi, l = (torch.as_tensor(p, device=dev) for p in params)
+        u0 = ics.ks_ic(A, phi, l, x, ks.L)
+        u64 = torch.cat([u0, u0])  # 64 rows, as the datagen batch
+        for _ in range(2):  # the first call builds cuFFT's plans
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ks.simulate(u64, np.array([10000, 20000]))
+            torch.cuda.synchronize()
+            alone = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eager, _ = ks.simulate(u64, np.array(KS_SHORT_SAVE[:4]),
+                               graphs=False)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        graphed, _ = ks.simulate(u64, np.array(KS_SHORT_SAVE[:4]))
+        check(torch.equal(eager, graphed), f"KS {key}: the graphs' replays "
+              "differ from the eager loop")
+        card, _ = ks.simulate(u0[:4], np.array(KS_SHORT_SAVE))
+        t0 = time.perf_counter()
+        cpu, _ = ks.simulate(u0[:4].cpu(), np.array(KS_SHORT_SAVE))
+        cpu_s = time.perf_counter() - t0
+        e = float((card.cpu() - cpu).abs().max())
+        eager_ms = 1e6 * eager_s / KS_SHORT_SAVE[3]
+        print(f"KS {key}, 64 rows: {1e3 * alone / 20:.3f} ms per 1,000 fine "
+              f"steps with the graphs alone (20,000 steps, capture "
+              f"included), {eager_ms:.3f} eager; "
+              f"the replays bitwise equal to the eager loop over "
+              f"{KS_SHORT_SAVE[3]} steps; card vs CPU over "
+              f"{KS_SHORT_SAVE[-1]} steps (4 rows): max |diff| {e:.3e} "
+              f"(max |u| {float(cpu.abs().max()):.3f}; the CPU "
+              f"{cpu_s:.3f} s) ({on})")
+        check(e <= TOL_DATAGEN, f"KS {key}: the card differs from the CPU "
+              f"by {e:.3e} > {TOL_DATAGEN} over {KS_SHORT_SAVE[-1]} steps")
+    ds = PDEDataset(str(npz), pde_for_experiment("KS", (250, 100)), "train")
+    check(ds.u_super.shape == (32, 250, 100) and not ds.variables
+          and bool(np.isfinite(ds.u_super).all()), "PDEDataset on KS")
+    print(f"PDEDataset: KS train u_super {ds.u_super.shape}, dt {ds.dt}, "
+          f"x [{ds.x[0]}, {ds.x[-1]}]")
+
+
+def ks_cpu_reference(work_dir):
+    """Phase 25: the CPU's run of KS_CPU_CODE in a process of its own
+    (one thread), started before the card's datagen; returns (the process,
+    the path of its output)."""
+    import os
+
+    out = str(Path(work_dir) / "ks_cpu.npy")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", KS_CPU_CODE, out], cwd=str(ROOT),
+        env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out
+
+
+def ks_full_horizon(proc, out, data_dir, on):
+    """Phase 25: train sample 0 of the card's KS data at pde_250-100
+    against the CPU's run over the whole horizon, 400,000 fine steps: the
+    distance printed, held to no bound (L = 22 is chaotic; the short
+    horizon holds the tolerance)."""
+    import numpy as np
+
+    from msmp_pde_torch.datagen import hdf5_io
+
+    stdout, stderr = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"the CPU's KS run failed: {stderr[-2000:]}")
+    cpu = np.load(out)[0]
+    with hdf5_io.open_dataset(str(Path(data_dir) / "KS_KS.npz")) as f:
+        card = f.array("train/pde_250-100")[0]
+    d = np.abs(card - cpu).max(axis=-1)
+    print(f"KS train sample 0 at pde_250-100, card vs CPU over the whole "
+          f"horizon (t 2.0 to 100, 250 outputs): max |diff| {d.max():.3e} "
+          f"(at output {int(d.argmax())}; {d[0]:.3e} at the first, "
+          f"{d[124]:.3e} at output 124); max |u| {np.abs(cpu).max():.3f}; the "
+          f"CPU took {float(stdout.split()[-1]):.1f} s for 400,000 steps "
+          f"({on})")
+
+
+def knn_phase(rand, T, dev, grid):
+    """Phase 25, the message-passing kernels on the wave equation's k-NN
+    graph (K = 3 on ``grid``, WE's down-projected Chebyshev grid of 100,
+    in-degrees 2 to 5), D = tw = 25, with WE3's V = 3 (t, bc_left,
+    bc_right) and WE1's V = 1 (t), and MSMP-PDE's, MSGMP-PDE's (164) and
+    MP-PDE's weights: the pair's forward at B in {1, 16, 48} at 128 and
+    164, its backward, both single-layer switch settings and the stash
+    with the forced fallback, each against its plain version, two runs
+    bitwise equal. Returns ({kernel: max error}, the timings' (kernel,
+    operands) at V = 3: batch 16, the stash at 48)."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.ops import mp_pair
+
+    errs = {}
+    for experiment in ("WE3", "WE1"):
+        gated = weighted_trainer(experiment, "MSMP-PDE", 50, dev, grid)
+        glu = weighted_trainer(experiment, "MSGMP-PDE", 51, dev, grid)
+        plain = weighted_trainer(experiment, "MP-PDE", 52, dev, grid)
+        spec = gated.spec
+        nx, V = spec.nx, 1 + len(gated.eq_norms)
+        deg = np.bincount(spec.idx.cpu().numpy().ravel(), minlength=nx)
+        check(spec.idx.shape == (nx, 3) and deg.min() < 3 < deg.max(),
+              f"{experiment}: not a k-NN graph of unequal in-degrees")
+        print(f"phase 25: the message-passing kernels on {experiment}'s "
+              f"k-NN graph, K = 3, in-degrees {deg.min()} to {deg.max()}, "
+              f"D = {T}, V = {V}")
+        w = lambda m: tuple(x.detach() for x in (m.gate_0.weights()
+                                                 + m.gnn_0.weights()))
+        fwd_args = {}
+        with torch.no_grad():
+            for H, W in ((128, w(gated.model)), (GLU_H, w(glu.model))):
+                for B in (1, 16, 48):
+                    args = (rand(B, nx, H), rand(B, nx, T),
+                            spec.x.expand(B, nx)[..., None] / spec.L,
+                            rand(B, nx, V, scale=.5), spec.idx, spec.mask,
+                            W[:12], W[12:])
+                    ok = mp_pair.fused_gated_pair(*args)
+                    again = mp_pair.fused_gated_pair(*args)
+                    op = mp_pair.fused_gated_pair_plain(*args)
+                    torch.cuda.synchronize()
+                    check(torch.equal(ok, again), f"mp_pair_fwd k-NN V={V} "
+                          f"B={B} H={H}: two runs differ")
+                    e = (ok - op).abs().max().item()
+                    errs["mp_pair_fwd"] = max(errs.get("mp_pair_fwd", 0.0), e)
+                    print(f"mp_pair_fwd k-NN V={V} B={B} H={H}: max |kernel "
+                          f"- plain| = {e:.3e}; two runs bitwise equal")
+                    check(e <= TOL_PAIR, f"mp_pair_fwd k-NN V={V} B={B} "
+                          f"H={H} differs by {e:.3e} > {TOL_PAIR}")
+                    fwd_args[(H, B)] = args
+        e_bwd, bwd_args = check_pair_bwd(
+            rand, gated.model, spec, T, 128, V,
+            (glu.model.gate_0.weights(), glu.model.gnn_0.weights()),
+            b164=(1, 16, 48))
+        errs["mp_pair_bwd"] = max(errs.get("mp_pair_bwd", 0.0),
+                                  *e_bwd.values())
+        lf, lb = check_layer_kernels(rand, plain.model.gnn_0.weights(), spec,
+                                     T, 128, V)
+        errs["mp_layer_fwd"] = max(errs.get("mp_layer_fwd", 0.0), lf)
+        errs["mp_layer_bwd"] = max(errs.get("mp_layer_bwd", 0.0), lb)
+        st, fb, stash = check_pair_fallback(rand, gated.model, spec, T, 128,
+                                            V)
+        errs["mp_pair_fwd_stash"] = max(errs.get("mp_pair_fwd_stash", 0.0),
+                                        st)
+        errs["mp_pair_fallback"] = max(errs.get("mp_pair_fallback", 0.0), fb)
+        if experiment == "WE3":
+            W1 = tuple(x.detach() for x in plain.model.gnn_0.weights())
+            layer = (*fwd_args[(128, 16)][:6], W1)
+            ops = [("mp_pair_fwd", fwd_args[(128, 16)]),
+                   ("mp_pair_bwd", bwd_args[128]),
+                   ("mp_layer_fwd", layer),
+                   ("mp_layer_bwd", (*layer, bwd_args[128][-1])),
+                   ("mp_pair_fwd_stash", stash[0])]
+    return errs, ops
+
+
+def ks_eval_phase(data_dir, work_dir, ckpt, dev):
+    """Phase 25, the eval CLI with --ks_spectrum on the KS checkpoint
+    (``eval_phase``'s checks): its diagnostics, computed on the card,
+    against the same functions on the CPU from its rollout (1e-9 of each
+    array's scale); the plain path's rollout store: its truth equal to
+    eval's, and so the truth's diagnostics on the card; the prediction's
+    diagnostics' distance from the plain path's printed."""
+    import types
+
+    import numpy as np
+
+    from msmp_pde_torch.training import eval as evaluate
+    from msmp_pde_torch.training import metrics, train
+    from msmp_pde_torch.training.setup import (
+        pde_for_experiment,
+        setup_experiment,
+    )
+    from msmp_pde_torch.utils.checkpoint import restore_params
+
+    out = eval_phase(data_dir, work_dir, "KS", "MSMP-PDE", ckpt,
+                     extra=("--ks_spectrum",))
+    diag = out["ks_spectrum"]
+    pde = pde_for_experiment("KS", (250, 100))
+    cpu = evaluate.ks_spectrum(pde, out["preds"], out["trues"], 2.0, "cpu")
+    check(set(diag) == set(cpu) and (Path(work_dir) / "plots"
+                                     / "ks_spectrum.npz").is_file(),
+          f"eval --ks_spectrum: {sorted(diag)}")
+    rel = lambda a, b: float(np.abs(a - b).max()) / max(
+        float(np.abs(b).max()), 1e-30)
+    e = max(rel(diag[k], cpu[k]) for k in cpu)
+    print(f"eval --ks_spectrum: {len(diag)} arrays, card vs CPU at most "
+          f"{e:.3e} of an array's scale")
+    check(e <= 1e-9, f"eval --ks_spectrum: card vs CPU {e:.3e}")
+    args = train.build_parser().parse_args([
+        "--experiment=KS", "--model=MSMP-PDE", "--device=cuda",
+        f"--data_dir={data_dir}"])
+    exp = setup_experiment(args, modes=("test",), data_dir=data_dir)
+    tr = exp.trainer
+    tr.model.load_state_dict(restore_params(ckpt), strict=True)
+    u, _, var = train.device_arrays(exp.datasets["test"], dev)
+    plain = types.SimpleNamespace(tw=tr.tw, d=tr.d,
+                                  forward=plain_forward(tr))
+    preds, trues = metrics.rollout_store(plain, u, var, TRAIN_BATCH,
+                                         args.nr_gt_steps,
+                                         exp.datasets["test"].nt)
+    ref = evaluate.ks_spectrum(pde, preds, trues, 2.0, dev)
+    check(np.array_equal(trues, out["trues"]) and all(
+        np.array_equal(ref[k], diag[k]) for k in diag
+        if k.endswith("_true")), "eval --ks_spectrum: the truth's "
+          "diagnostics differ from the plain path's")
+    print("eval --ks_spectrum, the prediction's diagnostics, kernel path vs "
+          "plain path (float32 rollouts of 8 windows), relative to each "
+          "array's scale: " + ", ".join(
+              f"{k} {rel(diag[k], ref[k]):.3e}" for k in sorted(diag)
+              if k.endswith("_pred")))
+
+
 def main():
     import tempfile
 
@@ -2297,12 +2712,14 @@ def main():
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    from msmp_pde_torch.data.dataset import PDEDataset
     from msmp_pde_torch.data.graph import build_neighbors_radius
     from msmp_pde_torch.models.gnn import GNNLayer
     from msmp_pde_torch.ops import _build, lem_scan, mp_layer, mp_pair
     from msmp_pde_torch.serving.engine import (
         RolloutEngine,
         build_serving_trainer,
+        grid_from_h5,
     )
     from msmp_pde_torch.tools.lem_times import lem_args
     from msmp_pde_torch.tools.model_times import (
@@ -2311,7 +2728,11 @@ def main():
         time_train_steps,
         train_data,
     )
-    from msmp_pde_torch.training.setup import build_trainer
+    from msmp_pde_torch.training.setup import (
+        build_trainer,
+        pde_for_experiment,
+    )
+    from msmp_pde_torch.training.train import device_arrays
     from msmp_pde_torch.utils.convert import params_from_flax
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2749,6 +3170,56 @@ def main():
     rp_dir.cleanup()
     print(f"phase 24: {time.perf_counter() - t24:.3f} s")
 
+    # 25. the wave equation, KF and KS: datagen on the card, the kernels
+    #     on the k-NN graph, fit, serve and eval --ks_spectrum ------------
+    t25 = time.perf_counter()
+    fam_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_fam_")
+    fam_work = fam_dir.name
+    fam_data = str(Path(fam_work) / "data")
+    ks_proc, ks_out = ks_cpu_reference(fam_work)
+    try:
+        fam_s = {e: family_datagen_phase(fam_data, on, e) for e in FAMILIES}
+        t_ks = time.perf_counter()
+        ks_datagen_phase(fam_data, on)
+        t_knn = time.perf_counter()
+        we3_npz = str(Path(fam_data) / "WE_WE3.npz")
+        we_pde = pde_for_experiment("WE3", (250, 100))
+        we_grid = grid_from_h5(we3_npz, we_pde, "test", (250, 100),
+                               (250, 200))
+        knn_err, knn_ops = knn_phase(rand, T, dev, we_grid)
+        t_fit = time.perf_counter()
+        knn_fit = fit_phase(fam_data, fam_work, on, "WE3", "MSMP-PDE",
+                            epochs=1, per_window=True)
+        print(f"MSMP-PDE WE3 fit main path launches: {nonzero(knn_fit)}")
+        fit_phase(fam_data, fam_work, on, "KS", "MSMP-PDE", epochs=1,
+                  per_window=True, extra=("--short_horizon_windows=2",))
+        ks_eval_phase(fam_data, fam_work,
+                      str(Path(fam_work) / "models" / "MSMP-PDE_KS.pt"), dev)
+        u_we, _, var_we = device_arrays(PDEDataset(we3_npz, we_pde, "train"),
+                                        dev)
+        mp_we = weighted_trainer("WE3", "MP-PDE", 53, dev, we_grid)
+        knn_layer, we_epoch_s = train_main_path(
+            mp_we, u_we[:TRAIN_BATCH], "MP-PDE (WE3)",
+            {k: v[:TRAIN_BATCH] for k, v in var_we.items()})
+        msmp_we = weighted_trainer("WE3", "MSMP-PDE", 54, dev, we_grid)
+        u48, var48 = train_data(msmp_we, 48, seed=8)
+        knn_fb = fallback_step(msmp_we, u48, "MSMP-PDE (WE3)", var48)
+        del u48
+        knn_t = dict(zip((name for name, _ in knn_ops),
+                         mp_kernel_times(knn_ops)))
+        time_train_steps(msmp_we, u_we, "MSMP-PDE (WE3)", var_we)
+        ks_full_horizon(ks_proc, ks_out, fam_data, on)
+    finally:
+        if ks_proc.poll() is None:
+            ks_proc.kill()
+            ks_proc.wait()
+    fam_dir.cleanup()
+    print(f"phase 25: {time.perf_counter() - t25:.3f} s (WE1-3 and KF "
+          f"datagen {t_ks - t25:.3f} s, KS datagen and its checks "
+          f"{t_knn - t_ks:.3f} s, the k-NN kernels {t_fit - t_knn:.3f} s, "
+          f"the fits, eval, train_epoch, timings and the CPU's KS "
+          f"{time.perf_counter() - t_fit:.3f} s) ({on})")
+
     kernels = [
         {"name": "lem_fwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/lem_fwd.cu",
@@ -2846,6 +3317,24 @@ def main():
             "source": f"msmp_pde_torch/csrc/{src}.cu",
             "replaces": REPLACES[name], "launches": d50_launches[name],
             "max_abs_err": d50_err[name], "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # the message-passing kernels on the wave equation's k-NN graph (K =
+    # 3, V = 3, hidden 128): launches in phase 25's main paths (the pair
+    # in the WE3 fit of MSMP-PDE, the single layer in MP-PDE's WE3
+    # train_epoch, the stash in the forced-fallback step)
+    knn_launches = {
+        "mp_pair_fwd": knn_fit["mp_pair_fwd"],
+        "mp_pair_bwd": knn_fit["mp_pair_bwd"],
+        "mp_layer_fwd": knn_layer["mp_layer_fwd"],
+        "mp_layer_bwd": knn_layer["mp_layer_bwd"],
+        "mp_pair_fwd_stash": knn_fb["mp_pair_fwd_stash"]}
+    for name, (ms, pms, _, bms, by) in knn_t.items():
+        src = name.replace("_stash", "")
+        kernels.append({
+            "name": f"{name}@knn", "route": "cuda",
+            "source": f"msmp_pde_torch/csrc/{src}.cu",
+            "replaces": REPLACES[name], "launches": knn_launches[name],
+            "max_abs_err": knn_err[name], "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(on)

@@ -1,5 +1,5 @@
 """Dataset reader with super -> base down-projection (counterpart of
-msmp_pde_tpu/data/dataset.py, the CE and AD families).
+msmp_pde_tpu/data/dataset.py).
 
 Reads one mode of a dataset file, the port's ``.npz`` or, where ``h5py``
 imports, an ``.h5`` in the reference schema (datagen/hdf5_io.py), and
@@ -8,16 +8,22 @@ holds as numpy arrays:
 * ``u_base``: the coarse numerical trajectories [N, nt, nx] (AD:
   [N, nt, 2, nx]);
 * ``u_super``: the super-resolution trajectories down-projected to the
-  base resolution, the training target. CE: temporal stride
-  ``ratio_nt``, the periodic duplicated-endpoint pad (u[-3:-1] left,
-  u[1:3] right), then the 5-tap averaging kernel [0.2] * 5 with spatial
-  stride ``ratio_nx``. AD (stored [N, 2, nt, nx]): temporal stride
-  ``ratio_nt``, then every second point ``u[..., 0:-1:2]``, laid out as
-  [N, nt, 2, nx];
-* ``x``: the base coordinates, and the equation's scalar ``variables``.
+  base resolution, the training target:
+  - CE and KS: temporal stride ``ratio_nt``, the periodic
+    duplicated-endpoint pad (u[-3:-1] left, u[1:3] right), then the
+    5-tap averaging kernel [0.2] * 5 with spatial stride ``ratio_nx``;
+  - KF: the same on a zero pad (Dirichlet);
+  - WE: temporal stride, then the ``ratio_nx``-wide mean kernel with
+    stride ``ratio_nx``, no pad; the coordinates ``x`` are the super
+    grid's, down-projected by the same kernel (the Chebyshev grid is not
+    nested);
+  - AD (stored [N, 2, nt, nx]): temporal stride ``ratio_nt``, then every
+    second point ``u[..., 0:-1:2]``, laid out as [N, nt, 2, nx];
+* ``x``: the base coordinates (WE's as above), and the equation's scalar
+  ``variables``.
 
-The other families (KF, KS, WE) and the unstructured AD grid (RPU) come
-with their datagen (ROADMAP.md Queue 1 items 7 and 15).
+The unstructured AD grid (RPU) comes with its datagen (ROADMAP.md Queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -28,10 +34,18 @@ import numpy as np
 from msmp_pde_torch.datagen.hdf5_io import open_dataset
 
 
-def _avg_downproject(u: np.ndarray, ratio_nx: int) -> np.ndarray:
+def _avg_downproject(u: np.ndarray, ratio_nx: int,
+                     pad: str = "periodic") -> np.ndarray:
     """5-tap [0.2] * 5 stride-``ratio_nx`` averaging along the last axis,
-    periodic duplicated-endpoint pad (the JAX package's numpy path)."""
-    up = np.concatenate([u[..., -3:-1], u, u[..., 1:3]], axis=-1)
+    on the periodic duplicated-endpoint pad or a zero pad (the JAX
+    package's numpy path)."""
+    if pad == "periodic":
+        left, right = u[..., -3:-1], u[..., 1:3]
+    elif pad == "zero":
+        left = right = np.zeros_like(u[..., :2])
+    else:
+        raise ValueError(pad)
+    up = np.concatenate([left, u, right], axis=-1)
     n_out = u.shape[-1] // ratio_nx
     idx = np.arange(n_out) * ratio_nx
     out = np.zeros(u.shape[:-1] + (n_out,), dtype=u.dtype)
@@ -40,18 +54,29 @@ def _avg_downproject(u: np.ndarray, ratio_nx: int) -> np.ndarray:
     return out
 
 
+def _mean_downproject(u: np.ndarray, ratio_nx: int) -> np.ndarray:
+    """``ratio_nx``-wide mean kernel with stride ``ratio_nx``, no pad (WE;
+    the JAX package's numpy path)."""
+    n_out = u.shape[-1] // ratio_nx
+    idx = np.arange(n_out) * ratio_nx
+    out = np.zeros(u.shape[:-1] + (n_out,), dtype=u.dtype)
+    for j in range(ratio_nx):
+        out += u[..., idx + j] / ratio_nx
+    return out
+
+
 class PDEDataset:
     """One mode (train/valid/test) of a dataset file."""
 
-    VAR_NAMES = {"CE": ("alpha", "beta", "gamma"), "AD": ("a", "b")}
+    VAR_NAMES = {"CE": ("alpha", "beta", "gamma"), "KF": ("r", "D"),
+                 "KS": (), "WE": ("bc_left", "bc_right", "c"),
+                 "AD": ("a", "b")}
 
     def __init__(self, path: str, pde, mode: str, base_resolution=None,
                  super_resolution=None, dtype=np.float32):
         family = f"{pde}"
         if family not in self.VAR_NAMES:
-            raise NotImplementedError(
-                f"{family} datasets are not ported yet (ROADMAP.md Queue 1 "
-                "item 15)")
+            raise ValueError(f"unknown family {family!r}")
         if getattr(pde, "unstructured_grid", False):
             raise NotImplementedError(
                 "unstructured AD datasets (RPU) are not ported yet "
@@ -67,6 +92,7 @@ class PDEDataset:
             u_base = f.array(f"{mode}/{key_base}")
             u_super = f.array(f"{mode}/{key_super}")
             attrs = f.attrs(f"{mode}/{key_base}")
+            x_super = f.attrs(f"{mode}/{key_super}")["x"]
             self.variables: Dict[str, np.ndarray] = {
                 name: f.array(f"{mode}/{name}")
                 for name in self.VAR_NAMES[family]}
@@ -87,8 +113,13 @@ class PDEDataset:
         if family == "AD":
             u = np.swapaxes(u_super[:, :, ::ratio_nt][..., 0:-1:2], 1, 2)
             u_base = np.swapaxes(u_base, 1, 2)
+        elif family == "WE":
+            u = _mean_downproject(u_super[:, ::ratio_nt], ratio_nx)
+            x = _mean_downproject(np.asarray(x_super, np.float64)[None],
+                                  ratio_nx)[0]
         else:
-            u = _avg_downproject(u_super[:, ::ratio_nt], ratio_nx)
+            pad = "zero" if family == "KF" else "periodic"
+            u = _avg_downproject(u_super[:, ::ratio_nt], ratio_nx, pad)
         self.u_base = u_base.astype(dtype)
         self.u_super = u.astype(dtype)
         self.x = x.astype(dtype)

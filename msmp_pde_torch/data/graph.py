@@ -31,6 +31,23 @@ def build_neighbors_radius(x: np.ndarray, n_neighbors: int):
     return idx, mask
 
 
+def build_neighbors_knn(points: np.ndarray, k: int):
+    """Dense k-nearest-neighbour list (knn_graph's): node i's k nearest
+    other nodes by squared distance, ties broken by ``np.argsort``'s order
+    as the JAX package's numpy path breaks them. points: [nx] coordinates
+    or [nx, d] embedded ones. Returns (idx [nx, k] int32, mask [nx, k]
+    float32, all ones). The graph is not symmetric: a node's in-degree
+    (how many lists hold it) ranges from 0 up past k."""
+    pts = np.asarray(points, np.float64)
+    if pts.ndim == 1:
+        pts = pts[:, None]
+    nx = pts.shape[0]
+    d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    idx = np.argsort(d2, axis=1)[:, :k].astype(np.int32)
+    return idx, np.ones((nx, k), np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class GraphSpec:
     """Static per-task graph structure and metadata, tensors on the
@@ -53,16 +70,21 @@ class GraphSpec:
 
 def build_graph_spec(pde, grid, n_neighbors: int, time_window: int,
                      device) -> GraphSpec:
-    """Radius stencil graph for the uniform-grid families (CE, and AD with
-    ``grid.n_components`` = 2); the k-NN graphs (WE, unstructured AD) are
-    not ported yet."""
+    """The static graph of a (task, resolution): the k-NN graph of the
+    Chebyshev grid for WE (k = ``n_neighbors``, the grid's x as float64 as
+    the JAX package reads it), the radius stencil for the uniform families
+    (CE, KF, KS, and AD with ``grid.n_components`` = 2). The unstructured
+    AD grid's k-NN graph on cylindrical coordinates is not ported yet."""
     family = f"{pde}"
-    if family == "WE" or getattr(pde, "unstructured_grid", False):
+    if getattr(pde, "unstructured_grid", False):
         raise NotImplementedError(
-            f"{family} k-NN graphs are not ported yet (ROADMAP.md Queue 1 "
-            "item 7)")
+            "the unstructured AD grid's k-NN graph (RPU) is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")
     x = np.asarray(grid.x)
-    idx, mask = build_neighbors_radius(x, n_neighbors)
+    if family == "WE":
+        idx, mask = build_neighbors_knn(x.astype(np.float64), n_neighbors)
+    else:
+        idx, mask = build_neighbors_radius(x, n_neighbors)
     t_grid = np.linspace(grid.tmin, grid.tmax, grid.nt).astype(x.dtype)
     dev = torch.device(device)
     return GraphSpec(

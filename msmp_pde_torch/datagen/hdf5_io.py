@@ -10,7 +10,10 @@ three modes with one layout:
   the attributes dt, dx, nt, nx, tmin, tmax, x (in the ``.npz`` the array
   ``{mode}/pde_{nt}-{nx}/attrs/{name}`` each);
 * the per-sample scalars, ``{mode}/alpha``, ``{mode}/beta``,
-  ``{mode}/gamma`` (CE) or ``{mode}/a``, ``{mode}/b`` (AD): [num_samples].
+  ``{mode}/gamma`` (CE), ``{mode}/r``, ``{mode}/D`` (KF),
+  ``{mode}/bc_left``, ``{mode}/bc_right`` (ints) and ``{mode}/c`` (WE) or
+  ``{mode}/a``, ``{mode}/b`` (AD): [num_samples], float64 unless
+  ``scalar_dtypes`` names another type.
 
 The ``.h5`` is the JAX package's merged layout, so its reader takes the
 port's data, and the port reads the JAX package's ``.h5`` files.
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -42,7 +45,8 @@ class ModeWriter:
 
     def __init__(self, arrays: Dict[str, np.ndarray], h5f, mode: str,
                  num_samples: int, resolutions: Dict[str, dict],
-                 scalar_names: Sequence[str] = (), components: int = 1):
+                 scalar_names: Sequence[str] = (), components: int = 1,
+                 scalar_dtypes: Optional[Dict[str, type]] = None):
         self.mode = mode
         self.group = h5f.create_group(mode) if h5f is not None else None
         self.u, self.h5 = {}, {}
@@ -59,12 +63,14 @@ class ModeWriter:
                 for attr in ATTRS:
                     ds.attrs[attr] = meta[attr]
                 self.h5[key] = ds
+        scalar_dtypes = scalar_dtypes or {}
         for name in scalar_names:
+            dt = scalar_dtypes.get(name, float)
             self.u[name] = arrays[f"{mode}/{name}"] = np.zeros(
-                (num_samples,), np.float64)
+                (num_samples,), dt)
             if self.group is not None:
                 self.h5[name] = self.group.create_dataset(
-                    name, (num_samples,), dtype=float)
+                    name, (num_samples,), dtype=dt)
 
     def _put(self, key: str, start: int, vals: np.ndarray):
         self.u[key][start:start + vals.shape[0]] = vals
@@ -102,10 +108,11 @@ class DatasetWriter:
         return self
 
     def mode(self, mode: str, num_samples: int, resolutions: Dict[str, dict],
-             scalar_names: Sequence[str] = (),
-             components: int = 1) -> ModeWriter:
+             scalar_names: Sequence[str] = (), components: int = 1,
+             scalar_dtypes: Optional[Dict[str, type]] = None) -> ModeWriter:
         return ModeWriter(self.arrays, self.h5f, mode, num_samples,
-                          resolutions, scalar_names, components)
+                          resolutions, scalar_names, components,
+                          scalar_dtypes)
 
     def __exit__(self, exc_type, exc, tb):
         if self.h5f is not None:

@@ -1,6 +1,9 @@
 """Initial conditions for dataset generation (counterpart of
-msmp_pde_tpu/datagen/ics.py): the sum of sines, and the advection
-system's sinesum, gaussian and gaussian_triple families.
+msmp_pde_tpu/datagen/ics.py): the sum of sines, KF's squared zero-phase
+sum of sines and KS's sum of sines on its periodic domain (both from
+``sample_sine_params``' draws, msmp_pde_tpu/datagen/generate.py:264-266
+and :354-356), and the advection system's sinesum, gaussian and
+gaussian_triple families.
 
 The parameters are drawn on the host from an explicit
 ``numpy.random.Generator``, so the card and the CPU make the same data
@@ -42,6 +45,21 @@ def sum_of_sines(A, omega, phi, l, L):
         return torch.sum(A * torch.sin(arg), dim=-1)
 
     return fnc
+
+
+def kf_ic(A, l, x, L):
+    """KF's initial condition [B, nx]: (sum_k A_k sin(2 pi l_k x / L))^2,
+    the sum of sines without its phases, squared; A and l [B, 1, N]
+    tensors, x [nx]."""
+    arg = 2.0 * torch.pi * l * x[:, None] / L
+    return torch.sum(A * torch.sin(arg), dim=-1) ** 2
+
+
+def ks_ic(A, phi, l, x, L):
+    """KS's initial condition [B, nx] on x [nx] in [0, 2 pi L]: sum_k A_k
+    sin(2 pi l_k (x / 2 pi) / L + phi_k); A, phi, l [B, 1, N] tensors."""
+    arg = 2.0 * torch.pi * l * (x / (2.0 * torch.pi))[:, None] / L + phi
+    return torch.sum(A * torch.sin(arg), dim=-1)
 
 
 def von_mises_pdf(x, kappa, loc=0.0):

@@ -30,21 +30,29 @@ def grid_from_h5(path: str, pde, mode: str, base_resolution,
                  super_resolution):
     """Attrs-only read of the grid metadata (no trajectories are loaded)
     from a dataset file, the port's ``.npz`` or an ``.h5``, as
-    ``PDEDataset`` reads it: the CE and the uniform AD grids, the latter
-    with two components. ``super_resolution`` is read by the WE family's
-    grid only, which is not ported."""
+    ``PDEDataset`` reads it: the uniform grids (CE, KF, KS, and AD with two
+    components) as stored, and WE's Chebyshev grid down-projected from
+    ``super_resolution``'s x by the dataset's mean kernel. The
+    unstructured AD grid (RPU) is not ported."""
+    from msmp_pde_torch.data.dataset import _mean_downproject
     from msmp_pde_torch.datagen.hdf5_io import open_dataset
     from msmp_pde_torch.training.setup import GridInfo
 
     family = f"{pde}"
-    if family not in ("CE", "AD") or getattr(pde, "unstructured_grid",
-                                             False):
+    if getattr(pde, "unstructured_grid", False):
         raise NotImplementedError(
-            f"{family} grids are not ported yet (ROADMAP.md Queue 1 items 7 "
-            "and 15)")
+            "the unstructured AD grid (RPU) is not ported yet (ROADMAP.md "
+            "Queue 1 item 7)")
     with open_dataset(path) as f:
         a = f.attrs("%s/pde_%d-%d" % (mode, *base_resolution))
-    return GridInfo(x=np.asarray(a["x"], np.float64).astype(np.float32),
+        x = np.asarray(a["x"], np.float64)
+        if family == "WE":
+            x_super = np.asarray(
+                f.attrs("%s/pde_%d-%d" % (mode, *super_resolution))["x"],
+                np.float64)
+            x = _mean_downproject(x_super[None],
+                                  x_super.shape[-1] // x.shape[-1])[0]
+    return GridInfo(x=x.astype(np.float32),
                     nt=int(a["nt"]), dt=float(a["dt"]),
                     tmin=float(a["tmin"]), tmax=float(a["tmax"]),
                     n_components=pde.n_components)

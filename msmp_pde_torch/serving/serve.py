@@ -17,12 +17,14 @@ Protocol (stdlib only, npz over HTTP):
 
 ``--model`` is a ported registry name (models/registry.py::PORTED): one of
 the nine 1-D graph models or the 1-D grid models BaseCNN, FNO, FNOP and
-VNO (E1-E3, kdv), or the ten 2-D graph models or BaseCNN2D, FNO2D and
-FNO2DP (RP, MSWG, MSWG3; windows [B, nx, 2 tw], the variables a and b).
-``--checkpoint`` is the train CLI's checkpoint (utils/checkpoint.py) or an
-``.npz`` keyed by ``/``-joined flax paths (utils/convert.py). The grid
-comes from the test mode of ``--data_dir``'s dataset file where there is
-one, else the uniform grid is rebuilt from the PDE. Device work is
+VNO (E1-E3, kdv; the 1-D models also on WE1-3, KF and KS), or the ten
+2-D graph models or BaseCNN2D, FNO2D and FNO2DP (RP, MSWG, MSWG3; windows
+[B, nx, 2 tw], the variables a and b). ``--checkpoint`` is the train
+CLI's checkpoint (utils/checkpoint.py) or an ``.npz`` keyed by
+``/``-joined flax paths (utils/convert.py). The grid comes from the test
+mode of ``--data_dir``'s dataset file where there is one, else the
+uniform grid is rebuilt from the PDE; the wave equation's Chebyshev grid
+exists only in its data, so WE1-3 need ``--data_dir``. Device work is
 serialized through a lock (one card).
 """
 from __future__ import annotations

@@ -13,8 +13,13 @@ machine without it). ``--n_more_rollout`` rolls past the data horizon and
 writes the predictions to ``plots/long_rollout_pred.npy``. ``main``
 returns every metric printed, and the rollout store.
 
-``--ks_spectrum`` waits for KS (ROADMAP.md Queue 1 item 15); ``--dp`` > 1
-for item 13. ``--device`` is cuda by default and raises without it.
+``--ks_spectrum`` (KS only) computes the reference's spectral
+diagnostics of the first test sample's rollout and its ground truth with
+the port's ``KS`` methods on the device in float64 (``ks_spectrum``),
+writes them to ``plots/ks_spectrum.npz`` and returns them, and draws
+``plots/ks_spectrum.png`` where matplotlib imports. ``--dp`` > 1 waits
+for ROADMAP.md Queue 1 item 13. ``--device`` is cuda by default and
+raises without it.
 """
 from __future__ import annotations
 
@@ -139,6 +144,80 @@ def plot_rollouts(preds, trues, x, out_dir=PLOTS, start_step=50, dpi=400):
     plt.close(fig)
 
 
+def ks_spectrum(pde, preds, trues, k_cut: float, device):
+    """The KS diagnostics of ``plot_ks_spectrum`` (reference
+    PDEs.py:773-817) of the first sample of preds, trues [N, T, 1, nx], in
+    float64 on ``device``: for the prediction (``_pred``) and the truth
+    (``_true``) the time-averaged spectrum ``Ek_k`` [nx], the total energy
+    ``Ek_t`` [T] and its running average ``Ek_tt`` [T] (``KS.
+    energy_spectrum``), the low-pass field ``filt`` [T, nx] and the
+    residual's RMS ``resid_rms`` [T] (``KS.space_filter`` at ``k_cut``);
+    and ``k``, the wavenumbers' magnitudes. Numpy arrays."""
+    import torch
+
+    out = {"k": np.abs(pde._k_grid())}
+    for tag, arr in (("pred", preds), ("true", trues)):
+        u = torch.as_tensor(np.asarray(arr[0, :, 0, :], np.float64),
+                            device=device)
+        ek = pde.energy_spectrum(u)
+        filt, resid = pde.space_filter(u, k_cut)
+        for name in ("Ek_k", "Ek_t", "Ek_tt"):
+            out[f"{name}_{tag}"] = ek[name].cpu().numpy()
+        out[f"filt_{tag}"] = filt.cpu().numpy()
+        out[f"resid_rms_{tag}"] = torch.sqrt(
+            torch.mean(resid ** 2, dim=-1)).cpu().numpy()
+    return out
+
+
+def plot_ks_spectrum(diag, k_cut: float = 2.0,
+                     out_path=f"{PLOTS}/ks_spectrum.png", dpi=400):
+    """The reference's KS diagnostics figure from ``ks_spectrum``'s
+    arrays: the time-averaged spectrum and the total energy of prediction
+    and truth, the truth's low-pass field, and the residual RMS. Raises
+    where matplotlib does not import."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise RuntimeError(
+            "the --ks_spectrum figure needs matplotlib, which does not "
+            "import here") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    k = diag["k"]
+    nhalf = len(k) // 2
+    fig, axes = plt.subplots(2, 2, figsize=(11, 7))
+    ax = axes[0][0]
+    ax.loglog(k[1:nhalf], diag["Ek_k_true"][1:nhalf], label="truth")
+    ax.loglog(k[1:nhalf], diag["Ek_k_pred"][1:nhalf], "--",
+              label="prediction")
+    ax.set_xlabel(r"$|k|$")
+    ax.set_ylabel(r"$E_k$ (time-averaged)")
+    ax.legend()
+    ax = axes[0][1]
+    ax.plot(diag["Ek_t_true"], label="truth")
+    ax.plot(diag["Ek_t_pred"], "--", label="prediction")
+    ax.set_xlabel("Timestep")
+    ax.set_ylabel(r"$E(t)$")
+    ax.legend()
+    ax = axes[1][0]
+    ax.imshow(diag["filt_true"].T, aspect="auto")
+    ax.set_title(rf"truth, low-pass $|k|<{k_cut:g}$")
+    ax.set_xlabel("Timestep")
+    ax.set_ylabel("Grid Point")
+    ax = axes[1][1]
+    ax.plot(diag["resid_rms_true"], label="truth")
+    ax.plot(diag["resid_rms_pred"], "--", label="prediction")
+    ax.set_xlabel("Timestep")
+    ax.set_ylabel("residual RMS")
+    ax.legend()
+    fig.suptitle("KS spectral diagnostics")
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    fig.savefig(out_path, dpi=dpi)
+    plt.close(fig)
+
+
 def _matplotlib() -> bool:
     try:
         import matplotlib  # noqa: F401
@@ -149,19 +228,17 @@ def _matplotlib() -> bool:
 
 def main(args):
     """Returns {test_L2, test_rel_L2, [test_L2_short, test_rel_L2_short,]
-    test_loss, test_base_loss, preds, trues, figures}: the metrics printed,
-    the rollout store ([N, T, d, nx] each) and whether the figures were
-    written."""
+    test_loss, test_base_loss, preds, trues, figures[, ks_spectrum]}: the
+    metrics printed, the rollout store ([N, T, d, nx] each), whether the
+    figures were written and ``ks_spectrum``'s arrays."""
     from msmp_pde_torch.device import resolve_device
     from msmp_pde_torch.serving.serve import load_checkpoint
     from msmp_pde_torch.training import metrics
     from msmp_pde_torch.training.setup import setup_experiment
     from msmp_pde_torch.training.train import device_arrays
 
-    if args.ks_spectrum:
-        raise NotImplementedError(
-            "--ks_spectrum needs the KS family, not ported yet (ROADMAP.md "
-            "Queue 1 item 15)")
+    if args.ks_spectrum and args.experiment != "KS":
+        raise ValueError("--ks_spectrum is a KS-family diagnostic")
     if args.dp > 1:
         raise NotImplementedError(
             "data parallelism is not ported yet (ROADMAP.md Queue 1 item 13)")
@@ -202,6 +279,17 @@ def main(args):
         print(f"Plots written to {PLOTS}/")
     else:
         print("matplotlib does not import here: the figures were skipped")
+    if args.ks_spectrum:
+        diag = ks_spectrum(exp.pde, preds[:, :horizon], trues[:, :horizon],
+                           args.ks_k_cut, dev)
+        out["ks_spectrum"] = diag
+        os.makedirs(PLOTS, exist_ok=True)
+        np.savez(f"{PLOTS}/ks_spectrum.npz", **diag)
+        if out["figures"]:
+            plot_ks_spectrum(diag, args.ks_k_cut)
+        print(f"KS spectral diagnostics: {PLOTS}/ks_spectrum.npz"
+              + (f" + {PLOTS}/ks_spectrum.png" if out["figures"] else
+                 " (the figure skipped: matplotlib does not import)"))
     if args.n_more_rollout:
         os.makedirs(PLOTS, exist_ok=True)
         np.save(f"{PLOTS}/long_rollout_pred.npy", preds)
@@ -225,8 +313,11 @@ def build_parser():
     p.add_argument("--n_more_rollout", type=int, default=0,
                    help="extra rollout windows past the data horizon")
     p.add_argument("--ks_spectrum", action="store_true",
-                   help="KS energy spectrum figure (not ported: ROADMAP.md "
-                        "Queue 1 item 15)")
+                   help="KS only: the energy-spectrum and low-pass-filter "
+                        "diagnostics to plots/ks_spectrum.npz (and .png "
+                        "where matplotlib imports)")
+    p.add_argument("--ks_k_cut", type=float, default=2.0,
+                   help="wavenumber cutoff of the --ks_spectrum filter")
     return p
 
 

@@ -1,9 +1,10 @@
 """Experiment -> PDE, equation-variable norms, datasets, grid and the
 model's trainer (counterpart of msmp_pde_tpu/training/setup.py). The CE
-family (E1-E3, kdv) and the advection system on its uniform grid (RP,
-MSWG, MSWG3) are ported. ``build_trainer`` serves training and serving, on the
-uniform grid or on a dataset's; ``setup_experiment`` reads the datasets
-the train CLI needs."""
+family (E1-E3, kdv), the wave equation (WE1-3, on the data's Chebyshev
+grid), KF, KS and the advection system on its uniform grid (RP, MSWG,
+MSWG3) are ported; RPU is not. ``build_trainer`` serves training and
+serving, on the uniform grid or on a dataset's; ``setup_experiment``
+reads the datasets the train CLI needs."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +13,7 @@ from typing import Dict
 
 import numpy as np
 
-from msmp_pde_torch.equations import AD, CE
+from msmp_pde_torch.equations import AD, CE, KF, KS, WE
 
 # the advection experiments' horizon; L is 2 pi for MSWG and MSWG3
 AD_TMAX = {"RP": 4.0, "MSWG": 3.0, "MSWG3": 1.0}
@@ -36,10 +37,22 @@ def pde_for_experiment(experiment: str, base_resolution):
         raise NotImplementedError(
             "RPU (the LCG grid, its k-NN graph) is not ported yet "
             "(ROADMAP.md Queue 1 item 7)")
-    if experiment in ("WE1", "WE2", "WE3", "KF", "KS"):
-        raise NotImplementedError(
-            f"experiment {experiment!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 15)")
+    if experiment in ("WE1", "WE2", "WE3"):
+        if not (nt == 250 and nx in (100, 50, 40, 20)):
+            raise ValueError(f"{experiment} runs at nt=250, nx in "
+                             f"(100, 50, 40, 20); got {base_resolution}")
+        return WE(tmax=100.0, grid_size=(nt, nx))
+    if experiment == "KF":
+        if not (nt == 250 and nx in (100, 50, 40)):
+            raise ValueError(f"KF runs at nt=250, nx in (100, 50, 40); got "
+                             f"{base_resolution}")
+        return KF(tmax=5.0, grid_size=(nt, nx))
+    if experiment == "KS":
+        if not (nt in (250, 500) and nx in (100, 50, 40)):
+            raise ValueError(f"KS runs at nt in (250, 500), nx in (100, 50, "
+                             f"40); got {base_resolution}")
+        return KS(L=22.0 / (2 * np.pi), nx=nx, dt=0.00025, tend=100.0,
+                  dt_downsampled=100.0 / nt)
     raise ValueError(f"unknown experiment {experiment!r}")
 
 
@@ -100,18 +113,28 @@ class GridInfo:
 
 
 def uniform_grid(pde, base_resolution) -> GridInfo:
-    """Dataset-free grid of the uniform families: ``linspace(0, L, nx)``
-    with dt = (tmax - tmin) / (nt - 1)."""
+    """Dataset-free grid of the uniform families, as datagen writes it:
+    ``linspace(0, L, nx)`` with dt = (tmax - tmin) / (nt - 1) (CE, KF,
+    AD), and for KS ``linspace(0, 2 pi L, nx)`` over [tstart, tend] with
+    dt = (tmax - tmin) / nt, its output step. The wave equation's
+    Chebyshev grid (and RPU's) lives only in the data files: use
+    ``serving.engine.grid_from_h5``."""
     family = f"{pde}"
     nt, nx = base_resolution
-    if family in ("WE", "KS") or getattr(pde, "unstructured_grid", False):
-        raise ValueError(f"{family} grid is not a plain uniform grid")
+    if family == "WE" or getattr(pde, "unstructured_grid", False):
+        raise ValueError(f"{family} grid is data-defined; pass a dataset "
+                         "file")
     L = float(getattr(pde, "L", 16.0))
-    x = np.linspace(0.0, L, nx)
-    tmin, tmax = float(getattr(pde, "tmin", 0.0)), float(pde.tmax)
-    return GridInfo(x=x.astype(np.float32), nt=nt,
-                    dt=(tmax - tmin) / (nt - 1), tmin=tmin, tmax=tmax,
-                    n_components=pde.n_components)
+    if family == "KS":
+        x = np.linspace(0.0, 2 * np.pi * L, nx)
+        tmin, tmax = float(pde.tstart), float(pde.tend)
+        dt = (tmax - tmin) / nt
+    else:
+        x = np.linspace(0.0, L, nx)
+        tmin, tmax = float(getattr(pde, "tmin", 0.0)), float(pde.tmax)
+        dt = (tmax - tmin) / (nt - 1)
+    return GridInfo(x=x.astype(np.float32), nt=nt, dt=dt, tmin=tmin,
+                    tmax=tmax, n_components=pde.n_components)
 
 
 def build_trainer(experiment: str, model: str, *,

@@ -11,8 +11,9 @@ and unrolled losses), and where the validation loss improves: the test
 losses, the space-time L2 norms and a best-val checkpoint
 (utils/checkpoint.py, with the optimizer's state for ``--resume``).
 
-``--experiment`` is E1, E2, E3 or kdv (1-D), or RP, MSWG or MSWG3 (the
-two-component advection system, with the 2-D models). ``--model`` is one
+``--experiment`` is E1, E2, E3, kdv, WE1, WE2, WE3, KF or KS (1-D), or
+RP, MSWG or MSWG3 (the two-component advection system, with the 2-D
+models). ``--model`` is one
 of the 26 ported registry names (models/registry.py::PORTED): the nine
 1-D graph models and their ten 2-D versions (MP-PDE2D ... LSTM2D), the
 1-D grid models BaseCNN, FNO, FNOP (the equation variables of E2 or E3)

@@ -177,8 +177,9 @@ def test_generate_device_rule_and_families(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             generate.main(args)
-    for e, err in (("KS", NotImplementedError), ("nope", ValueError)):
+    for e, err, match in (("RPU", NotImplementedError, "item 7"),
+                          ("nope", ValueError, "unknown experiment")):
         args.experiment = e
-        with pytest.raises(err):
+        with pytest.raises(err, match=match):
             generate.main(args)
     assert not os.listdir(tmp_path)

@@ -16,8 +16,13 @@ the port's generate CLI writes (2/2/2 samples, nx 100):
 * eval on the same weights as an ``.npz`` of flax paths, with matplotlib
   made unimportable: the same metrics, one line saying the figures were
   skipped, and ``--n_more_rollout``'s ``plots/long_rollout_pred.npy``;
-* ``--ks_spectrum`` raises naming ROADMAP Queue 1 item 15, and both CLIs
-  raise without CUDA where ``--device`` is left at its default;
+* ``--ks_spectrum`` on a KS fixture (the port's ``generate_ks`` at tend
+  10, dt 0.01, 2/2/2 samples; an MSMP-PDE of one pair saved with random
+  weights): its arrays equal the JAX package's ``KS.energy_spectrum`` and
+  ``space_filter`` on the same rollout at 1e-12, its ``.npz`` and figure
+  are written, ``plot_ks_spectrum`` raises naming matplotlib where it does
+  not import, and the flag raises on another experiment; both CLIs raise
+  without CUDA where ``--device`` is left at its default;
 * cv's split against the JAX cv CLI (its ``fit`` replaced by one that
   keeps the data it is given): on the RP set, the port's split arrays
   equal the JAX CLI's; on indices alone (the JAX CLI given a stand-in
@@ -203,11 +208,56 @@ def test_eval_npz_without_matplotlib_and_long_rollout(workdir, monkeypatch,
     assert np.isfinite(long).all()
 
 
-def test_eval_ks_spectrum_and_default_device_raise(workdir, monkeypatch):
+def test_eval_ks_spectrum_and_default_device_raise(workdir, monkeypatch,
+                                                   tmp_path):
+    import jax.numpy as jnp
+
+    from msmp_pde_tpu.equations import KS as JKS
+    from msmp_pde_torch.utils.checkpoint import save_checkpoint
+
     root, ckpt = workdir
     monkeypatch.chdir(root)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="KS-family"):
         evaluate.main(_eval_args(ckpt, "--ks_spectrum"))
+    monkeypatch.chdir(tmp_path)
+    generate.generate_ks(generate.build_parser().parse_args(
+        ["--experiment=KS", "--train_samples=2", "--valid_samples=2",
+         "--test_samples=2", "--device=cpu"]), 10.0, 0.01,
+        resolutions=[(250, 200), (250, 100)])
+    ks_args = ["--experiment=KS", "--model=MSMP-PDE", "--n_graph_layers=1",
+               "--batch_size=2", "--device=cpu"]
+    exp = setup_experiment(train.build_parser().parse_args(ks_args),
+                           modes=("test",), data_dir="data")
+    save_checkpoint("ks.pt", exp.trainer.model)
+    args = evaluate.build_parser().parse_args(
+        ks_args + ["--model_to_test=ks.pt", "--ks_spectrum"])
+    out = evaluate.main(args)
+    diag = out["ks_spectrum"]
+    pde = JKS(L=22.0 / (2 * np.pi), nx=100, dt=0.00025, tend=100.0,
+              dt_downsampled=0.4)
+    for tag, arr in (("pred", out["preds"]), ("true", out["trues"])):
+        u = jnp.asarray(arr[0, :, 0, :].astype(np.float64))
+        ek = pde.energy_spectrum(u)
+        filt, resid = pde.space_filter(u, args.ks_k_cut)
+        want = {f"{n}_{tag}": np.asarray(ek[n])
+                for n in ("Ek_k", "Ek_t", "Ek_tt")}
+        want[f"filt_{tag}"] = np.asarray(filt)
+        want[f"resid_rms_{tag}"] = np.sqrt(np.mean(np.asarray(resid) ** 2,
+                                                   -1))
+        for k, v in want.items():
+            assert diag[k].shape == v.shape, k
+            np.testing.assert_allclose(diag[k], v, rtol=1e-12, atol=1e-12,
+                                       err_msg=k)
+    np.testing.assert_array_equal(diag["k"], np.abs(pde._k_grid()))
+    with np.load("plots/ks_spectrum.npz") as z:
+        assert set(z.files) == set(diag)
+        for k in z.files:
+            np.testing.assert_array_equal(z[k], diag[k])
+    assert out["figures"] and os.path.isfile("plots/ks_spectrum.png")
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import fails
+    with pytest.raises(RuntimeError, match="matplotlib"):
+        evaluate.plot_ks_spectrum(diag, out_path="again.png")
+    monkeypatch.chdir(root)
     if not torch.cuda.is_available():
         argv = ["--experiment=RP", "--model=FNO2DP"]
         for cli, extra in ((evaluate, [f"--model_to_test={ckpt}"]),

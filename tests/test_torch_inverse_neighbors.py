@@ -6,12 +6,22 @@ inverse_neighbors) that the backward kernels gather ds_j through.
 * the gather-sum of dm0 through (rev_ptr, rev_e) equals the index_add_
   scatter of ``_layer_backward`` (ops/mp_layer.py) exactly in float64: the
   same terms, added in the same increasing edge order.
+
+The graphs: E1's radius stencil, a radius stencil of 37 nodes, random
+targets with a third of the slots masked, the wave equation's k-NN graph
+(K = 3) of a Chebyshev grid of 100 (in-degrees 2 to 5), and a k-NN graph
+of 30 random points in the plane with a node of in-degree 0 (nobody's
+neighbour: an empty list) and one of in-degree 6 > K.
 """
 import numpy as np
 import pytest
 import torch
 
-from msmp_pde_torch.data.graph import build_neighbors_radius
+from msmp_pde_torch.data.graph import (
+    build_neighbors_knn,
+    build_neighbors_radius,
+)
+from msmp_pde_torch.equations.we import cheb_grid_ascending
 from msmp_pde_torch.ops.mp_layer import inverse_neighbors
 
 
@@ -20,13 +30,23 @@ def _graph(kind):
         return build_neighbors_radius(np.linspace(0.0, 16.0, 100), 3)
     if kind == "radius_37":
         return build_neighbors_radius(np.linspace(0.0, 16.0, 37), 2)
+    if kind == "knn_cheb":  # WE: K = 3 on the Chebyshev grid of 100
+        x = cheb_grid_ascending(-8.0, 8.0, 100).astype(np.float32)
+        return build_neighbors_knn(x.astype(np.float64), 3)
+    if kind == "knn_plane":
+        pts = np.random.default_rng(2).uniform(size=(30, 2))
+        idx, mask = build_neighbors_knn(pts, 3)
+        deg = np.bincount(idx.ravel(), minlength=30)
+        assert deg.min() == 0 and deg.max() == 6
+        return idx, mask
     rng = np.random.default_rng(7)  # random targets, a third masked
     idx = rng.integers(0, 23, size=(23, 5)).astype(np.int32)
     mask = (rng.random((23, 5)) > 1 / 3).astype(np.float32)
     return idx, mask
 
 
-@pytest.mark.parametrize("kind", ["e1_radius", "radius_37", "random_masked"])
+@pytest.mark.parametrize("kind", ["e1_radius", "radius_37", "random_masked",
+                                  "knn_cheb", "knn_plane"])
 def test_inverse_list_matches_the_scatter(kind):
     idx_np, mask_np = _graph(kind)
     nx, K = idx_np.shape

@@ -16,13 +16,22 @@ relative 1e-4. The single-layer kernels take the pair's tolerances: the
 forward 1e-4, the backward the scale-aware bound. Every kernel, forward and
 backward, is bitwise repeatable. The 2-D models' cases (the ``_d50``
 tests) feed the message-passing kernels a window of D = 2 tw = 50 and
-V = 3 variables (t, a, b) and hold them to the same tolerances.
+V = 3 variables (t, a, b) and hold them to the same tolerances. The wave
+equation's cases (the ``_knn`` tests) run them on its k-NN graph, K = 3 on
+the Chebyshev grid of 100, where in-degrees range from 2 to 5 (the
+backward gathers ds_j through the inverse list), at D = 25 with V = 1 (t:
+WE1, WE2, KS) and V = 3 (t and WE3's bc_left, bc_right; KF's r, D), and
+the same tolerances; and the models' forward and step on WE3's grid.
 """
 import numpy as np
 import pytest
 import torch
 
-from msmp_pde_torch.data.graph import build_neighbors_radius
+from msmp_pde_torch.data.graph import (
+    build_neighbors_knn,
+    build_neighbors_radius,
+)
+from msmp_pde_torch.equations.we import cheb_grid_ascending
 from msmp_pde_torch.models.gnn import GNNLayer
 from msmp_pde_torch.ops import lem_scan, mp_layer, mp_pair
 from msmp_pde_torch.serving.engine import build_serving_trainer
@@ -259,9 +268,19 @@ LAYER_CASES += [(2, 40, 96, 3, 2, fa) for fa in (True, False)]
 LAYER_CASES += [(3, 37, 96, 2, 2, fa) for fa in (True, False)]
 
 
+def _knn_graph(nx=100):
+    """The wave equation's graph: K = 3 nearest neighbours on the
+    Chebyshev grid (float32 coordinates, as the dataset holds them)."""
+    x = cheb_grid_ascending(-8.0, 8.0, nx).astype(np.float32)
+    return build_neighbors_knn(x.astype(np.float64), 3)
+
+
 def _layer_args(dev, B, nx, H, V, n, switch, seed, D=25):
+    """n: the radius stencil's neighbours a side, or "knn" for
+    ``_knn_graph``."""
     rng = np.random.default_rng(seed)
-    idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
+    idx, mask = (_knn_graph(nx) if n == "knn" else
+                 build_neighbors_radius(np.linspace(0.0, 16.0, nx), n))
     g = torch.Generator().manual_seed(seed)
     W = tuple(w.detach() for w in GNNLayer(H, D, V, g, switch, switch)
               .to(dev).weights())
@@ -544,6 +563,133 @@ def test_2d_train_step_matches_plain_path(cuda_device, name):
     u_all = torch.tensor(rng.normal(size=(4, 250, 2, 100)),
                          dtype=torch.float32, device=cuda_device)
     var = _rp_vars(rng, cuda_device, 4)
+    idx = torch.arange(4, device=cuda_device)
+    steps = torch.as_tensor(rng.integers(25, 201, 4), device=cuda_device)
+    loss_k = trainer.step_loss(u_all, var, idx, steps, 1)
+    grads_k = torch.autograd.grad(loss_k, params)
+    loss_p = trainer.step_loss(u_all, var, idx, steps, 1,
+                               forward=kernel_push(trainer))
+    grads_p = torch.autograd.grad(loss_p, params)
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    names = [n for n, _ in trainer.model.named_parameters()]
+    scales = grad_scales(zip(names, grads_p))
+    for pname, a, b in zip(names, grads_k, grads_p):
+        ok, err = scale_aware(a, b, scales[pname])
+        assert ok, (pname, err, scales[pname])
+
+
+# the wave equation's shapes: K = 3 k-NN on the Chebyshev grid of 100,
+# D = 25, V = 1 (t) or 3 (t and two equation variables)
+KNN_PAIR_CASES = [(B, 128, V) for B in (1, 16, 48) for V in (1, 3)]
+KNN_PAIR_CASES += [(16, 164, 3)]
+
+
+def test_knn_graph_has_unequal_in_degrees():
+    idx, mask = _knn_graph()
+    deg = np.bincount(idx.ravel(), minlength=100)
+    assert idx.shape == (100, 3) and (mask == 1).all()
+    assert deg.min() == 2 and deg.max() == 5
+
+
+@pytest.mark.parametrize("B,H,V", KNN_PAIR_CASES)
+def test_pair_kernels_knn_match_plain(cuda_device, B, H, V):
+    """The pair's forward and fused backward on the k-NN graph, each
+    bitwise repeatable."""
+    args = _layer_args(cuda_device, B, 100, H, V, "knn", False, 900 + B)
+    Wl = _layer_args(cuda_device, B, 100, H, V, "knn", False, 910 + B)[-1]
+    args = args + (Wl,)
+    with torch.no_grad():
+        got = mp_pair.fused_gated_pair_kernel(*args)
+        assert torch.equal(got, mp_pair.fused_gated_pair_kernel(*args))
+        want = mp_pair.fused_gated_pair_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    g = _rand(np.random.default_rng(B), cuda_device, *got.shape)
+    flat = lambda res: [res[0], *res[1], *res[2]]
+    k1 = flat(mp_pair.fused_gated_pair_bwd_kernel(*args, g))
+    k2 = flat(mp_pair.fused_gated_pair_bwd_kernel(*args, g))
+    p = flat(mp_pair.fused_gated_pair_bwd_plain(*args, g))
+    for k, (a, b, c) in enumerate(zip(k1, k2, p)):
+        assert torch.equal(a, b), k
+        scale = p[k - 1].abs().max().item() if k % 12 == 0 and k else None
+        assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
+
+
+def test_pair_stash_knn_at_batch_48(cuda_device):
+    """The stash variant on the k-NN graph: out bitwise the variant's
+    without it, gn and ln against the plain layers."""
+    args = _layer_args(cuda_device, 48, 100, 128, 3, "knn", False, 920)
+    Wl = _layer_args(cuda_device, 48, 100, 128, 3, "knn", False, 921)[-1]
+    args = args + (Wl,)
+    out, gn, ln = mp_pair.fused_gated_pair_kernel(*args, stash=True)
+    assert torch.equal(out, mp_pair.fused_gated_pair_kernel(*args))
+    for got, W in ((gn, args[6]), (ln, args[7])):
+        torch.testing.assert_close(
+            got, mp_layer.fused_mp_layer_plain(*args[:6], W), rtol=1e-4,
+            atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 16, 48])
+@pytest.mark.parametrize("V", [1, 3])
+@pytest.mark.parametrize("switch", [True, False])
+def test_layer_kernels_knn_match_plain(cuda_device, B, V, switch):
+    """Both switch settings on the k-NN graph, forward and backward."""
+    args = _layer_args(cuda_device, B, 100, 128, V, "knn", switch, 930 + B)
+    got = mp_layer.fused_mp_layer_kernel(*args, switch, switch)
+    assert torch.equal(got, mp_layer.fused_mp_layer_kernel(*args, switch,
+                                                           switch))
+    want = mp_layer.fused_mp_layer_plain(*args, switch, switch)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    g = _rand(np.random.default_rng(B), cuda_device, *got.shape)
+    flat = lambda res: [res[0], *res[1]]
+    k1 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
+    k2 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
+    p = flat(mp_layer.fused_mp_layer_bwd_plain(*args, g, switch, switch))
+    for k, (a, b, c) in enumerate(zip(k1, k2, p)):
+        assert torch.equal(a, b), k
+        scale = p[11].abs().max().item() if k == 12 and not switch else None
+        assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
+
+
+def _we3_trainer(name, dev):
+    """``name`` at full width on WE3's grid: the Chebyshev grid of 200
+    down-projected to 100 as the dataset reads it, its k-NN graph."""
+    from msmp_pde_torch.data.dataset import _mean_downproject
+    from msmp_pde_torch.training.setup import GridInfo
+
+    x = _mean_downproject(cheb_grid_ascending(-8.0, 8.0, 200)[None], 2)[0]
+    grid = GridInfo(x=x.astype(np.float32), nt=250, dt=100.0 / 249,
+                    tmin=0.0, tmax=100.0, n_components=1)
+    return build_trainer("WE3", name, device=dev, grid=grid)
+
+
+def _we3_vars(rng, dev, B):
+    return {k: torch.tensor(rng.integers(0, 2, B), dtype=torch.float32,
+                            device=dev) for k in ("bc_left", "bc_right")}
+
+
+@pytest.mark.parametrize("name", ["MSMP-PDE", "MP-PDE"])
+def test_we3_model_kernel_path_matches_plain_path(cuda_device, name):
+    """One forward on WE3's k-NN graph (K = 3, V = 3) against the plain
+    path at 5e-4, with the expected launches; and one step at unrolled 1,
+    the plain step from the kernel path's pushed window: the loss and
+    every gradient."""
+    trainer = _we3_trainer(name, cuda_device)
+    assert trainer.spec.idx.shape == (100, 3)
+    rng = np.random.default_rng(7)
+    window = _rand(rng, cuda_device, 4, 100, 25)
+    steps = torch.full((4,), 25, device=cuda_device)
+    var = _we3_vars(rng, cuda_device, 4)
+    with torch.no_grad():
+        reset_counts()
+        got, _ = trainer.forward(window, steps, var)
+        counts = launch_counts()
+        want, _ = plain_forward(trainer)(window, steps, var)
+    assert counts == expected_launches(trainer.model, 1)
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+    params = list(trainer.model.parameters())
+    u_all = torch.tensor(rng.normal(size=(4, 250, 100)), dtype=torch.float32,
+                         device=cuda_device)
+    var = _we3_vars(rng, cuda_device, 4)
     idx = torch.arange(4, device=cuda_device)
     steps = torch.as_tensor(rng.integers(25, 201, 4), device=cuda_device)
     loss_k = trainer.step_loss(u_all, var, idx, steps, 1)

@@ -2,8 +2,9 @@
 (ops/mp_layer.py through models/gnn.py::GNNLayer) against the JAX
 ``GNNLayer`` on the same numpy inputs and weights, for both switch pairs
 (GNN_Layer: final swish and residual; GNN_LayerLin: neither), on a stencil
-graph with truncated boundary masks and on a kNN graph, as
-tests/test_mp_pallas.py:35-46 does for the JAX kernel.
+graph with truncated boundary masks, on a kNN graph, as
+tests/test_mp_pallas.py:35-46 does for the JAX kernel, and on the wave
+equation's K = 3 kNN graph of a Chebyshev grid (unequal in-degrees).
 
 * against ``ega`` in interpret mode, which runs ``_fwd_kernel``: its
   products accumulate in float32 and ``edge_matrices`` is float32, so the
@@ -21,6 +22,7 @@ from msmp_pde_tpu.data.graph import (
     build_neighbors_radius,
     cylindrical_coords,
 )
+from msmp_pde_tpu.equations.we import cheb_grid_ascending
 from msmp_pde_tpu.models.gnn import GNNLayer as JLayer
 from msmp_pde_tpu.ops.mp_pallas import edge_matrices
 from msmp_pde_torch.models.gnn import GNNLayer
@@ -43,6 +45,9 @@ def layer_case(graph, final_act, residual, seed, dtype, DTW=DTW, V=V):
     if graph == "radius":
         idx, mask = build_neighbors_radius(x, 2)
         assert mask.min() == 0.0  # boundary truncation is exercised
+    elif graph == "knn_cheb":  # the wave equation's graph, K = 3
+        xc = cheb_grid_ascending(-8.0, 8.0, NX).astype(np.float32)
+        idx, mask = build_neighbors_knn(xc.astype(np.float64), 3)
     else:
         idx, mask = build_neighbors_knn(cylindrical_coords(x), 3)
     idx, mask = np.asarray(idx), np.asarray(mask)
@@ -72,7 +77,7 @@ def _port(m, arrays, dtype):
     return got.numpy()
 
 
-@pytest.mark.parametrize("graph", ["radius", "knn"])
+@pytest.mark.parametrize("graph", ["radius", "knn", "knn_cheb"])
 @pytest.mark.parametrize("final_act,residual", SWITCHES)
 def test_layer_matches_pallas_interpret_f32(graph, final_act, residual):
     arrays, layer, p, m = layer_case(graph, final_act, residual, 1,
@@ -86,7 +91,7 @@ def test_layer_matches_pallas_interpret_f32(graph, final_act, residual):
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("graph", ["radius", "knn"])
+@pytest.mark.parametrize("graph", ["radius", "knn", "knn_cheb"])
 @pytest.mark.parametrize("final_act,residual", SWITCHES)
 def test_layer_matches_xla_f64(graph, final_act, residual):
     arrays, layer, p, m = layer_case(graph, final_act, residual, 2,

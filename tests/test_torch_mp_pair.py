@@ -1,6 +1,7 @@
 """PyTorch port, the fused gated pair (ops/mp_pair.py) and the layer module
 (models/gnn.py::GNNLayer) against the JAX package on the same numpy inputs
-and weights, on a stencil graph whose boundary nodes have truncated masks.
+and weights, on a stencil graph whose boundary nodes have truncated masks
+and on the wave equation's k-NN graph (K = 3, unequal in-degrees).
 
 * against the XLA path (gate layer, main layer, combine; gnn.py:375-385)
   in float64: 1e-10, only summation order differs;
@@ -14,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from msmp_pde_tpu.data.graph import build_neighbors_radius
+from msmp_pde_tpu.data.graph import build_neighbors_knn, build_neighbors_radius
+from msmp_pde_tpu.equations.we import cheb_grid_ascending
 from msmp_pde_tpu.models.common import swish as jswish
 from msmp_pde_tpu.models.gnn import GNNLayer as JLayer
 from msmp_pde_tpu.ops.mp_pallas import edge_matrices, fused_gated_pair
@@ -25,9 +27,17 @@ from _torch_helpers import np_tree, tt
 
 
 def _inputs(nx, B, H, dtw, V, n, seed):
+    """n: the radius stencil's neighbours a side, or "knn<K>" for the wave
+    equation's K-nearest-neighbour graph on its Chebyshev grid."""
     rng = np.random.default_rng(seed)
-    idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
-    assert mask.min() == 0.0  # boundary truncation is exercised
+    if isinstance(n, str):
+        x = cheb_grid_ascending(-8.0, 8.0, nx).astype(np.float32)
+        idx, mask = build_neighbors_knn(x.astype(np.float64), int(n[3:]))
+        deg = np.bincount(idx.ravel(), minlength=nx)
+        assert deg.min() < idx.shape[1] < deg.max()  # unequal in-degrees
+    else:
+        idx, mask = build_neighbors_radius(np.linspace(0.0, 16.0, nx), n)
+        assert mask.min() == 0.0  # boundary truncation is exercised
     h = rng.normal(size=(B, nx, H))
     u = rng.normal(size=(B, nx, dtw))
     px = rng.uniform(size=(B, nx))
@@ -51,9 +61,11 @@ def _port_layer(p, H, dtw, V, dtype):
     return m.to(dtype)
 
 
-# the last case has the 2-D models' window and variables: D = 2 tw = 50,
-# V = 3 (t, a, b)
-CASES = [(24, 3, 32, 10, 2, 2), (40, 2, 96, 25, 1, 3), (24, 2, 32, 50, 3, 3)]
+# the third case has the 2-D models' window and variables: D = 2 tw = 50,
+# V = 3 (t, a, b); the fourth WE3's: the k-NN graph (K = 3) of a Chebyshev
+# grid, tw = 25, V = 3 (t, bc_left, bc_right)
+CASES = [(24, 3, 32, 10, 2, 2), (40, 2, 96, 25, 1, 3), (24, 2, 32, 50, 3, 3),
+         (24, 2, 32, 25, 3, "knn3")]
 
 
 @pytest.mark.parametrize("nx,B,H,dtw,V,n", CASES)
