@@ -149,7 +149,23 @@ Phases, each of which fails the run on error:
      eval --ks_spectrum on the KS checkpoint (the diagnostics against the
      CPU's and the plain path's); one train_epoch of MP-PDE on WE3 and a
      forced-fallback step of MSMP-PDE at batch 48 on WE3's grid; the
-     k-NN kernels' times and MSMP-PDE's step on WE3.
+     k-NN kernels' times and MSMP-PDE's step on WE3;
+ 26. RPU, the advection system on the unstructured LCG grid: the generate
+     CLI on the card (32/16/16 samples, every resolution, float64; each
+     resolution's x the LCG grid bit for bit, the first train chunk
+     within 1e-9 of the CPU's solve of the same draws); the four
+     message-passing kernels on RPU's k-NN graph (K = 3 on the
+     cylindrical coordinates of the LCG grid of 100, nodes of in-degree
+     0, the largest above 3) at D = 50, V = 3 against their plain
+     versions, bitwise repeatable; fit of MSMP-PDE2D one epoch (500
+     steps, launches counted), resumed, held window by window and served
+     with --data_dir; MP-PDE2D's train_epoch and a forced-fallback step
+     of MSMP-PDE2D at batch 48 on RPU's grid; FNO2DPU against float64 on
+     the card, fit one epoch and served; the interpolated route: the
+     interpolate CLI on the card (against the CPU's), fit --data_suffix
+     _I of FNO2DP on the uniform grid (asserted, and served with the
+     suffix), eval_interpolated's interp-back L2 and rel-L2 (equal to a
+     direct reduction of the interpolated-back rollout).
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -190,6 +206,9 @@ TOL_DATAGEN = 1e-9
 E1_SAMPLES = {"train": 32, "valid": 16, "test": 16}
 # phase 18, relative: an 8-window rollout compounds TOL_MODEL's rounding
 TOL_L2 = 1e-3
+# phase 26: the interpolate CLI on the card against the CPU, float64; the
+# same searchsorted, gathers, products and sums, so rounding only
+TOL_INTERP = 1e-12
 
 
 def scale_aware(got, want, scale=None):
@@ -1495,14 +1514,16 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
 
 
 def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
-              epochs=2, per_window=False, extra=()):
-    """Phases 18, 23 and 24: fit ``model`` (MSMP-PDE or its 2-D version
+              epochs=2, per_window=False, extra=(), suffix=""):
+    """Phases 18, 23-26: fit ``model`` (MSMP-PDE or its 2-D version
     at full width, or a grid model at its reference widths) on
     ``experiment``'s data for ``epochs`` epochs, the checkpoint and
     resume, the L2 norms on both paths (one path for a grid model), and
     the server on the checkpoint answering a request with the test set's
-    equation variables; ``extra``: more train CLI arguments. Returns the
-    fit's launch counts.
+    equation variables; ``extra``: more train CLI arguments. ``suffix``
+    (phase 26's ``_I``) trains on the interpolated files and serves with
+    ``--data_suffix``: both must take RPU's uniform grid, whose graph is
+    the radius stencil. Returns the fit's launch counts.
 
     The L2 norms of the two paths agree within TOL_L2. With
     ``per_window`` (phase 23) the kernel path's 8-window rollout of the
@@ -1520,7 +1541,10 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
     import numpy as np
     import torch
 
-    from msmp_pde_torch.data.graph import slice_windows
+    from msmp_pde_torch.data.graph import (
+        build_neighbors_radius,
+        slice_windows,
+    )
     from msmp_pde_torch.serving import serve
     from msmp_pde_torch.training import metrics, train
     from msmp_pde_torch.training.setup import (
@@ -1535,10 +1559,22 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
         f"--experiment={experiment}", f"--model={name}",
         f"--num_epochs={epochs}", "--batch_size=16", "--unrolling=1",
         "--lr=1e-4", "--print_interval=100", "--device=cuda",
-        f"--data_dir={data_dir}", *extra])
+        f"--data_dir={data_dir}", f"--data_suffix={suffix}", *extra])
     exp = setup_experiment(args, data_dir=data_dir)
     trainer, t_res = exp.trainer, exp.t_res
     model = trainer.model
+    uniform = (np.linspace(0.0, 16.0, 100).astype(np.float32),
+               build_neighbors_radius(np.linspace(0.0, 16.0, 100),
+                                      args.neighbors)[0])
+    on_uniform = lambda spec: (  # noqa: E731
+        np.array_equal(spec.x.cpu().numpy(), uniform[0])
+        and np.array_equal(spec.idx.cpu().numpy(), uniform[1]))
+    if suffix:
+        check(on_uniform(trainer.spec), f"fit --data_suffix={suffix}: not "
+              "the uniform grid's radius stencil")
+        print(f"fit --data_suffix={suffix}: {name} trains on the uniform "
+              f"grid of {trainer.spec.nx} (the radius stencil, K = "
+              f"{trainer.spec.idx.shape[1]})")
     if trainer.kind == "grid":
         n_params = sum(p.numel() for p in model.parameters())
         check(n_params == GRID_PARAMS[name], f"fit: {name} has {n_params} "
@@ -1572,7 +1608,7 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
     check(epoch == max(h["epoch"] for h in hist if h["improved"]),
           "the checkpoint is not the best epoch's")
     fresh = build_trainer(experiment, name, device=trainer.device, seed=1,
-                          grid=exp.datasets["train"])
+                          grid=exp.datasets["train"], data_suffix=suffix)
     tx = fresh.make_optimizer(args.lr, args.lr_decay, [args.unrolling, 5, 10,
                                                        15], t_res * n_batches)
     check(checkpoint.restore_checkpoint(save_path, fresh.model, tx) == epoch,
@@ -1641,7 +1677,7 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
     sargs = serve.build_parser().parse_args([
         f"--experiment={experiment}", f"--model={name}",
         f"--checkpoint={save_path}", f"--data_dir={data_dir}", "--port=0",
-        "--warmup_windows=0", "--device=cuda"])
+        "--warmup_windows=0", "--device=cuda", f"--data_suffix={suffix}"])
     srv, engine = serve.build_server(sargs)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -1664,9 +1700,11 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
         srv.server_close()
         th.join(timeout=60)
     check(not th.is_alive(), "the server thread did not stop")
-    stem = f"{data_family(experiment)}_{experiment}.npz"
+    stem = f"{data_family(experiment)}_{experiment}{suffix}.npz"
     check(health["grid"] == str(Path(data_dir) / stem),
           f"served grid {health['grid']}")
+    check(not suffix or on_uniform(engine.trainer.spec),
+          f"served with --data_suffix={suffix}: not the uniform grid")
     check(all(torch.equal(v.cpu(), sd[k].cpu())
               for k, v in engine.trainer.model.state_dict().items()),
           "the served weights are not the checkpoint's")
@@ -2048,30 +2086,35 @@ def d50_phase(rand, T, dev):
                   ("mp_pair_fwd_stash", stash[0])]
 
 
-def rp_datagen_phase(data_dir, on):
-    """Phase 23, datagen: RP through the generate CLI on the card (32, 16
-    and 16 samples, float64) into ``data_dir``; the four resolutions, the
-    schema's keys and attributes, a and b by groups within their ranges,
-    finite values, the first train chunk at pde_250-100 against the port's
-    CPU solve of the same draws, and PDEDataset reading it."""
+def rp_datagen_phase(data_dir, on, experiment="RP"):
+    """Phases 23 and 26, datagen: RP (or RPU, on its LCG grids) through the
+    generate CLI on the card (32, 16 and 16 samples, float64) into
+    ``data_dir``; the four resolutions, the schema's keys and attributes
+    (RPU's x each resolution's ``pseudo_random_grid`` bit for bit), a and b
+    by groups within their ranges, finite values, the first train chunk
+    at pde_250-100 against the port's CPU solve of the same draws on the
+    same grid, and PDEDataset reading it (RPU's target its base
+    trajectories)."""
     import numpy as np
     import torch
 
     from msmp_pde_torch.data.dataset import PDEDataset
     from msmp_pde_torch.datagen import generate, hdf5_io
     from msmp_pde_torch.equations import AD
+    from msmp_pde_torch.training.setup import pde_for_experiment
 
-    argv = ["--experiment=RP", "--chunk=32", "--seed=0", "--device=cuda",
-            "--dtype=float64", f"--data_dir={data_dir}"]
+    rpu = experiment == "RPU"
+    argv = [f"--experiment={experiment}", "--chunk=32", "--seed=0",
+            "--device=cuda", "--dtype=float64", f"--data_dir={data_dir}"]
     argv += [f"--{m}_samples={n}" for m, n in E1_SAMPLES.items()]
     args = generate.build_parser().parse_args(argv)
     t0 = time.perf_counter()
     seconds = generate.main(args)
     took = time.perf_counter() - t0
-    print(f"RP datagen in all (float64, the CLI's wall clock): {took:.3f} s, "
-          f"the solves {sum(seconds.values()):.3f} s ({on})")
-    tmax, a_range, b_range, family = generate.AD_EXPERIMENTS["RP"]
-    npz = Path(data_dir) / "AD_RP.npz"
+    print(f"{experiment} datagen in all (float64, the CLI's wall clock): "
+          f"{took:.3f} s, the solves {sum(seconds.values()):.3f} s ({on})")
+    tmax, a_range, b_range, family = generate.AD_EXPERIMENTS[experiment]
+    npz = Path(data_dir) / f"AD_{experiment}.npz"
     check(npz.is_file(), f"datagen wrote no {npz}")
     with hdf5_io.open_dataset(str(npz)) as f:
         for mode, n in E1_SAMPLES.items():
@@ -2079,6 +2122,7 @@ def rp_datagen_phase(data_dir, on):
                 name = f"{mode}/pde_{nt}-{nx}"
                 u, a = f.array(name), f.attrs(name)
                 pde = AD(tmax=tmax, grid_size=(nt, nx), L=16.0)
+                x = generate.ad_grid(pde, rpu)
                 check(u.shape == (n, 2, nt, nx) and u.dtype == np.float64,
                       f"{name}: {u.shape} {u.dtype}")
                 check(bool(np.isfinite(u).all()), f"{name}: not finite")
@@ -2087,7 +2131,7 @@ def rp_datagen_phase(data_dir, on):
                       and float(a["dx"]) == pde.dx
                       and float(a["tmin"]) == 0.0
                       and float(a["tmax"]) == tmax
-                      and np.array_equal(a["x"], np.linspace(0, 16.0, nx)),
+                      and a["x"].tobytes() == x.tobytes(),
                       f"{name}: attributes {a}")
             for name, (lo, hi) in (("a", a_range), ("b", b_range)):
                 v = f.array(f"{mode}/{name}")
@@ -2096,24 +2140,30 @@ def rp_datagen_phase(data_dir, on):
                                       == v[::args.batch_size, None])),
                       f"{mode}/{name}: {v}")
         chunk = f.array("train/pde_250-100")[:32]
+    if rpu:
+        print("RPU: each resolution's stored x is pseudo_random_grid's LCG "
+              "grid bit for bit")
     pdes = generate.ad_pdes(tmax, family)
     draws = generate.draw_ad_chunk(np.random.default_rng(0), 32,
                                    args.batch_size, a_range, b_range,
                                    family, next(iter(pdes.values())))
     cpu = generate.ad_solver(pdes["pde_250-100"], family, torch.float64,
-                             "cpu")(*(torch.as_tensor(d) for d in draws))
+                             "cpu", rpu)(*(torch.as_tensor(d) for d in draws))
     e = float(np.abs(cpu.numpy() - chunk).max())
-    print(f"RP train chunk 0 at pde_250-100: max |card - CPU| = {e:.3e} "
-          f"(max |u| {float(cpu.abs().max()):.3f})")
-    check(e <= TOL_DATAGEN, f"RP datagen: the card's chunk differs from the "
-          f"CPU's by {e:.3e} > {TOL_DATAGEN}")
-    ds = PDEDataset(str(npz), AD(tmax=tmax, grid_size=(250, 100), L=16.0),
+    print(f"{experiment} train chunk 0 at pde_250-100: max |card - CPU| = "
+          f"{e:.3e} (max |u| {float(cpu.abs().max()):.3f})")
+    check(e <= TOL_DATAGEN, f"{experiment} datagen: the card's chunk differs "
+          f"from the CPU's by {e:.3e} > {TOL_DATAGEN}")
+    ds = PDEDataset(str(npz), pde_for_experiment(experiment, (250, 100)),
                     "train")
     check(ds.u_super.shape == (32, 250, 2, 100)
           and ds.u_super.dtype == np.float32 and ds.n_components == 2
           and bool(np.isfinite(ds.u_super).all())
-          and set(ds.variables) == {"a", "b"}, "PDEDataset on RP")
-    print(f"PDEDataset: RP train u_super {ds.u_super.shape} "
+          and set(ds.variables) == {"a", "b"}, f"PDEDataset on {experiment}")
+    if rpu:
+        check(np.array_equal(ds.u_super, ds.u_base), "RPU's target is not "
+              "its base trajectories")
+    print(f"PDEDataset: {experiment} train u_super {ds.u_super.shape} "
           f"{ds.u_super.dtype}, u_base {ds.u_base.shape}, x {ds.x.shape}")
 
 # phase 24: the grid models, their parameter counts at the reference
@@ -2121,7 +2171,7 @@ def rp_datagen_phase(data_dir, on):
 # variables, the 2-D ones with a and b)
 GRID_PARAMS = {"BaseCNN": 69905, "FNO": 554201, "FNOP": 554393,
                "VNO": 554201, "BaseCNN2D": 667570, "FNO2D": 2192818,
-               "FNO2DP": 2193074}
+               "FNO2DP": 2193074, "FNO2DPU": 2193074}
 # phase 24, relative to max|out|: the float32 forward against the same
 # module in float64. Float32 rounds at 6e-8; a grid forward is at most
 # ~10 layers of sums over <= 1,152 terms (BaseCNN2D's convolutions 128 x
@@ -2132,11 +2182,14 @@ GRID_PARAMS = {"BaseCNN": 69905, "FNO": 554201, "FNOP": 554393,
 TOL_GRID = 1e-5
 
 
-def grid_models_phase(rand, dev, on):
+def grid_models_phase(rand, dev, on, names=None, experiment=None,
+                      grid=None):
     """Phase 24, the models: the seven grid models at the reference widths
     (BaseCNN, FNO and VNO on E1's grid, FNOP on E3's with alpha, beta and
     gamma, BaseCNN2D, FNO2D and FNO2DP on RP's with a and b; weights from
-    a numpy seed through params_from_flax): the forward at batch 16 in
+    a numpy seed through params_from_flax), or ``names`` on
+    ``experiment``'s ``grid`` (phase 26: FNO2DPU on RPU's LCG grid): the
+    forward at batch 16 in
     float32 (TF32 off) against the same module in float64 on the card
     within TOL_GRID of max|out|, a step's loss (TRAIN_LOSS_RTOL) and every
     gradient (``scale_aware``) at unrolled 0 and 1 against the float64
@@ -2160,9 +2213,12 @@ def grid_models_phase(rand, dev, on):
     )
 
     trainers = {}
+    names = names or tuple(n for n in GRID if n != "FNO2DPU")
     for i, name in enumerate(GRID):
-        experiment = experiment_of(name)
-        tr = weighted_trainer(experiment, name, 70 + i, dev)
+        if name not in names:
+            continue
+        on_exp = experiment or experiment_of(name)
+        tr = weighted_trainer(on_exp, name, 70 + i, dev, grid)
         n_params = sum(p.numel() for p in tr.model.parameters())
         check(tr.kind == "grid" and n_params == GRID_PARAMS[name],
               f"{name}: {n_params} parameters, not {GRID_PARAMS[name]}")
@@ -2182,7 +2238,7 @@ def grid_models_phase(rand, dev, on):
               f"{name} output {tuple(out.shape)}")
         scale = ref.abs().max().item()
         e = (out.double() - ref).abs().max().item()
-        print(f"{name} ({experiment}, {n_params} parameters) forward B={B} "
+        print(f"{name} ({on_exp}, {n_params} parameters) forward B={B} "
               f"float32 vs float64 on the card: max |diff| = {e:.3e} "
               f"(output max |.| {scale:.3e}; bound {TOL_GRID * scale:.3e})")
         check(e <= TOL_GRID * scale, f"{name} float32 forward differs from "
@@ -2223,7 +2279,7 @@ def grid_models_phase(rand, dev, on):
         # 50-step trace of a grid model takes ~19 s (an H100 machine's host)
         time_train_steps(tr, u_all, name, var_all)
         engine = RolloutEngine(
-            build_serving_trainer(experiment, name, device=dev),
+            build_serving_trainer(on_exp, name, device=dev, grid=grid),
             {k: v.detach() for k, v in tr.model.state_dict().items()},
             batch_buckets=BUCKETS)
         time_rollouts(engine, name)
@@ -2566,41 +2622,53 @@ def ks_full_horizon(proc, out, data_dir, on):
           f"({on})")
 
 
-def knn_phase(rand, T, dev, grid):
-    """Phase 25, the message-passing kernels on the wave equation's k-NN
-    graph (K = 3 on ``grid``, WE's down-projected Chebyshev grid of 100,
-    in-degrees 2 to 5), D = tw = 25, with WE3's V = 3 (t, bc_left,
-    bc_right) and WE1's V = 1 (t), and MSMP-PDE's, MSGMP-PDE's (164) and
-    MP-PDE's weights: the pair's forward at B in {1, 16, 48} at 128 and
-    164, its backward, both single-layer switch settings and the stash
-    with the forced fallback, each against its plain version, two runs
-    bitwise equal. Returns ({kernel: max error}, the timings' (kernel,
-    operands) at V = 3: batch 16, the stash at 48)."""
+def knn_phase(rand, T, dev, grid, experiments=("WE3", "WE1")):
+    """Phases 25 and 26, the message-passing kernels on a k-NN graph (K = 3
+    on ``grid``) with MSMP-PDE's, MSGMP-PDE's (164) and MP-PDE's weights,
+    or their 2-D versions' on RPU: phase 25 on the wave equation's graph
+    (WE's down-projected Chebyshev grid of 100, in-degrees 2 to 5), D = tw
+    = 25, with WE3's V = 3 (t, bc_left, bc_right) and WE1's V = 1 (t);
+    phase 26 on RPU's (the LCG grid of 100, cylindrical coordinates), D =
+    2 tw = 50, V = 3 (t, a, b), where some nodes have in-degree 0 (no node
+    lists them: empty inverse lists) and the largest is above K. The
+    pair's forward at B in {1, 16, 48} at 128 and 164, its backward, both
+    single-layer switch settings and the stash with the forced fallback,
+    each against its plain version, two runs bitwise equal. Returns
+    ({kernel: max error}, the timings' (kernel, operands) at the first
+    experiment: batch 16, the stash at 48)."""
     import numpy as np
     import torch
 
     from msmp_pde_torch.ops import mp_pair
 
-    errs = {}
-    for experiment in ("WE3", "WE1"):
-        gated = weighted_trainer(experiment, "MSMP-PDE", 50, dev, grid)
-        glu = weighted_trainer(experiment, "MSGMP-PDE", 51, dev, grid)
-        plain = weighted_trainer(experiment, "MP-PDE", 52, dev, grid)
+    errs, ops = {}, None
+    for experiment in experiments:
+        suffix = "2D" if experiment == "RPU" else ""
+        phase = 26 if experiment == "RPU" else 25
+        gated = weighted_trainer(experiment, "MSMP-PDE" + suffix, 50, dev,
+                                 grid)
+        glu = weighted_trainer(experiment, "MSGMP-PDE" + suffix, 51, dev,
+                               grid)
+        plain = weighted_trainer(experiment, "MP-PDE" + suffix, 52, dev,
+                                 grid)
         spec = gated.spec
-        nx, V = spec.nx, 1 + len(gated.eq_norms)
+        nx, V, D = spec.nx, 1 + len(gated.eq_norms), gated.d * T
         deg = np.bincount(spec.idx.cpu().numpy().ravel(), minlength=nx)
         check(spec.idx.shape == (nx, 3) and deg.min() < 3 < deg.max(),
               f"{experiment}: not a k-NN graph of unequal in-degrees")
-        print(f"phase 25: the message-passing kernels on {experiment}'s "
-              f"k-NN graph, K = 3, in-degrees {deg.min()} to {deg.max()}, "
-              f"D = {T}, V = {V}")
+        if experiment == "RPU":
+            check(deg.min() == 0, "RPU: no node of in-degree 0")
+        print(f"phase {phase}: the message-passing kernels on "
+              f"{experiment}'s k-NN graph, K = 3, in-degrees {deg.min()} to "
+              f"{deg.max()} ({int((deg == 0).sum())} of in-degree 0), D = "
+              f"{D}, V = {V}")
         w = lambda m: tuple(x.detach() for x in (m.gate_0.weights()
                                                  + m.gnn_0.weights()))
         fwd_args = {}
         with torch.no_grad():
             for H, W in ((128, w(gated.model)), (GLU_H, w(glu.model))):
                 for B in (1, 16, 48):
-                    args = (rand(B, nx, H), rand(B, nx, T),
+                    args = (rand(B, nx, H), rand(B, nx, D),
                             spec.x.expand(B, nx)[..., None] / spec.L,
                             rand(B, nx, V, scale=.5), spec.idx, spec.mask,
                             W[:12], W[12:])
@@ -2608,31 +2676,32 @@ def knn_phase(rand, T, dev, grid):
                     again = mp_pair.fused_gated_pair(*args)
                     op = mp_pair.fused_gated_pair_plain(*args)
                     torch.cuda.synchronize()
-                    check(torch.equal(ok, again), f"mp_pair_fwd k-NN V={V} "
-                          f"B={B} H={H}: two runs differ")
+                    check(torch.equal(ok, again), f"mp_pair_fwd k-NN "
+                          f"{experiment} B={B} H={H}: two runs differ")
                     e = (ok - op).abs().max().item()
                     errs["mp_pair_fwd"] = max(errs.get("mp_pair_fwd", 0.0), e)
-                    print(f"mp_pair_fwd k-NN V={V} B={B} H={H}: max |kernel "
-                          f"- plain| = {e:.3e}; two runs bitwise equal")
-                    check(e <= TOL_PAIR, f"mp_pair_fwd k-NN V={V} B={B} "
-                          f"H={H} differs by {e:.3e} > {TOL_PAIR}")
+                    print(f"mp_pair_fwd k-NN {experiment} V={V} B={B} H={H}: "
+                          f"max |kernel - plain| = {e:.3e}; two runs bitwise "
+                          "equal")
+                    check(e <= TOL_PAIR, f"mp_pair_fwd k-NN {experiment} "
+                          f"B={B} H={H} differs by {e:.3e} > {TOL_PAIR}")
                     fwd_args[(H, B)] = args
         e_bwd, bwd_args = check_pair_bwd(
-            rand, gated.model, spec, T, 128, V,
+            rand, gated.model, spec, D, 128, V,
             (glu.model.gate_0.weights(), glu.model.gnn_0.weights()),
             b164=(1, 16, 48))
         errs["mp_pair_bwd"] = max(errs.get("mp_pair_bwd", 0.0),
                                   *e_bwd.values())
         lf, lb = check_layer_kernels(rand, plain.model.gnn_0.weights(), spec,
-                                     T, 128, V)
+                                     D, 128, V)
         errs["mp_layer_fwd"] = max(errs.get("mp_layer_fwd", 0.0), lf)
         errs["mp_layer_bwd"] = max(errs.get("mp_layer_bwd", 0.0), lb)
-        st, fb, stash = check_pair_fallback(rand, gated.model, spec, T, 128,
+        st, fb, stash = check_pair_fallback(rand, gated.model, spec, D, 128,
                                             V)
         errs["mp_pair_fwd_stash"] = max(errs.get("mp_pair_fwd_stash", 0.0),
                                         st)
         errs["mp_pair_fallback"] = max(errs.get("mp_pair_fallback", 0.0), fb)
-        if experiment == "WE3":
+        if ops is None:
             W1 = tuple(x.detach() for x in plain.model.gnn_0.weights())
             layer = (*fwd_args[(128, 16)][:6], W1)
             ops = [("mp_pair_fwd", fwd_args[(128, 16)]),
@@ -2698,6 +2767,78 @@ def ks_eval_phase(data_dir, work_dir, ckpt, dev):
           "array's scale: " + ", ".join(
               f"{k} {rel(diag[k], ref[k]):.3e}" for k in sorted(diag)
               if k.endswith("_pred")))
+
+
+def interpolated_phase(data_dir, work_dir, on, dev):
+    """Phase 26, RPU's interpolated route: the interpolate CLI on the card
+    writes AD_RPU_I (every array within TOL_INTERP of the CPU's
+    interpolation of the same file); ``fit --data_suffix _I`` of FNO2DP
+    one epoch, which must train on the uniform grid (its radius stencil),
+    resumed and served with ``--data_suffix _I``; eval_interpolated on the
+    checkpoint prints the interp-back L2 and rel-L2, which must equal a
+    direct reduction of ``interp_rollout_to_unstructured``'s output
+    against the unstructured test set."""
+    import numpy as np
+
+    from msmp_pde_torch.data import interpolate
+    from msmp_pde_torch.data.dataset import PDEDataset
+    from msmp_pde_torch.datagen import hdf5_io
+    from msmp_pde_torch.training import eval_interpolated, metrics
+    from msmp_pde_torch.training.setup import pde_for_experiment
+
+    t0 = time.perf_counter()
+    npz, _ = interpolate.main(interpolate.build_parser().parse_args(
+        [f"--data_dir={data_dir}", "--device=cuda"]))
+    took = time.perf_counter() - t0
+    cpu, _ = interpolate.interpolate_file(
+        str(Path(data_dir) / "AD_RPU.npz"), str(Path(work_dir) / "cpu_I"),
+        device="cpu")
+    worst = 0.0
+    with hdf5_io.open_dataset(npz) as a, hdf5_io.open_dataset(cpu) as b:
+        check(sorted(a.names()) == sorted(b.names()), "the _I files' names")
+        for name in a.names():
+            worst = max(worst, float(np.abs(a.array(name)
+                                            - b.array(name)).max()))
+    print(f"interpolate CLI on the card: {npz} in {took:.3f} s, max |card - "
+          f"CPU| = {worst:.3e} ({on})")
+    check(worst <= TOL_INTERP, f"interpolate: card vs CPU {worst:.3e} > "
+          f"{TOL_INTERP}")
+    counts = fit_phase(data_dir, work_dir, on, "RPU", "FNO2DP", epochs=1,
+                       suffix="_I")
+    check(not any(counts.values()), f"FNO2DP _I fit: launches "
+          f"{nonzero(counts)}")
+    ckpt = str(Path(work_dir) / "models" / "FNO2DP_RPU.pt")
+    args = eval_interpolated.build_parser().parse_args([
+        "--experiment=RPU", "--model=FNO2DP", f"--model_to_test={ckpt}",
+        f"--data_dir={data_dir}", "--batch_size=16", "--device=cuda"])
+    t0 = time.perf_counter()
+    with contextlib.chdir(work_dir):
+        out = eval_interpolated.main(args)
+    took = time.perf_counter() - t0
+    ds_r = PDEDataset(str(Path(data_dir) / "AD_RPU.npz"),
+                      pde_for_experiment("RPU", (250, 100)), "test")
+    ds_u_pde = pde_for_experiment("RPU", (250, 100))
+    ds_u_pde.unstructured_grid = False
+    ds_u = PDEDataset(npz, ds_u_pde, "test")
+    T = out["preds_interp_back"].shape[1]
+    back = metrics.interp_rollout_to_unstructured(out["preds"][:, :T],
+                                                  ds_u.x, ds_r.x, dev)
+    trues = ds_r.u_super[:, 50:50 + T]
+    l2 = float(np.sqrt(np.mean(np.sum((back - trues) ** 2, axis=2),
+                               axis=(1, 2))).mean())
+    m = float(np.sqrt(np.mean(np.sum(trues ** 2, axis=2),
+                              axis=(1, 2))).mean())
+    check(bool(np.isfinite(out["interp_L2"])) and (
+        out["interp_L2"], out["interp_rel_L2"]) == (l2, l2 / m),
+          f"compute_l2_norms_u {out['interp_L2']}, {out['interp_rel_L2']} "
+          f"vs the direct reduction {l2}, {l2 / m}")
+    print(f"eval_interpolated on FNO2DP's _I checkpoint: interp-back L2 "
+          f"{out['interp_L2']:.6f}, rel-L2 {100 * out['interp_rel_L2']:.4f} "
+          f"% on the unstructured grid (equal to the direct reduction of "
+          f"interp_rollout_to_unstructured's output), uniform-grid rel-L2 "
+          f"{100 * out['test_rel_L2']:.4f} %; figures "
+          f"{'written' if out['figures'] else 'skipped (no matplotlib)'}; "
+          f"{took:.3f} s ({on})")
 
 
 def main():
@@ -3220,6 +3361,52 @@ def main():
           f"the fits, eval, train_epoch, timings and the CPU's KS "
           f"{time.perf_counter() - t_fit:.3f} s) ({on})")
 
+    # 26. RPU: datagen on the card, the kernels on its k-NN graph (nodes of
+    #     in-degree 0), fit and serve MSMP-PDE2D and FNO2DPU, the
+    #     interpolated route (interpolate, fit --data_suffix _I,
+    #     eval_interpolated) --------------------------------------------
+    t26 = time.perf_counter()
+    rpu_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_rpu_")
+    rpu_work = rpu_dir.name
+    rpu_data = str(Path(rpu_work) / "data")
+    rp_datagen_phase(rpu_data, on, "RPU")
+    rpu_npz = str(Path(rpu_data) / "AD_RPU.npz")
+    rpu_pde = pde_for_experiment("RPU", (250, 100))
+    rpu_grid = grid_from_h5(rpu_npz, rpu_pde, "test", (250, 100), (250, 200))
+    t_rknn = time.perf_counter()
+    rpu_err, rpu_ops = knn_phase(rand, T, dev, rpu_grid, ("RPU",))
+    t_rfit = time.perf_counter()
+    rpu_fit = fit_phase(rpu_data, rpu_work, on, "RPU", "MSMP-PDE2D",
+                        epochs=1, per_window=True)
+    print(f"MSMP-PDE2D RPU fit main path launches: {nonzero(rpu_fit)}")
+    u_rpu, _, var_rpu = device_arrays(PDEDataset(rpu_npz, rpu_pde, "train"),
+                                      dev)
+    mp_rpu = weighted_trainer("RPU", "MP-PDE2D", 55, dev, rpu_grid)
+    rpu_layer, rpu_epoch_s = train_main_path(
+        mp_rpu, u_rpu[:TRAIN_BATCH], "MP-PDE2D (RPU)",
+        {k: v[:TRAIN_BATCH] for k, v in var_rpu.items()})
+    msmp_rpu = weighted_trainer("RPU", "MSMP-PDE2D", 56, dev, rpu_grid)
+    u48, var48 = train_data(msmp_rpu, 48, seed=9)
+    rpu_fb = fallback_step(msmp_rpu, u48, "MSMP-PDE2D (RPU)", var48)
+    del u48
+    rpu_t = dict(zip((name for name, _ in rpu_ops),
+                     mp_kernel_times(rpu_ops)))
+    t_rgrid = time.perf_counter()
+    grid_models_phase(rand, dev, on, ("FNO2DPU",), "RPU", rpu_grid)
+    fno_counts = fit_phase(rpu_data, rpu_work, on, "RPU", "FNO2DPU",
+                           epochs=1)
+    check(not any(fno_counts.values()), f"FNO2DPU fit: launches "
+          f"{nonzero(fno_counts)}")
+    t_interp = time.perf_counter()
+    interpolated_phase(rpu_data, rpu_work, on, dev)
+    rpu_dir.cleanup()
+    t_end = time.perf_counter()
+    print(f"phase 26: {t_end - t26:.3f} s (RPU datagen {t_rknn - t26:.3f} "
+          f"s, the k-NN kernels {t_rfit - t_rknn:.3f} s, MSMP-PDE2D's fit, "
+          f"MP-PDE2D's train_epoch, the fallback step and the kernels' "
+          f"times {t_rgrid - t_rfit:.3f} s, FNO2DPU {t_interp - t_rgrid:.3f} "
+          f"s, the interpolated route {t_end - t_interp:.3f} s) ({on})")
+
     kernels = [
         {"name": "lem_fwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/lem_fwd.cu",
@@ -3335,6 +3522,24 @@ def main():
             "source": f"msmp_pde_torch/csrc/{src}.cu",
             "replaces": REPLACES[name], "launches": knn_launches[name],
             "max_abs_err": knn_err[name], "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # the message-passing kernels on RPU's k-NN graph (K = 3, in-degrees
+    # from 0, D = 50, V = 3, hidden 128): launches in phase 26's main paths
+    # (the pair in the RPU fit of MSMP-PDE2D, the single layer in MP-PDE2D's
+    # RPU train_epoch, the stash in the forced-fallback step)
+    rpu_launches = {
+        "mp_pair_fwd": rpu_fit["mp_pair_fwd"],
+        "mp_pair_bwd": rpu_fit["mp_pair_bwd"],
+        "mp_layer_fwd": rpu_layer["mp_layer_fwd"],
+        "mp_layer_bwd": rpu_layer["mp_layer_bwd"],
+        "mp_pair_fwd_stash": rpu_fb["mp_pair_fwd_stash"]}
+    for name, (ms, pms, _, bms, by) in rpu_t.items():
+        src = name.replace("_stash", "")
+        kernels.append({
+            "name": f"{name}@rpu", "route": "cuda",
+            "source": f"msmp_pde_torch/csrc/{src}.cu",
+            "replaces": REPLACES[name], "launches": rpu_launches[name],
+            "max_abs_err": rpu_err[name], "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(on)

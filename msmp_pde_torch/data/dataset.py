@@ -18,12 +18,11 @@ holds as numpy arrays:
     grid's, down-projected by the same kernel (the Chebyshev grid is not
     nested);
   - AD (stored [N, 2, nt, nx]): temporal stride ``ratio_nt``, then every
-    second point ``u[..., 0:-1:2]``, laid out as [N, nt, 2, nx];
-* ``x``: the base coordinates (WE's as above), and the equation's scalar
-  ``variables``.
-
-The unstructured AD grid (RPU) comes with its datagen (ROADMAP.md Queue 1
-item 7).
+    second point ``u[..., 0:-1:2]``, laid out as [N, nt, 2, nx]; on the
+    unstructured grid (RPU, ``pde.unstructured_grid``) the target is
+    ``u_base`` itself, each resolution having its own grid;
+* ``x``: the base coordinates (WE's as above; RPU's its stored LCG grid),
+  and the equation's scalar ``variables``.
 """
 from __future__ import annotations
 
@@ -77,10 +76,6 @@ class PDEDataset:
         family = f"{pde}"
         if family not in self.VAR_NAMES:
             raise ValueError(f"unknown family {family!r}")
-        if getattr(pde, "unstructured_grid", False):
-            raise NotImplementedError(
-                "unstructured AD datasets (RPU) are not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
         self.pde = pde
         self.mode = mode
         self.base_resolution = tuple(base_resolution or (250, 100))
@@ -111,7 +106,10 @@ class PDEDataset:
         x = np.asarray(attrs["x"], np.float64)
 
         if family == "AD":
-            u = np.swapaxes(u_super[:, :, ::ratio_nt][..., 0:-1:2], 1, 2)
+            if getattr(pde, "unstructured_grid", False):
+                u = np.swapaxes(u_base, 1, 2)
+            else:
+                u = np.swapaxes(u_super[:, :, ::ratio_nt][..., 0:-1:2], 1, 2)
             u_base = np.swapaxes(u_base, 1, 2)
         elif family == "WE":
             u = _mean_downproject(u_super[:, ::ratio_nt], ratio_nx)

@@ -8,6 +8,7 @@ and kept on the device for every request.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,6 +49,40 @@ def build_neighbors_knn(points: np.ndarray, k: int):
     return idx, np.ones((nx, k), np.float32)
 
 
+def add_random_edges(idx: np.ndarray, mask: np.ndarray, p: float,
+                     rng: np.random.Generator):
+    """Erdos-Renyi in-edges: for each node i in order, ``rng.random(nx) <
+    p`` draws candidates j, kept where j != i and j is not already one of
+    i's valid neighbours. The lists grow by the most extra edges any node
+    got, the new slots of the other nodes masked off (pointing at node
+    0). Returns (idx, mask), unchanged where no edge was added."""
+    nx_nodes = idx.shape[0]
+    extra = [[] for _ in range(nx_nodes)]
+    for i in range(nx_nodes):
+        for j in np.where(rng.random(nx_nodes) < p)[0]:
+            if j != i and j not in idx[i][mask[i] > 0]:
+                extra[i].append(j)
+    k_extra = max((len(e) for e in extra), default=0)
+    if k_extra == 0:
+        return idx, mask
+    K = idx.shape[1] + k_extra
+    idx2 = np.zeros((nx_nodes, K), np.int32)
+    mask2 = np.zeros((nx_nodes, K), np.float32)
+    idx2[:, : idx.shape[1]] = idx
+    mask2[:, : idx.shape[1]] = mask
+    for i, e in enumerate(extra):
+        idx2[i, idx.shape[1]: idx.shape[1] + len(e)] = e
+        mask2[i, idx.shape[1]: idx.shape[1] + len(e)] = 1.0
+    return idx2, mask2
+
+
+def cylindrical_coords(x: np.ndarray) -> np.ndarray:
+    """The periodic embedding of an unstructured grid, [nx, 2]: (cos, sin)
+    of theta = 2 pi x / (max x - 1e-3)."""
+    theta = 2 * np.pi * x / (x.max() - 1e-3)
+    return np.stack([np.cos(theta), np.sin(theta)], axis=1)
+
+
 @dataclasses.dataclass(frozen=True)
 class GraphSpec:
     """Static per-task graph structure and metadata, tensors on the
@@ -69,22 +104,28 @@ class GraphSpec:
 
 
 def build_graph_spec(pde, grid, n_neighbors: int, time_window: int,
-                     device) -> GraphSpec:
+                     device, random_edge_prob: float = 0.0,
+                     rng: Optional[np.random.Generator] = None) -> GraphSpec:
     """The static graph of a (task, resolution): the k-NN graph of the
-    Chebyshev grid for WE (k = ``n_neighbors``, the grid's x as float64 as
-    the JAX package reads it), the radius stencil for the uniform families
-    (CE, KF, KS, and AD with ``grid.n_components`` = 2). The unstructured
-    AD grid's k-NN graph on cylindrical coordinates is not ported yet."""
+    Chebyshev grid for WE and of the unstructured AD grid (RPU, its
+    ``cylindrical_coords``), k = ``n_neighbors``; the radius stencil for
+    the uniform families (CE, KF, KS, and AD on its uniform grid). The
+    k-NN lists are built from ``grid.x`` as float64, as the JAX package
+    reads it: a dataset's x is float32, so the lists are those of the
+    float32-rounded grid. ``random_edge_prob`` > 0 adds Erdos-Renyi edges
+    (``add_random_edges``, from ``rng``, by default ``default_rng(0)``)."""
     family = f"{pde}"
-    if getattr(pde, "unstructured_grid", False):
-        raise NotImplementedError(
-            "the unstructured AD grid's k-NN graph (RPU) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
     x = np.asarray(grid.x)
     if family == "WE":
         idx, mask = build_neighbors_knn(x.astype(np.float64), n_neighbors)
+    elif getattr(pde, "unstructured_grid", False):
+        idx, mask = build_neighbors_knn(
+            cylindrical_coords(x.astype(np.float64)), n_neighbors)
     else:
         idx, mask = build_neighbors_radius(x, n_neighbors)
+    if random_edge_prob > 0.0:
+        idx, mask = add_random_edges(idx, mask, random_edge_prob,
+                                     rng or np.random.default_rng(0))
     t_grid = np.linspace(grid.tmin, grid.tmax, grid.nt).astype(x.dtype)
     dev = torch.device(device)
     return GraphSpec(

@@ -11,9 +11,11 @@ list, ``RES_WE`` adds (250, 20)).
 TaskIDs:
 * E1, E2, E3 and kdv (family CE), which differ only in their coefficient
   ranges;
-* RP, MSWG and MSWG3 (family AD, ``AD_EXPERIMENTS``), the two-component
-  advection system solved exactly by characteristics (equations/ad.py),
-  trajectories [n, 2, nt, nx] with the speeds a and b;
+* RP, RPU, MSWG and MSWG3 (family AD, ``AD_EXPERIMENTS``), the
+  two-component advection system solved exactly by characteristics
+  (equations/ad.py), trajectories [n, 2, nt, nx] with the speeds a and b;
+  RPU is RP on the unstructured LCG grid (``ics.pseudo_random_grid``, one
+  grid a resolution, stored as that resolution's ``x``);
 * KF, the Kolmogorov-Fisher equation (equations/kf.py), DOPRI45 at rtol
   1e-7, atol 1e-9 and at most 14 halvings an output interval, with r and
   D (log-uniform) by groups;
@@ -31,9 +33,9 @@ TaskIDs:
   Dirichlet, the reference's quirk (its ``mixed`` branch assigns bc_left
   twice); bc_left and bc_right are written as ints.
 
-RPU (the LCG grid) is not ported. A CE or KF chunk of ``--chunk`` samples
-integrates at once (the adaptive solver's error max is shared across the
-chunk, so the chunk size is part of what defines the data). Coefficients
+A CE or KF chunk of ``--chunk`` samples integrates at once (the adaptive
+solver's error max is shared across the chunk, so the chunk size is part
+of what defines the data). Coefficients
 are drawn once per ``--batch_size`` group. The random draws come from one
 ``numpy.random.Generator(seed)`` on the host, per chunk in the order
 alpha, beta, gamma groups (a coefficient whose range is one value draws
@@ -78,6 +80,7 @@ RES_AD = RES_CE
 # the gaussian families, 16 for the sum of sines
 AD_EXPERIMENTS = {
     "RP": (4.0, (0.1, 1.0), (1.0, 10.0), "sinesum"),
+    "RPU": (4.0, (0.1, 1.0), (1.0, 10.0), "sinesum"),
     "MSWG": (3.0, (0.1, 1.0), (1.0, 10.0), "gaussian"),
     "MSWG3": (1.0, (0.1, 0.5), (8.0, 10.0), "gaussian_triple"),
 }
@@ -204,10 +207,11 @@ def generate_ce(args, tmax: float, alpha, beta, gamma):
 
 def ad_pdes(tmax: float, initial_condition: str):
     """{resolution key: AD} of RES_AD: L = 2 pi for the gaussian families,
-    16 for the sum of sines."""
+    16 for the sum of sines and the square."""
     from msmp_pde_torch.equations import AD
 
-    L = 16.0 if initial_condition == "sinesum" else 2 * np.pi
+    gaussian = initial_condition in ("gaussian", "gaussian_triple")
+    L = 2 * np.pi if gaussian else 16.0
     return {f"pde_{nt}-{nx}": AD(tmin=0.0, tmax=tmax, grid_size=(nt, nx),
                                  L=L) for nt, nx in RES_AD}
 
@@ -225,19 +229,32 @@ def draw_ad_chunk(rng: np.random.Generator, c: int, batch_size: int,
     sample = ics.AD_ICS[initial_condition][0]
     if initial_condition == "sinesum":
         params = sample(rng, c, pde.n_waves, pde.lmin, pde.lmax)
+    elif initial_condition == "square":
+        params = sample(rng, c, pde.nx, pde.L)
     else:
         params = sample(rng, c)
     return (a, b, *params)
 
 
-def ad_solver(pde, initial_condition: str, dtype: torch.dtype, device):
+def ad_grid(pde, unstructured_grid: bool = False) -> np.ndarray:
+    """The AD grid of ``pde``'s resolution, float64: ``linspace(0, L,
+    nx)``, or with ``unstructured_grid`` (RPU) the LCG grid on [0, L]."""
+    from msmp_pde_torch.datagen import ics
+
+    if unstructured_grid:
+        return ics.pseudo_random_grid(0.0, pde.L, pde.nx)
+    return np.linspace(0.0, pde.L, pde.nx)
+
+
+def ad_solver(pde, initial_condition: str, dtype: torch.dtype, device,
+              unstructured_grid: bool = False):
     """solve(a, b, *ic parameters) -> [B, 2, nt, nx]: the exact
-    trajectories of one chunk on ``pde``'s grid, every argument a tensor on
-    ``device``."""
+    trajectories of one chunk on ``pde``'s grid (``ad_grid``), every
+    argument a tensor on ``device``."""
     from msmp_pde_torch.datagen import ics
     from msmp_pde_torch.equations.ad import exact_solution_batch
 
-    x = torch.as_tensor(np.linspace(0.0, pde.L, pde.nx), dtype=dtype,
+    x = torch.as_tensor(ad_grid(pde, unstructured_grid), dtype=dtype,
                         device=device)
     ts = torch.as_tensor(np.linspace(pde.tmin, pde.tmax, pde.nt),
                          dtype=dtype, device=device)
@@ -249,19 +266,22 @@ def ad_solver(pde, initial_condition: str, dtype: torch.dtype, device):
     return solve
 
 
-def generate_rp(args, tmax: float, a_range, b_range, initial_condition):
-    """Writes the AD dataset; returns {(mode, resolution key): seconds}."""
+def generate_rp(args, tmax: float, a_range, b_range, initial_condition,
+                unstructured_grid: bool = False):
+    """Writes the AD dataset, on the LCG grids with ``unstructured_grid``
+    (RPU); returns {(mode, resolution key): seconds}."""
     from msmp_pde_torch.datagen.hdf5_io import DatasetWriter
     from msmp_pde_torch.device import resolve_device
 
     dev = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
     pdes = ad_pdes(tmax, initial_condition)
-    solvers = {k: ad_solver(p, initial_condition, dtype, dev)
+    solvers = {k: ad_solver(p, initial_condition, dtype, dev,
+                            unstructured_grid)
                for k, p in pdes.items()}
     res_meta = {
         k: dict(nt=p.nt, nx=p.nx, dt=p.dt, dx=p.dx, tmin=p.tmin,
-                tmax=p.tmax, x=np.linspace(0.0, p.L, p.nx))
+                tmax=p.tmax, x=ad_grid(p, unstructured_grid))
         for k, p in pdes.items()
     }
     pde0 = next(iter(pdes.values()))
@@ -595,12 +615,9 @@ def generate_we(args, boundary: str, tend: float, wave_speed: float):
 
 def main(args):
     e = args.experiment
-    if e == "RPU":
-        raise NotImplementedError(
-            "RPU (the LCG grid, its k-NN graph) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
     if e in AD_EXPERIMENTS:
-        return generate_rp(args, *AD_EXPERIMENTS[e])
+        return generate_rp(args, *AD_EXPERIMENTS[e],
+                           unstructured_grid=e == "RPU")
     if e in KF_EXPERIMENTS:
         return generate_kf(args, *KF_EXPERIMENTS[e])
     if e in KS_EXPERIMENTS:

@@ -129,6 +129,11 @@ class _NpzReader:
     def __init__(self, z):
         self._z = z
 
+    def names(self):
+        """Every dataset's ``{mode}/{key}``, the attributes' arrays left
+        out."""
+        return [n for n in self._z.files if n.count("/") == 1]
+
     def array(self, name: str) -> np.ndarray:
         return self._z[name]
 
@@ -140,6 +145,9 @@ class _H5Reader:
     def __init__(self, f):
         self._f = f
 
+    def names(self):
+        return [f"{mode}/{key}" for mode in self._f for key in self._f[mode]]
+
     def array(self, name: str) -> np.ndarray:
         return self._f[name][:]
 
@@ -150,7 +158,8 @@ class _H5Reader:
 @contextlib.contextmanager
 def open_dataset(path: str):
     """A reader of a ``.npz`` or ``.h5`` dataset file: ``array(name)`` and
-    ``attrs(name)`` with names like ``"train/pde_250-100"``."""
+    ``attrs(name)`` with names like ``"train/pde_250-100"``, and
+    ``names()``, every such name in the file."""
     if path.endswith(".npz"):
         with np.load(path) as z:
             yield _NpzReader(z)

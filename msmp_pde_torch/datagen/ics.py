@@ -2,7 +2,7 @@
 msmp_pde_tpu/datagen/ics.py): the sum of sines, KF's squared zero-phase
 sum of sines and KS's sum of sines on its periodic domain (both from
 ``sample_sine_params``' draws, msmp_pde_tpu/datagen/generate.py:264-266
-and :354-356), and the advection system's sinesum, gaussian and
+and :354-356), and the advection system's square, sinesum, gaussian and
 gaussian_triple families.
 
 The parameters are drawn on the host from an explicit
@@ -16,8 +16,8 @@ The advection families draw their parameters with ``sample_*_ic`` (numpy
 arrays, in the order each docstring gives) and evaluate them with the
 matching ``*_ic`` builder, whose ``u0_fn(pts [B, M]) -> [B, 2, M]`` takes
 points already shifted along the characteristics and wraps them into
-[0, L). The LCG grid and the square family wait for RPU (ROADMAP.md Queue
-1 item 7).
+[0, L). ``pseudo_random_grid`` is RPU's unstructured grid, the
+reference's integer LCG, bitwise the JAX package's.
 """
 from __future__ import annotations
 
@@ -62,6 +62,24 @@ def ks_ic(A, phi, l, x, L):
     return torch.sum(A * torch.sin(arg), dim=-1)
 
 
+def pseudo_random_grid(xmin: float, xmax: float, n: int) -> np.ndarray:
+    """RPU's unstructured grid [n], float64: the LCG n_{k+1} = (75 n_k +
+    74) mod (2^16 + 1) from n_0 = 74 in exact integers, scaled by its
+    maximum onto [xmin, xmax], sorted, the ends pinned to xmin and
+    xmax."""
+    c, p, a = 74, 2**16 + 1, 75
+    ns = [c % p]
+    for _ in range(n - 1):
+        ns.append((a * ns[-1] + c) % p)
+    ns = np.asarray(ns, dtype=float)
+    ns = ns / ns.max()
+    ns = ns * (xmax - xmin) + xmin
+    ns = np.sort(ns)
+    ns[0] = xmin
+    ns[-1] = xmax
+    return ns
+
+
 def von_mises_pdf(x, kappa, loc=0.0):
     """Wrapped-Gaussian density exp(kappa cos(x - loc)) / (2 pi I0(kappa)),
     in the exponentially scaled form exp(kappa (cos(x - loc) - 1)) /
@@ -71,6 +89,27 @@ def von_mises_pdf(x, kappa, loc=0.0):
 
 
 # --- the advection system's initial conditions -----------------------------
+def sample_square_ic(rng: np.random.Generator, batch: int, nx: int,
+                     L: float):
+    """Two breakpoint pairs drawn from the integers [0, nx), [batch, 2, 2],
+    scaled by L / nx: (lo, hi) [batch, 2], the smaller and the larger of
+    each pair."""
+    bounds = L * rng.integers(0, nx, size=(batch, 2, 2)).astype(
+        np.float64) / nx
+    return bounds.min(axis=1), bounds.max(axis=1)
+
+
+def square_ic(lo, hi, L):
+    """u1 the indicator of (lo, hi) of the first pair, u2 = 0."""
+
+    def u0_fn(pts):
+        p = torch.remainder(pts, L)
+        u1 = ((p > lo[:, 0:1]) & (torch.abs(p) < hi[:, 0:1])).to(p.dtype)
+        return torch.stack([u1, torch.zeros_like(u1)], dim=1)
+
+    return u0_fn
+
+
 def sample_sinesum_ic(rng: np.random.Generator, batch: int, n_waves=5,
                       lmin=1, lmax=3):
     """Sum-of-sines parameters of 2 batch rows (``sample_sine_params``'s
@@ -133,6 +172,7 @@ def gaussian_triple_ic(scales, sharps, L):
 
 # family -> (the parameters' sampler, their builder)
 AD_ICS = {
+    "square": (sample_square_ic, square_ic),
     "sinesum": (sample_sinesum_ic, sinesum_ic),
     "gaussian": (sample_gaussian_ic, gaussian_ic),
     "gaussian_triple": (sample_gaussian_triple_ic, gaussian_triple_ic),

@@ -1,5 +1,5 @@
-"""Fourier Neural Operator baselines: FNO, FNOP, VNO, FNO2D and FNO2DP
-(counterpart of msmp_pde_tpu/models/fno.py).
+"""Fourier Neural Operator baselines: FNO, FNOP, VNO, FNO2D, FNO2DP and
+FNO2DPU (counterpart of msmp_pde_tpu/models/fno.py).
 
 Four spectral and pointwise layers with exact GELU, 16 modes, the grid
 coordinate ``linspace(0, L, nx)`` (endpoint included, whatever the data
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from msmp_pde_torch.models.common import Dense
+from msmp_pde_torch.ops.interp import interp_matrix
 
 
 def spectral_param(c_in: int, c_out: int, modes: int,
@@ -130,20 +131,35 @@ class FNO1d(nn.Module):
 class FNO2d(nn.Module):
     """The two-component system: input and output ``[B, tw, 2, nx]``,
     channels stacked t-major (``u.reshape(B, 2 tw, nx)``). ``n_vars`` > 0
-    is FNO2DP. The unstructured variant (FNO2DPU) is not ported."""
+    is FNO2DP. ``unstructured`` is FNO2DPU: the input is resampled from
+    the grid ``x_coords`` [nx] onto the uniform ``linspace(*domain, nx)``
+    before the core and the output back onto ``x_coords`` after it, each
+    through ``ops/interp.py::interp_matrix``'s dense operator (built per
+    call from ``x_coords``, as the JAX module builds it)."""
 
     def __init__(self, tw: int, generator: torch.Generator, modes: int = 16,
-                 width: int = 128, domain=(0.0, 16.0), n_vars: int = 0):
+                 width: int = 128, domain=(0.0, 16.0), n_vars: int = 0,
+                 unstructured: bool = False):
         super().__init__()
         self.domain, self.n_vars = tuple(domain), n_vars
+        self.unstructured = unstructured
         self._FNOCore_0 = _FNOCore(2 * tw + n_vars + 1, width, modes, 2 * tw,
                                    generator)
 
-    def forward(self, u, var_cols=None):
+    def forward(self, u, var_cols=None, x_coords=None):
         B, tw, d, nx = u.shape
+        if self.unstructured:
+            uniform = torch.linspace(self.domain[0], self.domain[1], nx,
+                                     dtype=u.dtype, device=u.device)
+            w_in = interp_matrix(x_coords, uniform).to(u.dtype)
+            u = torch.einsum("ij,btdj->btdi", w_in, u)
         x = _with_columns(u.reshape(B, tw * d, nx).transpose(1, 2),
                           var_cols if self.n_vars else None, self.domain)
-        return self._FNOCore_0(x).transpose(1, 2).reshape(B, tw, d, nx)
+        out = self._FNOCore_0(x).transpose(1, 2).reshape(B, tw, d, nx)
+        if self.unstructured:
+            w_out = interp_matrix(uniform, x_coords).to(u.dtype)
+            out = torch.einsum("ij,btdj->btdi", w_out, out)
+        return out
 
 
 class VNO1d(nn.Module):

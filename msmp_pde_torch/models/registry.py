@@ -1,14 +1,14 @@
 """Model registry (counterpart of msmp_pde_tpu/models/registry.py).
 
-26 of the 27 names are ported. The nineteen graph models: the 1-D MP-PDE,
+All 27 names are ported. The nineteen graph models: the 1-D MP-PDE,
 Gated, LEM, MSMP-PDE, MSSMP-PDE, MSGMP-PDE (hidden 164 whatever
 ``hidden`` says, as in the JAX registry), SaveMSMP-PDE, LSTMGated and
 LSTM, and the 2-D MP-PDE2D, Gated2D, MSMP-PDE2D, MSGMP-PDE2D (hidden 164),
 SaveMSMP-PDE2D, MSG2-PDE2D (gradient gate), LSTMGated2D, LEM2D,
-GLEMGated2D (attention layers) and LSTM2D. The seven grid models: BaseCNN,
-FNO, FNOP and VNO (1-D) and BaseCNN2D, FNO2D and FNO2DP (the
-two-component system). FNO2DPU raises (ROADMAP.md Queue 1 items 7 and
-12).
+GLEMGated2D (attention layers) and LSTM2D. The eight grid models: BaseCNN,
+FNO, FNOP and VNO (1-D) and BaseCNN2D, FNO2D, FNO2DP and FNO2DPU (the
+two-component system; FNO2DPU resamples RPU's unstructured grid onto a
+uniform one and back).
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ _GRAPH.update({k: dict(v, n_components=2) for k, v in _GRAPH_2D.items()})
 # the equation variables the FNO Param variants take
 # (msmp_pde_tpu/models/registry.py:44-50)
 FNO_VARS = ("alpha", "beta", "gamma", "D", "r", "a", "b")
-GRID = ("BaseCNN", "FNO", "FNOP", "VNO", "BaseCNN2D", "FNO2D", "FNO2DP")
+GRID = ("BaseCNN", "FNO", "FNOP", "VNO", "BaseCNN2D", "FNO2D", "FNO2DP",
+        "FNO2DPU")
 
 PORTED = tuple(_GRAPH) + GRID
 
@@ -88,12 +89,9 @@ def get_model(name: str, *, tw: int, n_eq_vars: int, L: float, tmax: float,
         "VNO": lambda: VNO1d(tw, positions, gen, domain=(0.0, L)),
         "FNO2D": lambda: FNO2d(tw, gen, domain=(0.0, L)),
         "FNO2DP": lambda: FNO2d(tw, gen, domain=(0.0, L), n_vars=n_vars),
+        "FNO2DPU": lambda: FNO2d(tw, gen, domain=(0.0, L), n_vars=n_vars,
+                                 unstructured=True),
     }
     if name in grid:
         return grid[name](), "grid"
-    if name == "FNO2DPU":
-        raise NotImplementedError(
-            "FNO2DPU is not ported yet: it resamples through the "
-            "interpolation matrix on RPU's grid (ROADMAP.md Queue 1 items 7 "
-            "and 12)")
     raise ValueError(f"unknown model {name!r}")

@@ -30,19 +30,15 @@ def grid_from_h5(path: str, pde, mode: str, base_resolution,
                  super_resolution):
     """Attrs-only read of the grid metadata (no trajectories are loaded)
     from a dataset file, the port's ``.npz`` or an ``.h5``, as
-    ``PDEDataset`` reads it: the uniform grids (CE, KF, KS, and AD with two
-    components) as stored, and WE's Chebyshev grid down-projected from
-    ``super_resolution``'s x by the dataset's mean kernel. The
-    unstructured AD grid (RPU) is not ported."""
+    ``PDEDataset`` reads it: the uniform grids (CE, KF, KS, AD) and RPU's
+    LCG grid as stored at the base resolution, and WE's Chebyshev grid
+    down-projected from ``super_resolution``'s x by the dataset's mean
+    kernel."""
     from msmp_pde_torch.data.dataset import _mean_downproject
     from msmp_pde_torch.datagen.hdf5_io import open_dataset
     from msmp_pde_torch.training.setup import GridInfo
 
     family = f"{pde}"
-    if getattr(pde, "unstructured_grid", False):
-        raise NotImplementedError(
-            "the unstructured AD grid (RPU) is not ported yet (ROADMAP.md "
-            "Queue 1 item 7)")
     with open_dataset(path) as f:
         a = f.attrs("%s/pde_%d-%d" % (mode, *base_resolution))
         x = np.asarray(a["x"], np.float64)
@@ -63,7 +59,9 @@ def build_serving_trainer(experiment: str, model: str, *,
                           super_resolution=(250, 200), **kw):
     """The trainer a server needs, from grid metadata alone: the uniform
     grid, or the test mode's of ``data_path`` (``grid_from_h5``), with
-    training/setup.py::build_trainer's keywords. The model's weights are
+    training/setup.py::build_trainer's keywords. ``data_suffix="_I"``
+    serves a checkpoint trained on the interpolated files: RPU on the
+    uniform grid's radius stencil, as it trained. The model's weights are
     random from ``seed`` until a checkpoint is loaded. ``device`` defaults
     to CUDA and raises without it."""
     from msmp_pde_torch.training.setup import (

@@ -284,6 +284,7 @@ def build_server(args):
         neighbors=args.neighbors, time_window=args.time_window,
         n_graph_layers=args.n_graph_layers,
         mp_precision=args.mp_precision, device=args.device,
+        data_suffix=args.data_suffix,
     )
     buckets = tuple(args.batch_buckets)
     engine = RolloutEngine(trainer, load_checkpoint(args.checkpoint),

@@ -112,8 +112,11 @@ class Trainer:
         (prediction [B, nx, d*tw], the LEM's new state or None); a grid
         model takes no state and returns None."""
         if self.kind == "grid":
-            out = self.model(window_to_grid(window, self.d, self.tw),
-                             self.grid_vars(variables))
+            grid = window_to_grid(window, self.d, self.tw)
+            if getattr(self.model, "unstructured", False):
+                out = self.model(grid, self.grid_vars(variables), self.spec.x)
+            else:
+                out = self.model(grid, self.grid_vars(variables))
             return grid_to_window(out, self.d, self.tw), None
         spec = self.spec
         pos_x = spec.x.expand(window.shape[0], spec.nx)

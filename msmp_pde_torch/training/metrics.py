@@ -14,8 +14,10 @@ a short last batch weighs as much as a full one. The L2 norms are the
 mean over samples (the JAX package raises where a short last batch
 follows full ones; wherever it returns, the two agree).
 
-The RPU metrics (``compute_l2_norms_u``, ``interp_rollout_to_unstructured``)
-come with the interpolation modules (ROADMAP.md Queue 1 item 12).
+RPU's interpolated route (``compute_l2_norms_u``,
+``interp_rollout_to_unstructured``): a model rolled out on the uniform
+grid of the interpolated files is measured on the unstructured grid, its
+predictions interpolated back (ops/interp.py::interp1d).
 """
 from __future__ import annotations
 
@@ -178,6 +180,43 @@ def l2_norms_from_store(preds: np.ndarray, trues: np.ndarray,
     log(f"L2 error {l}")
     log(f"L2 relative error {100 * l / m} %")
     return l, l / m
+
+
+def interp_rollout_to_unstructured(preds, x_uniform, x_unstructured,
+                                   device):
+    """Rollout predictions [N, T, d, nx_u] on the uniform grid
+    ``x_uniform`` interpolated onto ``x_unstructured`` [nx_r] (edges
+    clamped), on ``device``; numpy [N, T, d, nx_r] in the predictions'
+    dtype."""
+    from msmp_pde_torch.ops.interp import interp1d
+
+    preds = np.asarray(preds)
+    flat = torch.as_tensor(preds.reshape(-1, preds.shape[-1]), device=device)
+    xu = torch.as_tensor(np.asarray(x_uniform), device=device)
+    xr = torch.as_tensor(np.asarray(x_unstructured), device=device)
+    onto = interp1d(xu[None], flat, xr[None])
+    return onto.cpu().numpy().reshape(preds.shape[:-1] + (xr.shape[0],))
+
+
+def compute_l2_norms_u(trainer, u_uniform, var_all, u_unstructured,
+                       x_uniform, x_unstructured, batch_size: int,
+                       nr_gt_steps: int, t_res: int, log=print, preds=None):
+    """RPU's like-for-like metric: the rollout on the uniform-grid
+    (interpolated) data ``u_uniform``, each prediction interpolated back
+    onto the unstructured grid, against the unstructured ground truth
+    ``u_unstructured`` [N, nt, d, nx_r] over the same steps; the
+    space-time L2 and relative L2 as ``l2_norms_from_store`` reduces them
+    (numpy, the predictions' dtype). ``preds``: the horizon's rollout
+    store [N, T, d, nx_u] where the caller holds it already."""
+    if preds is None:
+        preds, _ = rollout_store(trainer, u_uniform, var_all, batch_size,
+                                 nr_gt_steps, t_res)
+    T = preds.shape[1]
+    start = trainer.tw * nr_gt_steps
+    trues = np.asarray(u_unstructured)[:, start:start + T]
+    preds_u = interp_rollout_to_unstructured(preds, x_uniform,
+                                             x_unstructured, trainer.device)
+    return l2_norms_from_store(preds_u, trues, log=log)
 
 
 def compute_l2_norms(trainer, u_all, var_all, batch_size: int,

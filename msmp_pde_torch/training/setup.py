@@ -1,10 +1,13 @@
 """Experiment -> PDE, equation-variable norms, datasets, grid and the
-model's trainer (counterpart of msmp_pde_tpu/training/setup.py). The CE
+model's trainer (counterpart of msmp_pde_tpu/training/setup.py): the CE
 family (E1-E3, kdv), the wave equation (WE1-3, on the data's Chebyshev
 grid), KF, KS and the advection system on its uniform grid (RP, MSWG,
-MSWG3) are ported; RPU is not. ``build_trainer`` serves training and
-serving, on the uniform grid or on a dataset's; ``setup_experiment``
-reads the datasets the train CLI needs."""
+MSWG3) and on the unstructured LCG grid (RPU). ``build_trainer`` serves
+training and serving, on the uniform grid or on a dataset's;
+``setup_experiment`` reads the datasets the train CLI needs. A
+``data_suffix`` (the interpolated ``_I`` files of data/interpolate.py)
+puts RPU on the uniform grid, as the JAX package's ``setup_experiment``
+and ``build_serving_trainer`` do."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +19,7 @@ import numpy as np
 from msmp_pde_torch.equations import AD, CE, KF, KS, WE
 
 # the advection experiments' horizon; L is 2 pi for MSWG and MSWG3
-AD_TMAX = {"RP": 4.0, "MSWG": 3.0, "MSWG3": 1.0}
+AD_TMAX = {"RP": 4.0, "RPU": 4.0, "MSWG": 3.0, "MSWG3": 1.0}
 
 
 def pde_for_experiment(experiment: str, base_resolution):
@@ -31,12 +34,9 @@ def pde_for_experiment(experiment: str, base_resolution):
         if not (nt in (250, 500) and nx in (100, 50, 40)):
             raise ValueError(f"{experiment} runs at nt in (250, 500), nx in "
                              f"(100, 50, 40); got {base_resolution}")
-        L = 16.0 if experiment == "RP" else 2 * np.pi
-        return AD(tmax=AD_TMAX[experiment], grid_size=(nt, nx), L=L)
-    if experiment == "RPU":
-        raise NotImplementedError(
-            "RPU (the LCG grid, its k-NN graph) is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+        L = 16.0 if experiment in ("RP", "RPU") else 2 * np.pi
+        return AD(tmax=AD_TMAX[experiment], grid_size=(nt, nx), L=L,
+                  unstructured_grid=experiment == "RPU")
     if experiment in ("WE1", "WE2", "WE3"):
         if not (nt == 250 and nx in (100, 50, 40, 20)):
             raise ValueError(f"{experiment} runs at nt=250, nx in "
@@ -141,13 +141,15 @@ def build_trainer(experiment: str, model: str, *,
                   base_resolution=(250, 100), neighbors: int = 3,
                   time_window: int = 25, n_graph_layers: int = 6,
                   mp_precision: str = "float32", device=None,
-                  seed: int = 0, grid=None, parameter_ablation: bool = False):
+                  seed: int = 0, grid=None, parameter_ablation: bool = False,
+                  data_suffix: str = ""):
     """The ``Trainer`` of ``model`` on ``experiment``'s uniform grid, or on
     ``grid`` (a ``PDEDataset`` or ``GridInfo``), with weights random from
     ``seed``: a graph model, or a grid model with the experiment's
     equation variables and the grid's positions (VNO's transform), as
-    msmp_pde_tpu/training/setup.py:134-146 builds it. ``device`` defaults
-    to CUDA and raises without it."""
+    msmp_pde_tpu/training/setup.py:134-146 builds it. A ``data_suffix``
+    (the ``_I`` files) takes RPU's graph as the uniform grid's radius
+    stencil. ``device`` defaults to CUDA and raises without it."""
     from msmp_pde_torch.data.graph import build_graph_spec
     from msmp_pde_torch.device import resolve_device
     from msmp_pde_torch.models.registry import get_model
@@ -159,6 +161,8 @@ def build_trainer(experiment: str, model: str, *,
             f"mp_precision={mp_precision!r} is not ported yet (ROADMAP.md "
             "Queue 2 item 7)")
     pde = pde_for_experiment(experiment, tuple(base_resolution))
+    if data_suffix:
+        pde.unstructured_grid = False
     eq_norms = eq_variable_norms(experiment, parameter_ablation)
     if grid is None:
         grid = uniform_grid(pde, tuple(base_resolution))
@@ -194,6 +198,8 @@ def setup_experiment(args, modes=("train", "valid", "test"),
     ablation = getattr(args, "parameter_ablation", False)
     fam = data_family(args.experiment)
     suffix = getattr(args, "data_suffix", "")
+    if suffix:
+        pde.unstructured_grid = False
     datasets = {
         m: PDEDataset(resolve_data_path(data_dir, fam, args.experiment,
                                         suffix, m),
@@ -207,5 +213,6 @@ def setup_experiment(args, modes=("train", "valid", "test"),
         n_graph_layers=args.n_graph_layers,
         mp_precision=getattr(args, "mp_precision", "float32"),
         device=getattr(args, "device", None), seed=args.seed,
-        grid=datasets[modes[0]], parameter_ablation=ablation)
+        grid=datasets[modes[0]], parameter_ablation=ablation,
+        data_suffix=suffix)
     return Experiment(pde=pde, datasets=datasets, trainer=trainer)

@@ -15,7 +15,7 @@ against the JAX package, float64.
   ``.npz`` and the ``.h5`` against the JAX ``PDEDataset`` on the ``.h5``:
   equal arrays;
 * the experiments' PDEs and the served grid against the JAX package's;
-  RPU raises.
+  RPU's PDE and its LCG grids in the generate CLI.
 """
 import jax
 import jax.numpy as jnp
@@ -225,8 +225,21 @@ def test_experiment_pde_matches_jax(experiment):
 
 
 def test_rpu_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        setup.pde_for_experiment("RPU", (250, 100))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _generate(tmp_path, "RPU")
-    assert not list(tmp_path.iterdir())
+    """RPU no longer raises: its PDE is the JAX package's (RP's, on the
+    unstructured grid, which no dataset-free grid serves), and the
+    generate CLI writes it on the LCG grids (tests/test_torch_rpu.py holds
+    the rest)."""
+    for res in ((250, 100), (500, 40)):
+        got = setup.pde_for_experiment("RPU", res)
+        want = jsetup.pde_for_experiment("RPU", res)
+        assert got.unstructured_grid and want.unstructured_grid
+        assert (got.tmax, got.L, got.grid_size, got.dt, got.dx) == (
+            want.tmax, want.L, want.grid_size, want.dt, want.dx)
+    with pytest.raises(ValueError, match="data-defined"):
+        setup.uniform_grid(got, (250, 100))
+    _generate(tmp_path, "RPU")
+    with hdf5_io.open_dataset(str(tmp_path / "AD_RPU.npz")) as z:
+        for nt, nx in generate.RES_AD:
+            np.testing.assert_array_equal(
+                z.attrs(f"train/pde_{nt}-{nx}")["x"],
+                jics.pseudo_random_grid(0.0, 16.0, nx))

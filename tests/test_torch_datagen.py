@@ -14,7 +14,8 @@ JAX package, float64.
   equal arrays;
 * ``_avg_downproject`` bitwise against the JAX package's numpy path;
 * ``sum_of_sines`` at rtol = atol = 1e-12, the sine parameters'
-  distributions, and the entry points' device rule.
+  distributions, and the entry points' device rule (and that RPU
+  generates).
 """
 import os
 
@@ -177,9 +178,16 @@ def test_generate_device_rule_and_families(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             generate.main(args)
-    for e, err, match in (("RPU", NotImplementedError, "item 7"),
-                          ("nope", ValueError, "unknown experiment")):
-        args.experiment = e
-        with pytest.raises(err, match=match):
-            generate.main(args)
+    args.experiment = "nope"
+    with pytest.raises(ValueError, match="unknown experiment"):
+        generate.main(args)
     assert not os.listdir(tmp_path)
+    # RPU is a family of its own now: it writes AD_RPU on its LCG grid
+    args = generate.build_parser().parse_args(
+        ["--experiment=RPU", "--train_samples=1", "--valid_samples=1",
+         "--test_samples=1", "--device=cpu", f"--data_dir={tmp_path}"])
+    generate.main(args)
+    with hdf5_io.open_dataset(str(tmp_path / "AD_RPU.npz")) as z:
+        np.testing.assert_array_equal(
+            z.attrs("test/pde_250-100")["x"],
+            ics.pseudo_random_grid(0.0, 16.0, 100))

@@ -1,5 +1,6 @@
-"""PyTorch port, the seven grid models (models/cnn.py, models/fno.py:
-BaseCNN, FNO, FNOP, VNO, BaseCNN2D, FNO2D, FNO2DP) against the JAX modules
+"""PyTorch port, the eight grid models (models/cnn.py, models/fno.py:
+BaseCNN, FNO, FNOP, VNO, BaseCNN2D, FNO2D, FNO2DP, FNO2DPU on RPU's LCG
+grid) against the JAX modules
 built by the JAX registry, on the same flax tree carried across by
 ``params_from_flax``: nx 40 (16 modes need nx // 2 + 1 >= 16), tw 25, batch
 2, float64 (JAX in x64, tests/conftest.py).
@@ -11,9 +12,9 @@ built by the JAX registry, on the same flax tree carried across by
   leaves (VNO's transform and the grid channel are not parameters);
 * VNO's transform rounded through float32 as the JAX module rounds it,
   also at random sorted positions;
-* BaseCNN2D's hidden width is 128 whatever ``hidden`` says; FNO2DPU
-  raises; the registry builds 26 of the 27 names; the full-width parameter
-  counts of the JAX modules (nx 100).
+* BaseCNN2D's hidden width is 128 whatever ``hidden`` says; the
+  registry builds all 27 names; the full-width parameter counts of the
+  JAX modules (nx 100; FNO2DPU's resampling holds no parameter).
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from msmp_pde_tpu.models.registry import get_model as jget_model
+from msmp_pde_torch.datagen.ics import pseudo_random_grid
 from msmp_pde_torch.models.registry import (
     GRID,
     MODEL_REGISTRY,
@@ -36,14 +38,20 @@ NX, B, TW, L, TMAX = 40, 2, 25, 16.0, 4.0
 DT = TMAX / 249
 # the experiments' equation variables: E3's for FNOP, RP's for the 2-D
 EQ = {"FNOP": ("alpha", "beta", "gamma"), "FNO2DP": ("a", "b"),
-      "BaseCNN2D": ("a", "b"), "FNO2D": ("a", "b")}
-TWO_D = ("BaseCNN2D", "FNO2D", "FNO2DP")
+      "FNO2DPU": ("a", "b"), "BaseCNN2D": ("a", "b"), "FNO2D": ("a", "b")}
+TWO_D = ("BaseCNN2D", "FNO2D", "FNO2DP", "FNO2DPU")
+VAR_MODELS = ("FNOP", "FNO2DP", "FNO2DPU")  # the Param variants
 pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _positions(rng=None):
-    if rng is None:
+    """The grid: uniform, sorted random points from ``rng``, or with
+    ``rng`` = "FNO2DPU" RPU's LCG grid (float32, as the dataset holds
+    it), the one FNO2DPU resamples from."""
+    if rng is None or isinstance(rng, str) and rng != "FNO2DPU":
         return np.linspace(0.0, L, NX).astype(np.float32)
+    if isinstance(rng, str):
+        return pseudo_random_grid(0.0, L, NX).astype(np.float32)
     return np.sort(rng.uniform(0.0, L, NX)).astype(np.float32)
 
 
@@ -57,8 +65,10 @@ def _jax_model(name, positions, nx=NX):
                          dt=DT, eq_var_names=eq, positions=positions)
     assert kind == "grid"
     args = [jnp.zeros(_shape(name, nx=nx), jnp.float32)]
-    if name in ("FNOP", "FNO2DP"):
+    if name in VAR_MODELS:
         args.append(jnp.zeros((B, len(eq)), jnp.float32))
+    if name == "FNO2DPU":
+        args.append(jnp.asarray(positions))
     return m, np_tree(m.init(jax.random.PRNGKey(0), *args))
 
 
@@ -77,17 +87,23 @@ def _port_model(name, positions, params=None, hidden=128):
 def _inputs(name, rng):
     u = rng.normal(size=_shape(name))
     var = (rng.uniform(0.1, 1.0, (B, len(EQ[name])))
-           if name in ("FNOP", "FNO2DP") else None)
+           if name in VAR_MODELS else None)
     return u, var
 
 
-def _apply_jax(jm, params, u, var):
+def _apply_jax(jm, params, u, var, x=None):
     args = [jnp.asarray(u)] + ([] if var is None else [jnp.asarray(var)])
-    return jm.apply(params, *args)
+    return jm.apply(params, *args, *([] if x is None else [jnp.asarray(x)]))
 
 
-def _apply_port(m, u, var):
-    return m(tt(u), None if var is None else tt(var))
+def _apply_port(m, u, var, x=None):
+    return m(tt(u), None if var is None else tt(var),
+             *([] if x is None else [torch.as_tensor(x)]))
+
+
+def _grid_of(name):
+    """The unstructured model's coordinates, None for the others."""
+    return _positions(name) if name == "FNO2DPU" else None
 
 
 def _leaves(tree, prefix=()):
@@ -100,13 +116,13 @@ def _leaves(tree, prefix=()):
 
 @pytest.mark.parametrize("name", GRID)
 def test_forward_matches_jax(name):
-    pos = _positions()
+    pos = _positions(name)
     jm, params = _jax_model(name, pos)
     m = _port_model(name, pos, params)
     u, var = _inputs(name, np.random.default_rng(1))
-    want = np.asarray(_apply_jax(jm, params, u, var))
+    want = np.asarray(_apply_jax(jm, params, u, var, _grid_of(name)))
     with torch.no_grad():
-        got = _apply_port(m, u, var).numpy()
+        got = _apply_port(m, u, var, _grid_of(name)).numpy()
     assert got.shape == _shape(name) == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10)
 
@@ -115,16 +131,17 @@ def test_forward_matches_jax(name):
 def test_gradients_match_jax(name):
     """The gradient of sum(out * r) for every leaf: 1e-9 of the leaf's
     largest entry."""
-    pos = _positions()
+    pos = _positions(name)
+    x = _grid_of(name)
     jm, params = _jax_model(name, pos)
     m = _port_model(name, pos, params)
     rng = np.random.default_rng(2)
     u, var = _inputs(name, rng)
     r = rng.normal(size=_shape(name))
-    want = jax.grad(lambda p: jnp.sum(_apply_jax(jm, p, u, var) * r))(
+    want = jax.grad(lambda p: jnp.sum(_apply_jax(jm, p, u, var, x) * r))(
         jax.tree_util.tree_map(jnp.asarray, params))
     want = dict(_leaves(jax.device_get(want)["params"]))
-    loss = torch.sum(_apply_port(m, u, var) * tt(r))
+    loss = torch.sum(_apply_port(m, u, var, x) * tt(r))
     named = list(m.named_parameters())
     grads = torch.autograd.grad(loss, [p for _, p in named])
     assert {n for n, _ in named} == set(want)
@@ -140,7 +157,7 @@ def test_state_dict_is_the_flax_leaves(name, tmp_path):
     ``.npz`` round trip of the spectral weights' trailing pair axis."""
     from msmp_pde_torch.utils.convert import load_npz, save_npz
 
-    pos = _positions()
+    pos = _positions(name)
     _, params = _jax_model(name, pos)
     m = _port_model(name, pos, params)
     flax = dict(_leaves(params["params"]))
@@ -190,19 +207,23 @@ def test_basecnn2d_hidden_is_128():
 
 
 def test_fno2dpu_raises_and_the_registry_builds_the_rest():
-    with pytest.raises(NotImplementedError, match="items 7 and 12"):
-        get_model("FNO2DPU", tw=TW, n_eq_vars=2, L=L, tmax=TMAX, dt=DT,
-                  eq_var_names=("a", "b"))
-    built = [n for n in MODEL_REGISTRY if n != "FNO2DPU"]
-    assert sorted(built) == sorted(PORTED) and len(built) == 26
-    for name in GRID:
-        _port_model(name, _positions())
+    """FNO2DPU no longer raises: the registry builds all 27 names."""
+    m = _port_model("FNO2DPU", _positions("FNO2DPU"))
+    assert m.unstructured and m.n_vars == 2
+    assert sorted(MODEL_REGISTRY) == sorted(PORTED)
+    assert len(set(MODEL_REGISTRY)) == 27
+    for name in MODEL_REGISTRY:
+        eq = EQ.get(name, ("a", "b") if "2D" in name else ())
+        _, kind = get_model(name, tw=TW, n_eq_vars=len(eq), L=L, tmax=TMAX,
+                            dt=DT, eq_var_names=eq, n_layers=1,
+                            positions=_positions(name))
+        assert kind == ("grid" if name in GRID else "graph")
 
 
 @pytest.mark.parametrize("name,count", [
     ("BaseCNN", 69905), ("BaseCNN2D", 667570), ("FNO", 554201),
     ("VNO", 554201), ("FNOP", 554393), ("FNO2D", 2192818),
-    ("FNO2DP", 2193074)])
+    ("FNO2DP", 2193074), ("FNO2DPU", 2193074)])
 def test_full_width_parameter_counts(name, count):
     """At nx 100, tw 25 (FNOP with E3's three variables, the 2-D models
     with a and b), the JAX modules' counts."""

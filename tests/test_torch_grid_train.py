@@ -7,7 +7,8 @@ engine and the metrics (training/loop.py: ``window_to_grid``,
 * the grid variables on E3 (norms 3.0 / 0.4 / 1.0) and RP (b differs from
   a, and b stays b): exact;
 * a training step's loss and every gradient at unrolled 0 and 1, BaseCNN
-  on E1's spec and FNO2DP on RP's (nx 40, nt 100, batch 2), the port's
+  on E1's spec, FNO2DP on RP's and FNO2DPU on RPU's LCG grid (nx 40, nt
+  100, batch 2), the port's
   ``Trainer.step_loss`` against the JAX ``_one_step`` with SGD at rate R =
   2^20, grad = (p - p') / R (``test_torch_model_variants.py``): 1e-8;
 * the engine's rollout of FNO on E1's uniform grid at nx 40 against the
@@ -33,6 +34,7 @@ from msmp_pde_tpu.data.graph import build_neighbors_radius
 from msmp_pde_tpu.models.registry import get_model as jget_model
 from msmp_pde_tpu.training import loop as jloop
 from msmp_pde_torch.data.graph import GraphSpec, advance_windows
+from msmp_pde_torch.datagen.ics import pseudo_random_grid
 from msmp_pde_torch.models.registry import get_model
 from msmp_pde_torch.training import loop
 from msmp_pde_torch.utils.convert import params_from_flax
@@ -42,20 +44,28 @@ from _torch_helpers import np_tree, one_thread, tt  # noqa: F401
 NX, B, TW, NT, L, TMAX = 40, 2, 25, 100, 16.0, 4.0
 DT = TMAX / (NT - 1)
 NORMS = {"E1": {}, "E3": {"alpha": 3.0, "beta": 0.4, "gamma": 1.0},
-         "RP": {"a": 1.0, "b": 1.0}}
+         "RP": {"a": 1.0, "b": 1.0}, "RPU": {"a": 1.0, "b": 1.0}}
 pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _d(experiment):
-    return 2 if experiment == "RP" else 1
+    return 2 if experiment in ("RP", "RPU") else 1
+
+
+def _x(experiment):
+    """The grid: uniform, or RPU's LCG grid (float32, as its dataset
+    holds it), which FNO2DPU resamples from."""
+    if experiment == "RPU":
+        return pseudo_random_grid(0.0, L, NX).astype(np.float32)
+    return np.linspace(0.0, L, NX)
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_side(name, experiment):
     """(JAX trainer, its float64 params) of ``name`` on ``experiment``'s
-    uniform grid at nx 40, nt 100."""
-    x = np.linspace(0.0, L, NX)
-    idx, mask = build_neighbors_radius(x, 3)
+    grid at nx 40, nt 100."""
+    x = _x(experiment)
+    idx, mask = build_neighbors_radius(np.linspace(0.0, L, NX), 3)
     eq = NORMS[experiment]
     jm, kind = jget_model(name, tw=TW, n_eq_vars=len(eq), L=L, tmax=TMAX,
                           dt=DT, eq_var_names=tuple(eq),
@@ -70,13 +80,14 @@ def _jax_side(name, experiment):
 
 def _models(name, experiment):
     jtr, params = _jax_side(name, experiment)
-    x = np.linspace(0.0, L, NX)
-    idx, mask = build_neighbors_radius(x, 3)
+    x = _x(experiment)
+    idx, mask = build_neighbors_radius(np.linspace(0.0, L, NX), 3)
     eq = NORMS[experiment]
     m, kind = get_model(name, tw=TW, n_eq_vars=len(eq), L=L, tmax=TMAX,
                         dt=DT, eq_var_names=tuple(eq),
                         positions=x.astype(np.float32))
-    spec = GraphSpec(idx=torch.as_tensor(idx), mask=tt(mask), x=tt(x),
+    spec = GraphSpec(idx=torch.as_tensor(idx), mask=tt(mask),
+                     x=torch.as_tensor(x),
                      t_grid=tt(np.linspace(0.0, TMAX, NT)), tw=TW,
                      n_components=_d(experiment), L=L, tmax=TMAX, dt=DT)
     trainer = loop.Trainer(model=m.double(), kind=kind, spec=spec,
@@ -86,14 +97,14 @@ def _models(name, experiment):
 
 
 def _variables(experiment, rng, n):
-    if experiment == "RP":
+    if experiment in ("RP", "RPU"):
         return {"a": rng.uniform(0.1, 1.0, n), "b": rng.uniform(1.0, 10.0, n)}
     return {k: rng.uniform(0.1, 1.0, n) * v
             for k, v in NORMS[experiment].items()}
 
 
 def _traj(experiment, rng, n):
-    shape = (n, NT, 2, NX) if experiment == "RP" else (n, NT, NX)
+    shape = (n, NT, 2, NX) if _d(experiment) == 2 else (n, NT, NX)
     return rng.normal(size=shape) * 0.5
 
 
@@ -138,7 +149,8 @@ def _leaf(tree, name):
 
 @pytest.mark.parametrize("unrolled", [0, 1])
 @pytest.mark.parametrize("name,experiment", [("BaseCNN", "E1"),
-                                             ("FNO2DP", "RP")])
+                                             ("FNO2DP", "RP"),
+                                             ("FNO2DPU", "RPU")])
 def test_step_matches_jax(name, experiment, unrolled):
     jtr, params, trainer = _models(name, experiment)
     rng = np.random.default_rng(10 + unrolled)

@@ -11,7 +11,8 @@ The graphs: E1's radius stencil, a radius stencil of 37 nodes, random
 targets with a third of the slots masked, the wave equation's k-NN graph
 (K = 3) of a Chebyshev grid of 100 (in-degrees 2 to 5), and a k-NN graph
 of 30 random points in the plane with a node of in-degree 0 (nobody's
-neighbour: an empty list) and one of in-degree 6 > K.
+neighbour: an empty list) and one of in-degree 6 > K, and RPU's k-NN
+graph (K = 3) of its LCG grid of 100 (in-degrees 0 to 6).
 """
 import numpy as np
 import pytest
@@ -20,7 +21,9 @@ import torch
 from msmp_pde_torch.data.graph import (
     build_neighbors_knn,
     build_neighbors_radius,
+    cylindrical_coords,
 )
+from msmp_pde_torch.datagen.ics import pseudo_random_grid
 from msmp_pde_torch.equations.we import cheb_grid_ascending
 from msmp_pde_torch.ops.mp_layer import inverse_neighbors
 
@@ -33,6 +36,13 @@ def _graph(kind):
     if kind == "knn_cheb":  # WE: K = 3 on the Chebyshev grid of 100
         x = cheb_grid_ascending(-8.0, 8.0, 100).astype(np.float32)
         return build_neighbors_knn(x.astype(np.float64), 3)
+    if kind == "knn_rpu":  # RPU: K = 3 on its LCG grid of 100
+        x = pseudo_random_grid(0.0, 16.0, 100).astype(np.float32)
+        idx, mask = build_neighbors_knn(
+            cylindrical_coords(x.astype(np.float64)), 3)
+        deg = np.bincount(idx.ravel(), minlength=100)
+        assert deg.min() == 0 and deg.max() == 6
+        return idx, mask
     if kind == "knn_plane":
         pts = np.random.default_rng(2).uniform(size=(30, 2))
         idx, mask = build_neighbors_knn(pts, 3)
@@ -46,7 +56,7 @@ def _graph(kind):
 
 
 @pytest.mark.parametrize("kind", ["e1_radius", "radius_37", "random_masked",
-                                  "knn_cheb", "knn_plane"])
+                                  "knn_cheb", "knn_plane", "knn_rpu"])
 def test_inverse_list_matches_the_scatter(kind):
     idx_np, mask_np = _graph(kind)
     nx, K = idx_np.shape

@@ -21,7 +21,12 @@ equation's cases (the ``_knn`` tests) run them on its k-NN graph, K = 3 on
 the Chebyshev grid of 100, where in-degrees range from 2 to 5 (the
 backward gathers ds_j through the inverse list), at D = 25 with V = 1 (t:
 WE1, WE2, KS) and V = 3 (t and WE3's bc_left, bc_right; KF's r, D), and
-the same tolerances; and the models' forward and step on WE3's grid.
+the same tolerances; and the models' forward and step on WE3's grid. RPU's
+cases (the ``_knn_rpu`` tests, selected by ``-k knn`` too) run them on its
+k-NN graph, K = 3 on the cylindrical coordinates of the LCG grid of 100,
+where in-degrees range from 0 to 6 (nodes that send no message: their
+inverse lists are empty), at the 2-D models' D = 50, V = 3; and
+MSMP-PDE2D's and MP-PDE2D's forward and step on RPU's grid.
 """
 import numpy as np
 import pytest
@@ -30,7 +35,9 @@ import torch
 from msmp_pde_torch.data.graph import (
     build_neighbors_knn,
     build_neighbors_radius,
+    cylindrical_coords,
 )
+from msmp_pde_torch.datagen.ics import pseudo_random_grid
 from msmp_pde_torch.equations.we import cheb_grid_ascending
 from msmp_pde_torch.models.gnn import GNNLayer
 from msmp_pde_torch.ops import lem_scan, mp_layer, mp_pair
@@ -275,11 +282,19 @@ def _knn_graph(nx=100):
     return build_neighbors_knn(x.astype(np.float64), 3)
 
 
+def _rpu_graph(nx=100):
+    """RPU's graph: K = 3 nearest neighbours on the cylindrical coordinates
+    of the LCG grid (float32 coordinates, as the dataset holds them)."""
+    x = pseudo_random_grid(0.0, 16.0, nx).astype(np.float32)
+    return build_neighbors_knn(cylindrical_coords(x.astype(np.float64)), 3)
+
+
 def _layer_args(dev, B, nx, H, V, n, switch, seed, D=25):
     """n: the radius stencil's neighbours a side, or "knn" for
-    ``_knn_graph``."""
+    ``_knn_graph``, "rpu" for ``_rpu_graph``."""
     rng = np.random.default_rng(seed)
-    idx, mask = (_knn_graph(nx) if n == "knn" else
+    graphs = {"knn": _knn_graph, "rpu": _rpu_graph}
+    idx, mask = (graphs[n](nx) if n in graphs else
                  build_neighbors_radius(np.linspace(0.0, 16.0, nx), n))
     g = torch.Generator().manual_seed(seed)
     W = tuple(w.detach() for w in GNNLayer(H, D, V, g, switch, switch)
@@ -695,6 +710,128 @@ def test_we3_model_kernel_path_matches_plain_path(cuda_device, name):
     loss_k = trainer.step_loss(u_all, var, idx, steps, 1)
     grads_k = torch.autograd.grad(loss_k, params)
     loss_p = trainer.step_loss(u_all, var, idx, steps, 1,
+                               forward=kernel_push(trainer))
+    grads_p = torch.autograd.grad(loss_p, params)
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    names = [n for n, _ in trainer.model.named_parameters()]
+    scales = grad_scales(zip(names, grads_p))
+    for pname, a, b in zip(names, grads_k, grads_p):
+        ok, err = scale_aware(a, b, scales[pname])
+        assert ok, (pname, err, scales[pname])
+
+
+# RPU's shapes: K = 3 k-NN on the LCG grid of 100 (in-degrees 0 to 6), the
+# 2-D models' D = 50, V = 3
+KNN_RPU_PAIR_CASES = [(1, 128), (16, 128), (48, 128), (16, 164)]
+
+
+def test_knn_rpu_graph_has_nodes_of_in_degree_zero():
+    idx, mask = _rpu_graph()
+    deg = np.bincount(idx.ravel(), minlength=100)
+    assert idx.shape == (100, 3) and (mask == 1).all()
+    assert deg.min() == 0 and deg.max() == 6
+
+
+@pytest.mark.parametrize("B,H", KNN_RPU_PAIR_CASES)
+def test_pair_kernels_knn_rpu_match_plain(cuda_device, B, H):
+    """The pair's forward and fused backward on RPU's graph, each bitwise
+    repeatable."""
+    args = _layer_args(cuda_device, B, 100, H, 3, "rpu", False, 940 + B,
+                       D=50)
+    Wl = _layer_args(cuda_device, B, 100, H, 3, "rpu", False, 950 + B,
+                     D=50)[-1]
+    args = args + (Wl,)
+    with torch.no_grad():
+        got = mp_pair.fused_gated_pair_kernel(*args)
+        assert torch.equal(got, mp_pair.fused_gated_pair_kernel(*args))
+        want = mp_pair.fused_gated_pair_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    g = _rand(np.random.default_rng(B), cuda_device, *got.shape)
+    flat = lambda res: [res[0], *res[1], *res[2]]
+    k1 = flat(mp_pair.fused_gated_pair_bwd_kernel(*args, g))
+    k2 = flat(mp_pair.fused_gated_pair_bwd_kernel(*args, g))
+    p = flat(mp_pair.fused_gated_pair_bwd_plain(*args, g))
+    for k, (a, b, c) in enumerate(zip(k1, k2, p)):
+        assert torch.equal(a, b), k
+        scale = p[k - 1].abs().max().item() if k % 12 == 0 and k else None
+        assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
+
+
+def test_pair_stash_knn_rpu_at_batch_48(cuda_device):
+    """The stash variant on RPU's graph: out bitwise the variant's without
+    it, gn and ln against the plain layers."""
+    args = _layer_args(cuda_device, 48, 100, 128, 3, "rpu", False, 960,
+                       D=50)
+    Wl = _layer_args(cuda_device, 48, 100, 128, 3, "rpu", False, 961,
+                     D=50)[-1]
+    args = args + (Wl,)
+    out, gn, ln = mp_pair.fused_gated_pair_kernel(*args, stash=True)
+    assert torch.equal(out, mp_pair.fused_gated_pair_kernel(*args))
+    for got, W in ((gn, args[6]), (ln, args[7])):
+        torch.testing.assert_close(
+            got, mp_layer.fused_mp_layer_plain(*args[:6], W), rtol=1e-4,
+            atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 16, 48])
+@pytest.mark.parametrize("switch", [True, False])
+def test_layer_kernels_knn_rpu_match_plain(cuda_device, B, switch):
+    """Both switch settings on RPU's graph, forward and backward."""
+    args = _layer_args(cuda_device, B, 100, 128, 3, "rpu", switch, 970 + B,
+                       D=50)
+    got = mp_layer.fused_mp_layer_kernel(*args, switch, switch)
+    assert torch.equal(got, mp_layer.fused_mp_layer_kernel(*args, switch,
+                                                           switch))
+    want = mp_layer.fused_mp_layer_plain(*args, switch, switch)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    g = _rand(np.random.default_rng(B), cuda_device, *got.shape)
+    flat = lambda res: [res[0], *res[1]]
+    k1 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
+    k2 = flat(mp_layer.fused_mp_layer_bwd_kernel(*args, g, switch, switch))
+    p = flat(mp_layer.fused_mp_layer_bwd_plain(*args, g, switch, switch))
+    for k, (a, b, c) in enumerate(zip(k1, k2, p)):
+        assert torch.equal(a, b), k
+        scale = p[11].abs().max().item() if k == 12 and not switch else None
+        assert scale_aware(a, c, scale)[0], (k, scale_aware(a, c, scale))
+
+
+@pytest.mark.parametrize("name", ["MSMP-PDE2D", "MP-PDE2D"])
+def test_rpu_model_kernel_path_matches_plain_path_knn_rpu(cuda_device, name):
+    """One forward on RPU's grid (the LCG grid of 100, its k-NN graph, V =
+    3) against the plain path at 5e-4, with the expected launches; and one
+    step at unrolled 1, the plain step from the kernel path's pushed
+    window: the loss and every gradient."""
+    from msmp_pde_torch.training.setup import GridInfo
+
+    x = pseudo_random_grid(0.0, 16.0, 100).astype(np.float32)
+    grid = GridInfo(x=x, nt=250, dt=4.0 / 249, tmin=0.0, tmax=4.0,
+                    n_components=2)
+    trainer = build_trainer("RPU", name, device=cuda_device, grid=grid)
+    np.testing.assert_array_equal(trainer.spec.idx.cpu().numpy(),
+                                  _rpu_graph()[0])
+    rng = np.random.default_rng(8)
+    var = lambda n: {k: torch.tensor(rng.uniform(lo, hi, n),
+                                     dtype=torch.float32, device=cuda_device)
+                     for k, lo, hi in (("a", 0.1, 1.0), ("b", 1.0, 10.0))}
+    window = _rand(rng, cuda_device, 4, 100, 50)
+    steps = torch.full((4,), 25, device=cuda_device)
+    v4 = var(4)
+    with torch.no_grad():
+        reset_counts()
+        got, _ = trainer.forward(window, steps, v4)
+        counts = launch_counts()
+        want, _ = plain_forward(trainer)(window, steps, v4)
+    assert counts == expected_launches(trainer.model, 1)
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+    params = list(trainer.model.parameters())
+    u_all = torch.tensor(rng.normal(size=(4, 250, 2, 100)),
+                         dtype=torch.float32, device=cuda_device)
+    v4 = var(4)
+    idx = torch.arange(4, device=cuda_device)
+    steps = torch.as_tensor(rng.integers(25, 201, 4), device=cuda_device)
+    loss_k = trainer.step_loss(u_all, v4, idx, steps, 1)
+    grads_k = torch.autograd.grad(loss_k, params)
+    loss_p = trainer.step_loss(u_all, v4, idx, steps, 1,
                                forward=kernel_push(trainer))
     grads_p = torch.autograd.grad(loss_p, params)
     assert abs(loss_k.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())

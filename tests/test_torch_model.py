@@ -112,5 +112,68 @@ def test_plain_impl_equals_default_on_cpu(V):
 
 @pytest.mark.parametrize("name", ["FNO2DPU"])
 def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(name, tw=TW, n_eq_vars=0, L=L, tmax=TMAX, dt=DT)
+    """The last unported name is ported: FNO2DPU through the trainer on
+    RPU's LCG grid (nx 40, float32 as the dataset holds it), the JAX
+    trainer's weights carried across by ``params_from_flax``, float64: the
+    forward and the gradients of a step's loss (sqrt of the summed squared
+    error on the next window) at 1e-10 (of each leaf's largest gradient
+    entry)."""
+    from msmp_pde_tpu.data.graph import GraphSpec as JSpec
+    from msmp_pde_tpu.models.registry import get_model as jget_model
+    from msmp_pde_tpu.training.loop import Trainer as JTrainer
+    from msmp_pde_torch.data.graph import GraphSpec
+    from msmp_pde_torch.datagen.ics import pseudo_random_grid
+    from msmp_pde_torch.training.loop import Trainer
+
+    x = pseudo_random_grid(0.0, L, NX).astype(np.float32)
+    eq = {"a": 1.0, "b": 1.0}
+    nt = 100
+    meta = dict(tw=TW, n_components=2, L=L, tmax=TMAX, dt=DT)
+    # a grid model reads no neighbour list
+    idx, mask = build_neighbors_radius(np.linspace(0.0, L, NX), 3)
+    jm, _ = jget_model(name, tw=TW, n_eq_vars=2, L=L, tmax=TMAX, dt=DT,
+                       eq_var_names=tuple(eq))
+    jtr = JTrainer(model=jm, kind="grid", spec=JSpec(
+        idx=jnp.asarray(idx), mask=jnp.asarray(mask), x=jnp.asarray(x),
+        t_grid=jnp.asarray(np.linspace(0.0, TMAX, nt)), **meta),
+        eq_norms=eq)
+    params = np_tree(jtr.init_params(jax.random.PRNGKey(4), B))
+    m, kind = get_model(name, tw=TW, n_eq_vars=2, L=L, tmax=TMAX, dt=DT,
+                        eq_var_names=tuple(eq))
+    m.load_state_dict(params_from_flax(params), strict=True)
+    spec = GraphSpec(idx=torch.as_tensor(idx), mask=tt(mask),
+                     x=torch.as_tensor(x),
+                     t_grid=tt(np.linspace(0.0, TMAX, nt)), **meta)
+    tr = Trainer(model=m.double(), kind=kind, spec=spec, eq_norms=eq)
+    rng = np.random.default_rng(6)
+    window = rng.normal(size=(B, NX, 2 * TW))
+    labels = rng.normal(size=(B, NX, 2 * TW))
+    steps = rng.integers(TW, nt - TW, size=B)
+    var = {"a": rng.uniform(0.1, 1.0, B), "b": rng.uniform(1.0, 10.0, B)}
+    jvar = {k: jnp.asarray(v) for k, v in var.items()}
+
+    def jloss(p):
+        pred, _ = jtr.forward(p, jnp.asarray(window), jnp.asarray(steps),
+                              jvar)
+        return jnp.sqrt(jnp.sum((pred - labels) ** 2)), pred
+
+    (want_loss, want), grads = jax.value_and_grad(jloss, has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    pred, state = tr.forward(tt(window), torch.as_tensor(steps),
+                             {k: tt(v) for k, v in var.items()})
+    assert state is None and pred.shape == (B, NX, 2 * TW)
+    np.testing.assert_allclose(pred.detach().numpy(), np.asarray(want),
+                               rtol=1e-10, atol=1e-10)
+    loss = torch.sqrt(torch.sum((pred - tt(labels)) ** 2))
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-12)
+    named = list(tr.model.named_parameters())
+    got = torch.autograd.grad(loss, [p for _, p in named])
+    flat = dict(jax.tree_util.tree_flatten_with_path(
+        jax.device_get(grads)["params"])[0])
+    flat = {".".join(k.key for k in path): v for path, v in flat.items()}
+    assert set(flat) == {n for n, _ in named}
+    for (pname, _), g in zip(named, got):
+        w = np.asarray(flat[pname])
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-10 * np.abs(w).max(),
+                                   err_msg=pname)

@@ -3,8 +3,9 @@
 ``GNNLayer`` on the same numpy inputs and weights, for both switch pairs
 (GNN_Layer: final swish and residual; GNN_LayerLin: neither), on a stencil
 graph with truncated boundary masks, on a kNN graph, as
-tests/test_mp_pallas.py:35-46 does for the JAX kernel, and on the wave
-equation's K = 3 kNN graph of a Chebyshev grid (unequal in-degrees).
+tests/test_mp_pallas.py:35-46 does for the JAX kernel, on the wave
+equation's K = 3 kNN graph of a Chebyshev grid (unequal in-degrees), and
+on RPU's K = 3 kNN graph of its LCG grid at nx 40 (nodes of in-degree 0).
 
 * against ``ega`` in interpret mode, which runs ``_fwd_kernel``: its
   products accumulate in float32 and ``edge_matrices`` is float32, so the
@@ -22,6 +23,7 @@ from msmp_pde_tpu.data.graph import (
     build_neighbors_radius,
     cylindrical_coords,
 )
+from msmp_pde_tpu.datagen.ics import pseudo_random_grid
 from msmp_pde_tpu.equations.we import cheb_grid_ascending
 from msmp_pde_tpu.models.gnn import GNNLayer as JLayer
 from msmp_pde_tpu.ops.mp_pallas import edge_matrices
@@ -31,9 +33,22 @@ from msmp_pde_torch.ops import mp_layer
 from _torch_helpers import np_tree, tt
 
 NX, B, H, DTW, V = 24, 3, 32, 10, 2
+RPU_NX = 40  # RPU's graph has nodes of in-degree 0 from nx 30 up
 SWITCHES = [(True, True), (False, False)]
 # the 2-D models' window and variables: D = 2 tw = 50, V = 3 (t, a, b)
 DTW_2D, V_2D = 50, 3
+
+
+def rpu_graph(nx):
+    """RPU's k-NN graph (K = 3) on the cylindrical coordinates of its LCG
+    grid, float32-rounded as the dataset holds it; at least one node has
+    in-degree 0 (an empty inverse list)."""
+    x = pseudo_random_grid(0.0, 16.0, nx).astype(np.float32)
+    idx, mask = build_neighbors_knn(cylindrical_coords(x.astype(np.float64)),
+                                    3)
+    deg = np.bincount(np.asarray(idx).ravel(), minlength=nx)
+    assert deg.min() == 0 and deg.max() > 3
+    return idx, mask
 
 
 def layer_case(graph, final_act, residual, seed, dtype, DTW=DTW, V=V):
@@ -41,20 +56,23 @@ def layer_case(graph, final_act, residual, seed, dtype, DTW=DTW, V=V):
     drawn in float32; the port's GNNLayer with the same weights), the
     window DTW wide with V variables."""
     rng = np.random.default_rng(seed)
-    x = np.linspace(0.0, 16.0, NX)
+    nx = RPU_NX if graph == "knn_rpu" else NX
+    x = np.linspace(0.0, 16.0, nx)
     if graph == "radius":
         idx, mask = build_neighbors_radius(x, 2)
         assert mask.min() == 0.0  # boundary truncation is exercised
     elif graph == "knn_cheb":  # the wave equation's graph, K = 3
         xc = cheb_grid_ascending(-8.0, 8.0, NX).astype(np.float32)
         idx, mask = build_neighbors_knn(xc.astype(np.float64), 3)
+    elif graph == "knn_rpu":  # RPU's graph: nodes of in-degree 0
+        idx, mask = rpu_graph(nx)
     else:
         idx, mask = build_neighbors_knn(cylindrical_coords(x), 3)
     idx, mask = np.asarray(idx), np.asarray(mask)
-    h = rng.normal(size=(B, NX, H))
-    u = rng.normal(size=(B, NX, DTW))
-    px = rng.uniform(size=(B, NX))
-    v = rng.normal(size=(B, NX, V))
+    h = rng.normal(size=(B, nx, H))
+    u = rng.normal(size=(B, nx, DTW))
+    px = rng.uniform(size=(B, nx))
+    v = rng.normal(size=(B, nx, V))
     layer = JLayer(hidden=H, final_act=final_act, residual=residual)
     f = lambda a: jnp.asarray(a, jnp.float32)
     p = layer.init(jax.random.PRNGKey(seed), f(h), f(u), f(px), f(v),
@@ -77,7 +95,7 @@ def _port(m, arrays, dtype):
     return got.numpy()
 
 
-@pytest.mark.parametrize("graph", ["radius", "knn", "knn_cheb"])
+@pytest.mark.parametrize("graph", ["radius", "knn", "knn_cheb", "knn_rpu"])
 @pytest.mark.parametrize("final_act,residual", SWITCHES)
 def test_layer_matches_pallas_interpret_f32(graph, final_act, residual):
     arrays, layer, p, m = layer_case(graph, final_act, residual, 1,
@@ -91,7 +109,7 @@ def test_layer_matches_pallas_interpret_f32(graph, final_act, residual):
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("graph", ["radius", "knn", "knn_cheb"])
+@pytest.mark.parametrize("graph", ["radius", "knn", "knn_cheb", "knn_rpu"])
 @pytest.mark.parametrize("final_act,residual", SWITCHES)
 def test_layer_matches_xla_f64(graph, final_act, residual):
     arrays, layer, p, m = layer_case(graph, final_act, residual, 2,

@@ -71,7 +71,8 @@ def _port_grads(m, arrays, g, dtype):
 
 @pytest.mark.parametrize("graph,final_act,residual",
                          [("radius", *s) for s in SWITCHES]
-                         + [("knn", True, True), ("knn_cheb", True, True)])
+                         + [("knn", True, True), ("knn_cheb", True, True),
+                            ("knn_rpu", True, True)])
 def test_layer_grads_match_pallas_interpret_f32(graph, final_act, residual):
     arrays, layer, p, m = layer_case(graph, final_act, residual, 10,
                                      torch.float32)
@@ -88,7 +89,7 @@ def test_layer_grads_match_pallas_interpret_f32(graph, final_act, residual):
                                        rtol=5e-4, atol=5e-5, err_msg=str(k))
 
 
-@pytest.mark.parametrize("graph", ["radius", "knn", "knn_cheb"])
+@pytest.mark.parametrize("graph", ["radius", "knn", "knn_cheb", "knn_rpu"])
 @pytest.mark.parametrize("final_act,residual", SWITCHES)
 def test_layer_grads_match_xla_f64(graph, final_act, residual):
     arrays, layer, p, m = layer_case(graph, final_act, residual, 20,

@@ -1,7 +1,8 @@
 """PyTorch port, the fused gated pair (ops/mp_pair.py) and the layer module
 (models/gnn.py::GNNLayer) against the JAX package on the same numpy inputs
 and weights, on a stencil graph whose boundary nodes have truncated masks
-and on the wave equation's k-NN graph (K = 3, unequal in-degrees).
+on the wave equation's k-NN graph (K = 3, unequal in-degrees) and on
+RPU's (nodes of in-degree 0).
 
 * against the XLA path (gate layer, main layer, combine; gnn.py:375-385)
   in float64: 1e-10, only summation order differs;
@@ -24,13 +25,16 @@ from msmp_pde_torch.models.gnn import GNNLayer
 from msmp_pde_torch.ops import mp_pair
 
 from _torch_helpers import np_tree, tt
+from test_torch_mp_layer import rpu_graph
 
 
 def _inputs(nx, B, H, dtw, V, n, seed):
     """n: the radius stencil's neighbours a side, or "knn<K>" for the wave
     equation's K-nearest-neighbour graph on its Chebyshev grid."""
     rng = np.random.default_rng(seed)
-    if isinstance(n, str):
+    if n == "knn_rpu":
+        idx, mask = rpu_graph(nx)
+    elif isinstance(n, str):
         x = cheb_grid_ascending(-8.0, 8.0, nx).astype(np.float32)
         idx, mask = build_neighbors_knn(x.astype(np.float64), int(n[3:]))
         deg = np.bincount(idx.ravel(), minlength=nx)
@@ -63,9 +67,10 @@ def _port_layer(p, H, dtw, V, dtype):
 
 # the third case has the 2-D models' window and variables: D = 2 tw = 50,
 # V = 3 (t, a, b); the fourth WE3's: the k-NN graph (K = 3) of a Chebyshev
-# grid, tw = 25, V = 3 (t, bc_left, bc_right)
+# grid, tw = 25, V = 3 (t, bc_left, bc_right); the fifth RPU's: its k-NN
+# graph on the LCG grid, with nodes of in-degree 0, D = 50, V = 3
 CASES = [(24, 3, 32, 10, 2, 2), (40, 2, 96, 25, 1, 3), (24, 2, 32, 50, 3, 3),
-         (24, 2, 32, 25, 3, "knn3")]
+         (24, 2, 32, 25, 3, "knn3"), (40, 2, 32, 50, 3, "knn_rpu")]
 
 
 @pytest.mark.parametrize("nx,B,H,dtw,V,n", CASES)
