@@ -165,9 +165,30 @@ Phases, each of which fails the run on error:
      interpolate CLI on the card (against the CPU's), fit --data_suffix
      _I of FNO2DP on the uniform grid (asserted, and served with the
      suffix), eval_interpolated's interp-back L2 and rel-L2 (equal to a
-     direct reduction of the interpolated-back rollout).
+     direct reduction of the interpolated-back rollout);
+ 27. the bf16 precision modes (mp_precision bfloat16 and bfloat16s): the
+     four message-passing kernels (and the stash at batch 48) in both
+     modes against their plain versions in the same mode at E1's shapes
+     (batches 1, 16, 48), hidden 164, D = 50 with V = 3 and RPU's k-NN
+     graph (nodes of in-degree 0), two runs bitwise equal, held three
+     ways (BF16_*): a forward's outputs by their distance over the plain
+     bf16-to-float32 distance, a backward's by the spread of four sound
+     plain versions, and every rounding site on the kernel's own operands
+     from its workspace; faults planted in the plain site functions must
+     fail their sites; each kernel timed in float32, bfloat16 and
+     bfloat16s in this call with its bound (every bf16 product at 989
+     TFLOP/s, the storage mode's 2-byte operands); fit of MSMP-PDE one
+     epoch on phase 17's data in each mode (every step's launches as
+     float32's) with a step held per gradient against the spread of the
+     plain steps from the same pushed window and every launch of the step
+     held site by site; the bf16 checkpoint served with --mp_precision
+     bfloat16s and phase 18's float32 checkpoint in bfloat16, each window
+     held against the plain path; MP-PDE's step (held as MSMP-PDE's) and
+     train_epoch in each mode; the forced-fallback step of MSMP-PDE at
+     batch 48 in each mode.
 
-Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs).
+Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs),
+the bf16 modes' against the plain versions in the same mode.
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -184,10 +205,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks: HBM bytes/s, float32 FLOP/s outside the tensor
-# cores, dense TF32 FLOP/s on them
+# cores, dense TF32 and dense bf16 FLOP/s on them
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
+BF16_FLOP_S = 989e12
 N_WINDOWS = 8
 BUCKETS = (1, 4, 16)
 TOL_LEM = 1e-5    # FMA order only
@@ -359,13 +381,15 @@ def timed_graph(fn, reps=20, rounds=11):
     return timed(graph.replay, reps=reps, rounds=rounds)
 
 
-def bound(nbytes, flops, tc_flops=0):
+def bound(nbytes, flops, tc_flops=0, bf16_flops=0):
     """The least time in ms for a kernel that moves ``nbytes`` and does
-    ``flops`` float32 operations on the CUDA cores and ``tc_flops`` in
-    3xTF32 on the tensor cores (three TF32 products for each), and which
-    of the two bounds it."""
+    ``flops`` float32 operations on the CUDA cores, ``tc_flops`` in 3xTF32
+    on the tensor cores (three TF32 products for each) and ``bf16_flops``
+    products of bf16 operands summed in float32, which the tensor cores run
+    at the dense bf16 rate, and which of the two bounds it."""
     t_mem = nbytes / HBM_BYTES_S
-    t_ops = flops / F32_FLOP_S + 3 * tc_flops / TF32_FLOP_S
+    t_ops = (flops / F32_FLOP_S + 3 * tc_flops / TF32_FLOP_S
+             + bf16_flops / BF16_FLOP_S)
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -374,10 +398,11 @@ def layer_ops(nx, H, D, V, e_valid):
     """(forward, edge product, backward) FLOP of one message-passing layer
     on one graph. Forward: the i side with mix (u w_du + px w_dx, counted
     once), the j side h w_hj, the edge product w2 over the valid edges, the
-    update w3 and w4. The edge products (w2; dw2 and dm1 in the backward)
-    run in 3xTF32 on the tensor cores (csrc/mp_phases.cuh), the rest as
-    float32 FMAs. Backward: dw4, da3, dw3, dh|dagg, dw2 and dm1 over the
-    valid edges, dh from ds_i|ds_j, dw_hi|dw_hj, dw_du|dw_dx|dw_v."""
+    update w3 and w4. In float32 the edge products (w2; dw2 and dm1 in the
+    backward) run in 3xTF32 on the tensor cores (csrc/mp_phases.cuh), the
+    rest as float32 FMAs. Only products are counted. Backward: dw4, da3,
+    dw3, dh|dagg, dw2 and dm1 over the valid edges, dh from ds_i|ds_j,
+    dw_hi|dw_hj, dw_du|dw_dx|dw_v."""
     edge = 2 * e_valid * H * H
     fwd = (2 * nx * (H + D + 1 + V) * H + 2 * nx * H * H
            + edge + 2 * nx * (2 * H + V) * H + 2 * nx * H * H)
@@ -388,24 +413,26 @@ def layer_ops(nx, H, D, V, e_valid):
     return fwd, edge, bwd
 
 
-def mp_calls(name):
-    """(kernel, plain version) of one message-passing kernel, each called
-    on the operands ``mp_bound`` reads: a pair's (h, u, px, v, idx, mask,
-    Wg, Wl[, g]), a single layer's (h, u, px, v, idx, mask, W[, g]) as
-    GNN_Layer (final_act and residual on)."""
+def mp_calls(name, mp_precision="float32"):
+    """(kernel, plain version) of one message-passing kernel in
+    ``mp_precision``, each called on the operands ``mp_bound`` reads: a
+    pair's (h, u, px, v, idx, mask, Wg, Wl[, g]), a single layer's (h, u,
+    px, v, idx, mask, W[, g]) as GNN_Layer (final_act and residual on)."""
     from functools import partial
 
     from msmp_pde_torch.ops import mp_layer, mp_pair
 
-    layer = lambda f: lambda *a: f(*a, True, True)  # noqa: E731
+    m = mp_precision
+    layer = lambda f: lambda *a, **k: f(*a, True, True, m, **k)  # noqa: E731
+    pair = lambda f, **k: partial(f, mp_precision=m, **k)  # noqa: E731
     return {
-        "mp_pair_fwd": (mp_pair.fused_gated_pair_kernel,
-                        mp_pair.fused_gated_pair_plain),
+        "mp_pair_fwd": (pair(mp_pair.fused_gated_pair_kernel),
+                        pair(mp_pair.fused_gated_pair_plain)),
         "mp_pair_fwd_stash": (
-            partial(mp_pair.fused_gated_pair_kernel, stash=True),
-            partial(mp_pair.fused_gated_pair_plain, stash=True)),
-        "mp_pair_bwd": (mp_pair.fused_gated_pair_bwd_kernel,
-                        mp_pair.fused_gated_pair_bwd_plain),
+            pair(mp_pair.fused_gated_pair_kernel, stash=True),
+            pair(mp_pair.fused_gated_pair_plain, stash=True)),
+        "mp_pair_bwd": (pair(mp_pair.fused_gated_pair_bwd_kernel),
+                        pair(mp_pair.fused_gated_pair_bwd_plain)),
         "mp_layer_fwd": (layer(mp_layer.fused_mp_layer_kernel),
                          layer(mp_layer.fused_mp_layer_plain)),
         "mp_layer_bwd": (layer(mp_layer.fused_mp_layer_bwd_kernel),
@@ -413,44 +440,59 @@ def mp_calls(name):
     }[name]
 
 
-def mp_bound(name, args):
+def mp_bound(name, args, mp_precision="float32"):
     """``bound`` of one message-passing kernel on ``args`` (``mp_calls``'s
-    operands), at any B, nx, H, D, V, K. Bytes: each input read once and
-    each output written once; a forward reads h, u, px, v, idx, mask and
-    the weights and writes h (the stash gn and ln too), a backward also
-    reads g and writes dh and the weights' gradients. Operations:
-    ``layer_ops`` per layer and graph, the edge products on the tensor
-    cores (three in a backward)."""
+    operands) in ``mp_precision``, at any B, nx, H, D, V, K. Bytes: each
+    input read once and each output written once; a forward reads h, u,
+    px, v, idx, mask and the weights and writes h (the stash gn and ln
+    too), a backward also reads g and writes dh and the weights' gradients;
+    the storage mode reads h, u, px, v and the weight matrices as 2-byte
+    bf16. Operations: ``layer_ops`` per layer and graph. In float32 the
+    edge products (three in a backward) in 3xTF32 on the tensor cores and
+    the rest on the CUDA cores; in the bf16 modes every product has bf16
+    operands and a float32 sum, all at the dense bf16 rate (``layer_ops``
+    counts only products)."""
     h, u, _, v, idx, mask = args[:6]
     B, nx, H = h.shape
     D, V, K = u.shape[-1], v.shape[-1], idx.shape[1]
     layers = 2 if name.startswith("mp_pair") else 1
-    w = sum(x.numel() for W in args[6:6 + layers] for x in W)
+    Ws = args[6:6 + layers]
+    w = sum(x.numel() for W in Ws for x in W)
+    w_bias = sum(W[i].numel() for W in Ws for i in (5, 7, 9, 11))
     fwd, edge, bwd = layer_ops(nx, H, D, V, float(mask.sum().item()))
     n = B * layers
+    in_b = 2 if mp_precision == "bfloat16s" else 4
+    ins = in_b * (B * nx * (H + D + 1 + V) + w - w_bias) + 4 * (
+        w_bias + 2 * nx * K)
+    bf16 = mp_precision != "float32"
+
+    def ops(f32, edges):
+        return (0, 0, f32 + edges) if bf16 else (f32, edges)
+
     if name.endswith("_bwd"):
-        return bound(4 * (B * nx * (3 * H + D + 1 + V) + 2 * nx * K + 2 * w),
-                     n * (fwd + bwd - 3 * edge), n * 3 * edge)
-    acts = 4 * H if name.endswith("_stash") else 2 * H
-    return bound(4 * (B * nx * (acts + D + 1 + V) + 2 * nx * K + w),
-                 n * (fwd - edge), n * edge)
+        return bound(ins + 4 * (2 * B * nx * H + w),
+                     *ops(n * (fwd + bwd - 3 * edge), n * 3 * edge))
+    outs = 3 * H if name.endswith("_stash") else H
+    return bound(ins + 4 * B * nx * outs, *ops(n * (fwd - edge), n * edge))
 
 
 def mp_kernel_times(cases):
-    """Each (kernel name, operands) of ``cases`` timed on the card: the
-    kernel, its plain version in a CUDA graph and eager, and ``mp_bound``;
-    printed, and returned in order as (ms, plain ms, eager ms, bound ms,
-    bound by)."""
+    """Each (kernel name, operands[, mp_precision]) of ``cases`` timed on
+    the card: the kernel, its plain version in a CUDA graph and eager, and
+    ``mp_bound``; printed, and returned in order as (ms, plain ms, eager
+    ms, bound ms, bound by)."""
     import torch
 
     out = []
     with torch.no_grad():
-        for name, args in cases:
-            kern, plain = mp_calls(name)
+        for name, args, *mode in cases:
+            mode = mode[0] if mode else "float32"
+            kern, plain = mp_calls(name, mode)
             r = (timed(lambda: kern(*args)), timed_graph(lambda: plain(*args)),
-                 timed(lambda: plain(*args)), *mp_bound(name, args))
+                 timed(lambda: plain(*args)), *mp_bound(name, args, mode))
             B, _, H = args[0].shape
-            print(f"{name} @D={args[1].shape[-1]} V={args[3].shape[-1]} "
+            tag = "" if mode == "float32" else f"@{BF16_TAGS[mode]}"
+            print(f"{name}{tag} @D={args[1].shape[-1]} V={args[3].shape[-1]} "
                   f"H={H} batch {B}: kernel {r[0]:.4f} ms, plain {r[1]:.4f} "
                   f"ms (CUDA graph; {r[2]:.4f} ms eager), bound {r[3]:.4f} "
                   f"ms ({r[4]})")
@@ -511,6 +553,51 @@ def flax_tree(model, seed):
     return tree
 
 
+def plain_functions():
+    """Autograd Functions of the message-passing layers on the plain
+    versions, forward and backward, on any device: (layer, pair), applied
+    as ``FusedMPLayer`` and ``FusedGatedPair`` are. In the bf16 modes the
+    plain path's step differentiates through them: autograd through the
+    plain forward would round the cotangents where the bf16 casts stand,
+    which the kernels' backward (mp_pallas.py::_layer_bwd_math) does not."""
+    import torch
+
+    from msmp_pde_torch.ops import mp_layer, mp_pair
+
+    class Layer(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h, u, px, v, idx, mask, final_act, residual, mode,
+                    *W):
+            ctx.save_for_backward(h, u, px, v, idx, mask, *W)
+            ctx.args = (final_act, residual, mode)
+            return mp_layer.fused_mp_layer_plain(h, u, px, v, idx, mask, W,
+                                                 final_act, residual, mode)
+
+        @staticmethod
+        def backward(ctx, g):
+            h, u, px, v, idx, mask, *W = ctx.saved_tensors
+            dh, dws = mp_layer.fused_mp_layer_bwd_plain(
+                h, u, px, v, idx, mask, W, g, *ctx.args)
+            return (dh,) + (None,) * 8 + tuple(dws)
+
+    class Pair(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h, u, px, v, idx, mask, mode, *W):
+            ctx.save_for_backward(h, u, px, v, idx, mask, *W)
+            ctx.mode = mode
+            return mp_pair.fused_gated_pair_plain(
+                h, u, px, v, idx, mask, W[:12], W[12:], mp_precision=mode)
+
+        @staticmethod
+        def backward(ctx, g):
+            h, u, px, v, idx, mask, *W = ctx.saved_tensors
+            dh, dwg, dwl = mp_pair.fused_gated_pair_bwd_plain(
+                h, u, px, v, idx, mask, W[:12], W[12:], g, ctx.mode)
+            return (dh,) + (None,) * 6 + tuple(dwg) + tuple(dwl)
+
+    return Layer, Pair
+
+
 def reference_apply(model, window, pos_x, var_vec, idx, mask,
                     lem_state=None):
     """MPSolver.forward written out through the plain versions of the
@@ -520,8 +607,9 @@ def reference_apply(model, window, pos_x, var_vec, idx, mask,
     pairs, gradient-gated layers, attention layers) and decoder (cnn, glu,
     diff_only, at d = 1 and 2), the twin towers and the LEM's state: the
     on-card reference of the kernel path. The recurrent encoders' step
-    inputs are the model's ``_sequence``. Returns (out, the LEM's new state
-    or None)."""
+    inputs are the model's ``_sequence``; the message-passing layers run
+    in the model's ``mp_precision``, in the bf16 modes through
+    ``plain_functions``. Returns (out, the LEM's new state or None)."""
     import torch
 
     from msmp_pde_torch.models.common import swish
@@ -561,21 +649,30 @@ def reference_apply(model, window, pos_x, var_vec, idx, mask,
                 state = (y.reshape(B, nx, H), z.reshape(B, nx, H))
         h = swish(model.lemout_2(swish(model.lemout_1(y.reshape(B, nx, H)))))
     args = (window, px_n, variables, idx, mask)
+    mode = model.mp_precision
+    mp_args = (window, px_n[..., None], variables, idx, mask)
+    if mode == "float32":
+        plain_layer = lambda m: fused_mp_layer_plain(  # noqa: E731
+            h, *mp_args, m.weights(), m.final_act, m.residual)
+        plain_pair = lambda g, m: fused_gated_pair_plain(  # noqa: E731
+            h, *mp_args, g.weights(), m.weights())
+    else:
+        Layer, Pair = plain_functions()
+        plain_layer = lambda m: Layer.apply(  # noqa: E731
+            h, *mp_args, m.final_act, m.residual, mode, *m.weights())
+        plain_pair = lambda g, m: Pair.apply(  # noqa: E731
+            h, *mp_args, mode, *g.weights(), *m.weights())
     for i in range(model.layers):
         layer = getattr(model, f"gnn_{i}")
         gate = getattr(model, f"gate_{i}", None)
         if model.layer_type == "gat":  # plain torch ops: no kernel
             apply = lambda m: m(h, *args)
         else:
-            apply = lambda m: fused_mp_layer_plain(
-                h, window, px_n[..., None], variables, idx, mask,
-                m.weights(), m.final_act, m.residual)
+            apply = plain_layer
         if gate is None:
             h = apply(layer)
         elif model.gate == "sigmoid" and model.layer_type == "mp":
-            h = fused_gated_pair_plain(
-                h, window, px_n[..., None], variables, idx, mask,
-                gate.weights(), layer.weights())
+            h = plain_pair(gate, layer)
         else:
             h = model._gated(h, apply(gate), apply(layer), idx, mask)
     return model._decode(h, window), state
@@ -2841,6 +2938,840 @@ def interpolated_phase(data_dir, work_dir, on, dev):
           f"{took:.3f} s ({on})")
 
 
+# ---- phase 27: the bf16 precision modes -------------------------------------
+BF16_MODES = ("bfloat16", "bfloat16s")
+BF16_TAGS = {"bfloat16": "bf16", "bfloat16s": "bf16s"}
+# Phase 27 holds a bf16 kernel three ways, each on the same inputs as its
+# plain version in the same mode (P) and in float32 (P32), and as the plain
+# version in the same mode run in float64 (X: the same rounding sites, its
+# sums exact to float32's eye, a second sound implementation):
+# * a forward output: ||kernel - P|| <= BF16_FWD_RATIO ||P - P32|| (the
+#   Frobenius norm over the output), with ||P - P32|| > 0 (the cast is live);
+# * a backward output: ||kernel - X|| <= BF16_WITNESS_RHO times the
+#   spread of four sound versions (P, X and P summed in two other orders),
+#   at least BF16_WITNESS_FLOOR ||P - P32|| (``witness_rhos``; a step's
+#   gradient likewise, within BF16_STEP_RHO). Two sound versions whose float32 sums differ in
+#   order round a value near a bf16 boundary differently, and the
+#   recomputed forward carries each such flip down the backward, so that
+#   P and X lie up to 0.7 of ||P - P32|| apart (the pair's dw_dx most). The
+#   kernel is held to that spread, measured in the same run. Not the b4
+#   gradients of a LayerLin (analytically zero, roundoff on every side;
+#   their sites hold them);
+# * every rounding site on the kernel's own operands (``bf16_sites``): the
+#   kernel leaves its intermediates in its workspace (``workspace_layers``)
+#   and the plain versions' site functions recompute each site from the
+#   kernel's own inputs to it. A site's distance from that, over the
+#   distance the site's rounding moves it, <= BF16_SITE_RATIO: only the
+#   float32 order of that one site differs, no flip chain.
+# Phase 27 also plants faults in the plain site functions (``BF16_FAULTS``)
+# and fails unless each is caught by its site.
+BF16_FWD_RATIO = 0.1
+BF16_WITNESS_RHO = 2.0
+BF16_WITNESS_FLOOR = 0.1
+BF16_SITE_RATIO = 0.1
+# A step's gradients pass six pairs of kernels, whose swish, sigmoid and
+# norm sums (not varied among the plain versions) add flips: over five
+# (weights, data) seeds of MSMP-PDE and MP-PDE, both modes, unrolled 0 and
+# 1, the card read rho up to 2.242 (NVIDIA H100 80GB HBM3, 700.00 W);
+# twice that. The float32 kernel path must read above it at unrolled 0.
+BF16_STEP_RHO = 4.5
+# a served window: ||served - P|| <= BF16_MODEL_RATIO ||P - P32||
+BF16_MODEL_RATIO = 0.5
+
+
+def flat(x):
+    """The tensors of a kernel's output, nested tuples flattened."""
+    import torch
+
+    return [x] if torch.is_tensor(x) else [t for y in x for t in flat(y)]
+
+
+def fro(a, b):
+    return (a.double() - b.double()).norm().item()
+
+
+def to64(x):
+    """``x`` with every floating tensor (in nested tuples) in float64."""
+    import torch
+
+    if torch.is_tensor(x):
+        return x.double() if x.is_floating_point() else x
+    return type(x)(to64(y) for y in x)
+
+
+def bf16_ratios(got, plain, plain32, b4=()):
+    """||got - plain|| over ||plain - plain32|| per output, which must be
+    above zero (the cast is live); the indices ``b4`` (a LayerLin's
+    analytically zero b4 gradient) take the largest of their own distance
+    and that of the w4 gradient one before them."""
+    dist = [fro(p, q) for p, q in zip(plain, plain32)]
+    out = []
+    for k, (a, p) in enumerate(zip(got, plain)):
+        d = max(dist[k], dist[k - 1]) if k in b4 else dist[k]
+        check(d > 0, f"output {k}: the plain bf16 version equals float32")
+        out.append(fro(a, p) / d)
+    return out
+
+
+def witness_rhos(got, sound, plain32, skip=()):
+    """Per output, ||got - X|| over the spread of the sound versions
+    ``sound`` = [P, X, Q...] (P the plain version, X the same in float64,
+    each Q the same summed in another order: ``sound_versions``): the
+    largest distance between two of them, or BF16_WITNESS_FLOOR of ||P -
+    P32|| (``plain32``) where that is larger (where they agree but for a
+    flip or two, another sound version may flip others, and at batch 1 one
+    flip moves a weight gradient, a sum over 100 rows, ~0.1-0.3 of ||P -
+    P32||); None at the indices ``skip``."""
+    out = []
+    for k, (a, f, *vs) in enumerate(zip(got, plain32, *sound)):
+        d = max([fro(p, q) for i, p in enumerate(vs) for q in vs[i + 1:]]
+                + [BF16_WITNESS_FLOOR * fro(vs[0], f)])
+        out.append(None if k in skip else fro(a, vs[1]) / max(d, 1e-300))
+    return out
+
+
+def sound_versions(fn, extra=()):
+    """[P, X, Q16, Q8, ...] of ``witness_rhos`` from ``fn(order)``, which
+    runs the plain version in float32 with ``order`` None (P) or an int (Q:
+    ``reordered(order)``), or in float64 with ``order`` "float64" (X); then
+    ``fn(o)`` for each of ``extra``."""
+    out = [fn(None), fn("float64")]
+    for chunk in (16, 8):
+        with reordered(chunk):
+            out.append(fn(chunk))
+    return out + [fn(o) for o in extra]
+
+
+@contextlib.contextmanager
+def lem_kernels_in_plain():
+    """``reference_apply`` (the plain path) with the LEM kernels in place
+    of ``lem_scan_plain``: a sound version of a step whose LEM sums in the
+    kernel path's order."""
+    import torch
+
+    from msmp_pde_torch.ops import lem_scan
+
+    keep = lem_scan.lem_scan_plain
+
+    def kernels(gx, zx, y0, z0, wy, wzz, *, dt=1.0):
+        if torch.is_grad_enabled():
+            return lem_scan.LemScan.apply(gx, zx, y0, z0, wy, wzz, float(dt))
+        return lem_scan.lem_scan_kernel(gx, zx, y0, z0, wy, wzz, dt=dt)
+
+    lem_scan.lem_scan_plain = kernels
+    try:
+        yield
+    finally:
+        lem_scan.lem_scan_plain = keep
+
+
+@contextlib.contextmanager
+def reordered(chunk=16):
+    """The plain versions' products and weight gradients (ops/mp_layer.py's
+    ``_mm`` and ``_outer``) summed in chunks of ``chunk`` (of 4 ``chunk``
+    rows) along their sum: the same rounding sites with float32 sums in
+    another order, a second sound version."""
+    from msmp_pde_torch.ops import mp_layer as ml
+
+    keep = ml._mm, ml._outer
+
+    def mm(a, b, r):
+        a, b = r(a), r(b)
+        return sum(a[..., s:s + chunk] @ b[s:s + chunk]
+                   for s in range(0, b.shape[0], chunk))
+
+    def outer(a, b, r):
+        a, b, n = r(ml._rows(a)), r(ml._rows(b)), 4 * chunk
+        return sum(a[s:s + n].T @ b[s:s + n] for s in range(0, a.shape[0], n))
+
+    ml._mm, ml._outer = mm, outer
+    try:
+        yield
+    finally:
+        ml._mm, ml._outer = keep
+
+
+def b4_indices(name):
+    """The outputs of a backward that are a LayerLin's b4 gradient."""
+    return (12, 24) if name == "mp_pair_bwd" else ()
+
+
+def workspace_layers(name, ws, B, nx, H, K):
+    """The intermediates kernel ``name`` leaves in its workspace ``ws``
+    (csrc/mp_phases.cuh::layer_bufs), a dict per layer: the forward's si,
+    sj, agg, z3, z4 [B, nx, H], m0 and z2 [B, nx, K, H]; a backward, which
+    recomputes the forward, also dz4, dz3, dsi, dsj [B, nx, H] and dz2 [B,
+    nx, K, H], and dm0 where z2 stood."""
+    R = B * nx
+    RH, EH = R * H, R * K * H
+    bwd = name.endswith("_bwd")
+    per = 5 * RH + 2 * EH + ((5 * RH + EH + 6 * H * H) if bwd else 0)
+    node, edge = (B, nx, H), (B, nx, K, H)
+    out = []
+    for layer in range(2 if name.startswith("mp_pair") else 1):
+        b = ws[layer * per:(layer + 1) * per]
+
+        def at(off, shape, b=b):
+            return b[off:off + math.prod(shape)].view(shape)
+
+        d = {"si": at(0, node), "sj": at(RH, node), "agg": at(2 * RH, node),
+             "z3": at(3 * RH, node), "z4": at(4 * RH, node),
+             "m0": at(5 * RH, edge),
+             ("dm0" if bwd else "z2"): at(5 * RH + EH, edge)}
+        if bwd:
+            o = 5 * RH + 2 * EH
+            d.update(dz4=at(o, node), dz3=at(o + RH, node),
+                     dsi=at(o + 2 * RH, node), dsj=at(o + 3 * RH, node),
+                     dz2=at(o + 4 * RH, edge))
+        out.append(d)
+    return out
+
+
+def bf16_sites(name, args, mode, out, layers, act=True):
+    """The rounding sites of kernel ``name`` in ``mode`` (ops/mp_layer.py's
+    table, mp_pallas.py:110-137 and :185-225), each recomputed by the plain
+    versions' site functions from the kernel's own operands of that site
+    (its inputs in the mode, the intermediates ``layers`` of
+    ``workspace_layers``, its outputs ``out``): [(site, got, want,
+    other)], ``other`` the same site without its rounding (for a bias
+    gradient: the column sum of the rounded cotangent, the rule it must not
+    take; for the storage mode's A: the same from the caller's float32
+    operands). A backward's z2 (dm0 took its place) is recomputed from the
+    kernel's m0, and the first term of dh (the residual's dxo, the pair's
+    g (1 - tau)) from its z4. A single layer is GNN_Layer with ``act``
+    (final activation and residual), else GNN_LayerLin."""
+    import torch
+
+    from msmp_pde_torch.models.common import swish
+    from msmp_pde_torch.ops import mp_layer as ml
+
+    m = ml.mode_of(mode)
+    n_l = len(layers)
+    raw, idx, mask = args[:4], args[4], args[5]
+    h, u, px, v, *Ws = ml.plain_inputs(m, *raw, *args[6:6 + n_l])
+    H = h.shape[-1]
+    same = lambda x: x  # noqa: E731
+    colsum = lambda x: x.reshape(-1, H).sum(0)  # noqa: E731
+    sites = []
+
+    def site(label, got, f):
+        """``f(r, mode)`` recomputes the site, rounded as r and mode say."""
+        sites.append((label, got, f(ml._rounding(m), m), f(same, 0)))
+
+    def bias(label, got, dy):
+        sites.append((label, got, colsum(dy), colsum(ml._bf16(dy))))
+
+    for k, (L, W) in enumerate(zip(layers, Ws)):
+        w_hi, w_hj, w_du, w_dx, w_v, b1, w2, b2, w3, b3, w4, b4 = W
+        t = f"layer {k} " if n_l == 2 else ""
+        x3 = torch.cat([h, L["agg"], v], -1)
+        # the storage mode's operands of A are bf16 already: its rounding is
+        # the cast, from the caller's float32 inputs
+        site(t + "A s_i|s_j", torch.cat([L["si"], L["sj"]], -1),
+             lambda r, mm, W=W, k=k: torch.cat(ml._sides(
+                 *((h, u, px, v, W) if mm else (*raw, args[6 + k])), r), -1))
+        site(t + "A2 m0", L["m0"],
+             lambda r, _: ml._edge_in(L["si"], L["sj"], idx, r))
+        if "z2" in L:
+            site(t + "B z2", L["z2"],
+                 lambda r, _: ml._mm(swish(L["m0"]), w2, r) + b2)
+            site(t + "B2 agg", L["agg"],
+                 lambda r, mm: ml._aggregate(L["z2"], mask, mm))
+        site(t + "C z3", L["z3"], lambda r, _: ml._mm(x3, w3, r) + b3)
+        site(t + "D z4", L["z4"],
+             lambda r, _: ml._mm(swish(L["z3"]), w4, r) + b4)
+    bwd = name.endswith("_bwd")
+    g = args[6 + n_l] if bwd else None
+    if m == 2:  # the storage mode's h where no product rounds it
+        sites.extend(storage_h_sites(n_l, act, layers, flat(out)[0], g, h,
+                                     raw[0]))
+    if not bwd:
+        return sites
+    dh, *dws = out
+    if n_l == 1 and act:  # GNN_Layer: the residual's dxo
+        xh, rs = ml._instnorm(h + swish(layers[0]["z4"]))
+        dh_in = ml._instnorm_bwd(g, xh, rs)
+    elif n_l == 1:  # GNN_LayerLin
+        dh_in = torch.zeros_like(g)
+    else:  # the gated pair: the combine's g (1 - sigmoid(gn))
+        dh_in = g * (1.0 - torch.sigmoid(ml._instnorm(layers[0]["z4"])[0]))
+    dh_terms = []
+    for k, (L, W, dw) in enumerate(zip(layers, Ws, dws)):
+        w_hi, w_hj, w_du, w_dx, w_v, b1, w2, b2, w3, b3, w4, b4 = W
+        t = f"layer {k} " if n_l == 2 else ""
+        z2 = ml._mm(swish(L["m0"]), w2, ml._rounding(m)) + b2
+        x3 = torch.cat([h, L["agg"], v], -1)
+        dz4, dsi, dsj = L["dz4"], L["dsi"], L["dsj"]
+        site(t + "B2 agg", L["agg"],
+             lambda r, mm: ml._aggregate(z2, mask, mm))
+        site(t + "F dz3", L["dz3"],
+             lambda r, _: ml._mm(dz4, w4.T, r) * ml._dswish(L["z3"]))
+        site(t + "G dz2", L["dz2"], lambda r, mm: ml._aggregate_bwd(
+            ml._mm(L["dz3"], w3[H:2 * H].T, r), mask, z2, mm))
+        site(t + "H dm0", L["dm0"],
+             lambda r, _: ml._mm(L["dz2"], w2.T, r) * ml._dswish(L["m0"]))
+        site(t + "I ds_i|ds_j", torch.cat([dsi, dsj], -1),
+             lambda r, _: torch.cat(ml._gather_bwd(L["dm0"], idx, mask, r),
+                                    -1))
+        site(t + "J dw_hi|dw_hj", torch.cat([dw[0], dw[1]]),
+             lambda r, _: torch.cat([ml._outer(h, dsi, r),
+                                     ml._outer(h, dsj, r)]))
+        site(t + "J dw_du|dw_dx", torch.cat([dw[2], dw[3]]),
+             lambda r, _: torch.cat(ml._mix_grads(u, px, dsi, dsj, r)))
+        site(t + "J dw_v", dw[4], lambda r, _: ml._outer(v, dsi, r))
+        site(t + "H dw2", dw[6], lambda r, _: ml._outer(swish(L["m0"]),
+                                                        L["dz2"], r))
+        site(t + "G dw3", dw[8], lambda r, _: ml._outer(x3, L["dz3"], r))
+        site(t + "F dw4", dw[10],
+             lambda r, _: ml._outer(swish(L["z3"]), dz4, r))
+        for label, got, dy in (("db1", dw[5], dsi), ("db2", dw[7], L["dz2"]),
+                               ("db3", dw[9], L["dz3"]),
+                               ("db4", dw[11], dz4)):
+            bias(t + label, got, dy)
+        dh_terms.append(lambda r, L=L, W=W: (
+            ml._mm(L["dz3"], W[8][:H].T, r) + ml._mm(L["dsi"], W[0].T, r)
+            + ml._mm(L["dsj"], W[1].T, r)))
+    site("J dh", dh, lambda r, _: dh_in + sum(f(r) for f in dh_terms))
+    return sites
+
+
+def storage_h_sites(n_l, act, layers, out, g, h, h32):
+    """The storage mode's terms in which h enters outside a product, which
+    take the cast h (mp_pallas.py:527, :652, :327) where the float32 mode
+    takes the caller's: a forward's out (GNN_Layer's residual, the pair's
+    (1 - tau) h) or a backward's dz4 (GNN_Layer's norm of h + o, the
+    pair's dgn = g (swish(ln) - h) tau (1 - tau)), from the kernel's z4:
+    [(site, got, want (``h``), other (``h32``))]. GNN_LayerLin has none."""
+    import torch
+
+    from msmp_pde_torch.models.common import swish
+    from msmp_pde_torch.ops import mp_layer as ml
+
+    if n_l == 2:
+        (gn, rs_g), (ln, _) = (ml._instnorm(L["z4"]) for L in layers)
+        tau = torch.sigmoid(gn)
+        if g is None:
+            label, got = "E out", out
+            f = lambda hh: (1.0 - tau) * hh + tau * swish(ln)  # noqa: E731
+        else:
+            label, got = "layer 0 E dz4", layers[0]["dz4"]
+            f = lambda hh: ml._instnorm_bwd(  # noqa: E731
+                g * (swish(ln) - hh) * tau * (1.0 - tau), gn, rs_g)
+    elif act:
+        z4 = layers[0]["z4"]
+        if g is None:
+            label, got = "E out", out
+            f = lambda hh: ml._instnorm(hh + swish(z4))[0]  # noqa: E731
+        else:
+            label, got = "E dz4", layers[0]["dz4"]
+
+            def f(hh):
+                xh, rs = ml._instnorm(hh + swish(z4))
+                return ml._instnorm_bwd(g, xh, rs) * ml._dswish(z4)
+    else:
+        return []
+    return [(label, got, f(h), f(h32))]
+
+
+def bf16_site_ratios(sites, live=True):
+    """{site: ||got - want|| over ||want - other||}; with ``live`` each
+    ``other`` must lie apart from ``want`` (the site rounds), else such a
+    site reads infinity where got and want differ."""
+    out = {}
+    for label, got, want, other in sites:
+        d, e = fro(want, other), fro(got, want)
+        check(d > 0 or not live, f"site {label}: its rounding moves nothing")
+        out[label] = e / d if d > 0 else (math.inf if e > 0 else 0.0)
+    return out
+
+
+# Faults planted in the plain site functions: each must fail its site on a
+# sound kernel's workspace (run in phase 27 at E1's batch 16, bfloat16).
+def _fault_j_split(u, px, ds_i, ds_j, r):
+    from msmp_pde_torch.ops.mp_layer import _outer
+
+    return (_outer(u, r(ds_i) - r(ds_j), r), _outer(px, r(ds_i) - r(ds_j), r))
+
+
+def _fault_inverse_degree(mask, r, keep):
+    return keep(mask, lambda x: x)
+
+
+def _fault_dm0(dm0, idx, mask, r, keep):
+    return keep(dm0, idx, mask, lambda x: x)
+
+
+def _fault_edge_in(s_i, s_j, idx, r, keep):
+    return r(keep(s_i, s_j, idx, lambda x: x))
+
+
+BF16_FAULTS = {
+    # fault: (site function, replacement, (kernel, site it must fail))
+    "J: bf16(ds_i) - bf16(ds_j)": ("_mix_grads", _fault_j_split,
+                                   ("mp_pair_bwd", "J dw_du|dw_dx")),
+    "G: 1/deg unrounded": ("_a_entries", _fault_inverse_degree,
+                           ("mp_layer_bwd", "G dz2")),
+    "B2: 1/deg unrounded": ("_a_entries", _fault_inverse_degree,
+                            ("mp_layer_fwd", "B2 agg")),
+    "I: dm0 unrounded": ("_gather_bwd", _fault_dm0,
+                         ("mp_pair_bwd", "I ds_i|ds_j")),
+    "A2: bf16(s_i + s_j)": ("_edge_in", _fault_edge_in,
+                            ("mp_layer_fwd", "A2 m0")),
+}
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """The plain site function of ``fault`` (BF16_FAULTS) replaced."""
+    import functools
+
+    from msmp_pde_torch.ops import mp_layer as ml
+
+    attr, fn, _ = BF16_FAULTS[fault]
+    keep = getattr(ml, attr)
+    if "keep" in fn.__code__.co_varnames[:fn.__code__.co_argcount]:
+        fn = functools.partial(fn, keep=keep)
+    setattr(ml, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(ml, attr, keep)
+
+
+def kernel_workspace(name, args):
+    """A float32 workspace for kernel ``name`` at ``args``' shape."""
+    import torch
+
+    from msmp_pde_torch.ops import mp_layer
+
+    lib = name.replace("_stash", "")
+    h, u, _, v, idx = args[:5]
+    n = getattr(mp_layer._lib(lib), f"{lib}_scratch_floats")(
+        *h.shape, u.shape[-1], v.shape[-1], idx.shape[1])
+    return torch.empty(n, device=h.device, dtype=torch.float32)
+
+
+def bf16_kernel_run(name, args, mode):
+    """Kernel ``name`` in ``mode`` on ``args`` with its workspace kept:
+    (outputs as returned, its intermediates by ``workspace_layers``)."""
+    import torch
+
+    kern = mp_calls(name, mode)[0]
+    ws = kernel_workspace(name, args)
+    with torch.no_grad():
+        out = kern(*args, workspace=ws)
+    B, nx, H = args[0].shape
+    return out, workspace_layers(name, ws, B, nx, H, args[4].shape[1])
+
+
+_KERNEL_FNS = (("mp_pair", "fused_gated_pair_kernel", "mp_pair_fwd"),
+               ("mp_pair", "fused_gated_pair_bwd_kernel", "mp_pair_bwd"),
+               ("mp_layer", "fused_mp_layer_kernel", "mp_layer_fwd"),
+               ("mp_layer", "fused_mp_layer_bwd_kernel", "mp_layer_bwd"))
+
+
+@contextlib.contextmanager
+def kept_launches():
+    """Every message-passing kernel launch in the block run with a
+    workspace of its own, kept: yields a list that fills with (kernel
+    name, operands as ``mp_calls`` takes them, mode, GNN_Layer or not,
+    outputs, ``workspace_layers``)."""
+    import importlib
+    import inspect
+
+    records, keep = [], []
+    for mod_name, fn_name, name in _KERNEL_FNS:
+        mod = importlib.import_module(f"msmp_pde_torch.ops.{mod_name}")
+        fn = getattr(mod, fn_name)
+        sig = inspect.signature(fn)
+        n_ops = len([p for p in sig.parameters if p not in (
+            "stash", "final_act", "residual", "mp_precision", "workspace")])
+
+        def rec(*a, fn=fn, sig=sig, n_ops=n_ops, name=name, **k):
+            b = sig.bind(*a, **k)
+            b.apply_defaults()
+            ops = tuple(b.args[:n_ops])
+            kname = f"{name}_stash" if b.arguments.get("stash") else name
+            ws = kernel_workspace(kname, ops)
+            out = fn(*a, workspace=ws, **k)
+            B, nx, H = ops[0].shape
+            records.append((kname, ops, b.arguments["mp_precision"],
+                            bool(b.arguments.get("final_act", False)), out,
+                            workspace_layers(kname, ws, B, nx, H,
+                                             ops[4].shape[1])))
+            return out
+
+        keep.append((mod, fn_name, fn))
+        setattr(mod, fn_name, rec)
+    try:
+        yield records
+    finally:
+        for mod, fn_name, fn in keep:
+            setattr(mod, fn_name, fn)
+
+
+def launch_sites(records):
+    """The largest site ratio over the launches ``records``
+    (``kept_launches``) and where: (ratio, "kernel site")."""
+    import torch
+
+    worst = (0.0, "")
+    with torch.no_grad():
+        for name, ops, mode, act, out, layers in records:
+            r = bf16_site_ratios(bf16_sites(name, ops, mode, out, layers,
+                                            act))
+            site = max(r, key=r.get)
+            worst = max(worst, (r[site], f"{name} {site}"))
+    return worst
+
+
+def bf16_kernel_held(name, args, mode, out, layers):
+    """Phase 27's hold of kernel ``name``'s run in ``mode`` (``out``,
+    ``layers``): (passed, the largest output ratio (forward) or witness
+    rho (backward), the largest site ratio and its site, max |kernel -
+    P|, the text of the bounds)."""
+    import torch
+
+    plain, plain32 = mp_calls(name, mode)[1], mp_calls(name)[1]
+    with torch.no_grad():
+        k, p, p32 = flat(out), flat(plain(*args)), flat(plain32(*args))
+        sites = bf16_site_ratios(bf16_sites(name, args, mode, out, layers))
+        if name.endswith("_bwd"):
+            b4 = b4_indices(name)
+            sound = sound_versions(lambda o: p if o is None else flat(
+                plain(*(to64(args) if o == "float64" else args))))
+            bf16_ratios(k, p, p32, b4)  # the cast is live
+            rs = [r for r in witness_rhos(k, sound, p32, b4)
+                  if r is not None]
+            held, lim = f"each rho <= {BF16_WITNESS_RHO}", BF16_WITNESS_RHO
+        else:
+            rs = bf16_ratios(k, p, p32)
+            held, lim = f"each <= {BF16_FWD_RATIO}", BF16_FWD_RATIO
+    worst = max(sites, key=sites.get)
+    e = max((a - b).abs().max().item() for a, b in zip(k, p))
+    ok = max(rs) <= lim and sites[worst] <= BF16_SITE_RATIO
+    return ok, max(rs), sites[worst], worst, e, (
+        f"{held}; sites each <= {BF16_SITE_RATIO}")
+
+
+def bf16_kernel_check(label, name, args, mode):
+    """One message-passing kernel in ``mode`` held by ``bf16_kernel_held``,
+    two runs bitwise equal; returns (the largest ratio or rho, max |kernel
+    - plain|)."""
+    import torch
+
+    out, layers = bf16_kernel_run(name, args, mode)
+    with torch.no_grad():
+        again = flat(mp_calls(name, mode)[0](*args))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(flat(out), again)),
+          f"{label}: two runs differ")
+    ok, r, s, site, e, held = bf16_kernel_held(name, args, mode, out, layers)
+    what = "rho" if name.endswith("_bwd") else "||kernel - P|| / ||P - P32||"
+    print(f"{label}: {what} {r:.4f} (the largest output), sites {s:.2e} "
+          f"(the largest, {site}) ({held}), max |kernel - plain| {e:.3e}; "
+          "two runs bitwise equal")
+    check(ok, f"{label}: {what} {r:.4f}, site {site} {s:.3e}")
+    return r, e
+
+
+def bf16_fault_check(cases):
+    """Each planted fault (BF16_FAULTS) in the plain site functions must
+    fail its site on the sound kernel's run: ``cases`` {kernel name:
+    operands}, in bfloat16."""
+    runs = {}
+    for fault, (_, _, (name, want)) in BF16_FAULTS.items():
+        if name not in runs:
+            runs[name] = bf16_kernel_run(name, cases[name], "bfloat16")
+        out, layers = runs[name]
+        with planted(fault):
+            r = fault_site(bf16_site_ratios(bf16_sites(
+                name, cases[name], "bfloat16", out, layers), False), want)
+        print(f"planted fault {fault}: {name}'s site {want} reads {r:.3f} "
+              f"(> {BF16_SITE_RATIO} fails it)")
+        check(r > BF16_SITE_RATIO, f"planted fault {fault}: site {want} "
+              f"{r:.3e} passed")
+
+
+def fault_site(ratios, site):
+    """The largest ratio of ``site`` over the layers (a pair's sites are
+    "layer k <site>")."""
+    return max(r for label, r in ratios.items()
+               if label == site or label.endswith(" " + site))
+
+
+def bf16_cases(rand, T, dev, spec, rp_spec, rpu_spec):
+    """Phase 27's kernel shapes: (label, [(kernel name, operands)]): E1's
+    (K 6, D 25, V 1, hidden 128) at batches 1, 16 and 48 (the stash at
+    48), hidden 164, D = 50 with V = 3 on RP's grid, RPU's k-NN graph
+    (nodes of in-degree 0)."""
+    import torch
+
+    from msmp_pde_torch.models.gnn import GNNLayer
+
+    def weights(H, D, V, seed):
+        return [tuple(w.detach() for w in GNNLayer(
+            H, D, V, torch.Generator().manual_seed(seed + i)).to(
+            dev).weights()) for i in range(3)]
+
+    out = []
+    for label, sp, B, H, D, V, seed in (
+            ("E1", spec, 1, 128, T, 1, 70), ("E1", spec, 16, 128, T, 1, 70),
+            ("E1", spec, 48, 128, T, 1, 70), ("hidden 164", spec, 16, 164, T,
+                                              1, 73),
+            ("D=50 V=3", rp_spec, 16, 128, 2 * T, 3, 76),
+            ("RPU k-NN", rpu_spec, 16, 128, 2 * T, 3, 79)):
+        nx = sp.nx
+        wg, wl, w1 = weights(H, D, V, seed)
+        px = sp.x.expand(B, nx)[..., None] / sp.L
+        base = (rand(B, nx, H), rand(B, nx, D), px, rand(B, nx, V, scale=.5),
+                sp.idx, sp.mask)
+        g = rand(B, nx, H)
+        ops = [("mp_pair_fwd", (*base, wg, wl)),
+               ("mp_pair_bwd", (*base, wg, wl, g)),
+               ("mp_layer_fwd", (*base, w1)),
+               ("mp_layer_bwd", (*base, w1, g))]
+        if B == 48:
+            ops.append(("mp_pair_fwd_stash", (*base, wg, wl)))
+        out.append((f"{label} B={B} H={H}", ops))
+    return out
+
+
+def pushed_forward(trainer, plain_precision, kernel=False):
+    """A forward for ``Trainer.step_loss`` whose pushforward (no grad) runs
+    the kernel path in the model's precision and whose step's forward runs
+    the plain path (with ``kernel`` the kernel path) in
+    ``plain_precision``."""
+    import torch
+
+    model = trainer.model
+    plain = trainer.forward if kernel else plain_forward(trainer)
+
+    def forward(window, steps, variables, lem_state=None):
+        if not torch.is_grad_enabled():
+            return trainer.forward(window, steps, variables,
+                                   lem_state=lem_state)
+        keep, model.mp_precision = model.mp_precision, plain_precision
+        try:
+            return plain(window, steps, variables, lem_state=lem_state)
+        finally:
+            model.mp_precision = keep
+
+    return forward
+
+
+def roundoff_grads(model):
+    """The parameters whose gradient is analytically zero, roundoff on
+    every path: a sigmoid-gated pair's LayerLin b4 (InstanceNorm removes
+    it)."""
+    return {n for n, _ in model.named_parameters()
+            if model.gate == "sigmoid" and n.startswith(("gnn_", "gate_"))
+            and n.endswith("TorchDense_2.bias")}
+
+
+def bf16_step_check(trainer, u_all, name):
+    """One step at batch 16, unrolled 0 and 1, in the model's bf16 mode,
+    the plain steps from the kernel path's pushed window (``kernel_push``),
+    held per gradient: each parameter's gradient on the kernel path within
+    BF16_STEP_RHO of the spread of the plain path's step in the mode (P),
+    the same summed in two other orders (``reordered``), in float64 (X,
+    ``f64_step_grads``) and, with a LEM encoder, with the LEM's kernels
+    (``lem_kernels_in_plain``), as the backward kernels are held, and at
+    unrolled 0 the float32 kernel path's step beyond it on some gradient;
+    every kernel launch of the kernel path's step in the mode, and its
+    rounding sites on its own operands (``kept_launches``), each within
+    BF16_SITE_RATIO; and P apart from the plain float32 step on every
+    gradient (the cast is live). Also printed: over all parameters, each
+    over its scale in P, the kernel path's and X's distance from the
+    float32 step over P's."""
+    import numpy as np
+    import torch
+
+    mode = trainer.model.mp_precision
+    params = list(trainer.model.parameters())
+    names = [n for n, _ in trainer.model.named_parameters()]
+    skip = roundoff_grads(trainer.model)
+    lem = trainer.model.encoder == "lem"
+    rng = np.random.default_rng(27)
+    for unrolled in (0, 1):
+        idx, steps = step_batch(rng, len(u_all), unrolled, trainer.device)
+        grads = {}
+        with kept_launches() as launches:
+            grads["kernel"] = torch.autograd.grad(trainer.step_loss(
+                u_all, {}, idx, steps, unrolled), params)
+        check(all(r[2] == mode for r in launches), f"{name}: a launch not "
+              f"in {mode}")
+        site, where = launch_sites(launches)
+        n_launches = len(launches)
+        del launches
+        for path, fwd in (("plain", kernel_push(trainer)),
+                          ("plain32", pushed_forward(trainer, "float32"))):
+            loss = trainer.step_loss(u_all, {}, idx, steps, unrolled,
+                                     forward=fwd)
+            grads[path] = torch.autograd.grad(loss, params)
+            check(bool(torch.isfinite(loss)), f"{name}: loss not finite")
+        def plain_step(order):
+            if order is None:
+                return grads["plain"]
+            if order == "float64":
+                return f64_step_grads(trainer, u_all, {}, idx, steps,
+                                      unrolled)[1]
+            with (lem_kernels_in_plain() if order == "lem"
+                  else contextlib.nullcontext()):
+                return torch.autograd.grad(trainer.step_loss(
+                    u_all, {}, idx, steps, unrolled,
+                    forward=kernel_push(trainer)), params)
+
+        sound = sound_versions(plain_step, ("lem",) if lem else ())
+        for g in grads["kernel"]:
+            check(bool(torch.isfinite(g).all()), f"{name}: grad not finite")
+        P, P32 = grads["plain"], grads["plain32"]
+        check(all(fro(a, b) > 0 for a, b in zip(P, P32)),
+              f"{name}@{mode}: a plain bf16 gradient equals float32's")
+        # the float32 kernel path's step from the same pushed window, which
+        # the witness must tell apart
+        k32 = torch.autograd.grad(trainer.step_loss(
+            u_all, {}, idx, steps, unrolled,
+            forward=pushed_forward(trainer, "float32", kernel=True)), params)
+        sk = {k for k, n in enumerate(names) if n in skip}
+        rhos = witness_rhos(grads["kernel"], sound, P32, sk)
+        rho, worst = max((r, n) for r, n in zip(rhos, names) if r is not None)
+        rho32 = max(r for r in witness_rhos(k32, sound, P32, sk)
+                    if r is not None)
+        scale = [max(p.abs().max().item(), 1e-30) for p in P]
+
+        def apart(a):
+            return math.sqrt(sum((fro(x, y) / c) ** 2
+                                 for x, y, c in zip(a, P32, scale)))
+
+        d = apart(P)
+        print(f"{name}@{BF16_TAGS[mode]} train step B={TRAIN_BATCH} unrolled="
+              f"{unrolled} (the plain steps from the kernel path's "
+              f"pushforward): the largest rho {rho:.3f} ({worst}; each <= "
+              f"{BF16_STEP_RHO}, {len(skip)} roundoff b4 gradients aside; "
+              f"the float32 kernel path {rho32:.3f}); from the plain "
+              f"float32 step, over all parameters, "
+              f"the kernel path {apart(grads['kernel']) / d:.3f} and the "
+              f"float64 plain path {apart(sound[1]) / d:.3f} of the "
+              f"plain path's distance; the sites of its {n_launches} kernel "
+              f"launches on their own operands: the largest {site:.2e} "
+              f"({where}; each <= {BF16_SITE_RATIO})")
+        check(rho <= BF16_STEP_RHO, f"{name}@{mode} step: rho {rho:.3f} "
+              f"on {worst}")
+        # at unrolled 1 the pushed window's flips can leave the sound
+        # versions as far apart as bf16 from float32 (after MSMP-PDE's
+        # bfloat16s fit phase 27 read 3.279 on an NVIDIA H100 80GB HBM3 at
+        # 700 W): there the sites alone tell float32
+        check(unrolled or rho32 > BF16_STEP_RHO, f"{name}@{mode} step: the "
+              f"float32 kernel path reads rho {rho32:.3f}")
+        check(site <= BF16_SITE_RATIO, f"{name}@{mode} step: site {where} "
+              f"{site:.3e}")
+
+
+def bf16_windows_held(trainer, window, steps, got, variables=None):
+    """A served bf16 rollout ``got`` [B, S, nx, tw] held window by window:
+    each within BF16_MODEL_RATIO of the plain path's bf16-to-float32
+    distance from the plain bf16 forward of the same window
+    (``plain_rollout`` following ``got``). Returns the largest ratio."""
+    model = trainer.model
+    mode = model.mp_precision
+    plain = plain_rollout(trainer, window, steps, got.shape[1], follow=got,
+                          variables=variables)
+    model.mp_precision = "float32"
+    try:
+        plain32 = plain_rollout(trainer, window, steps, got.shape[1],
+                                follow=got, variables=variables)
+    finally:
+        model.mp_precision = mode
+    import numpy as np
+
+    r = [float(np.linalg.norm(got[:, i] - plain[:, i])
+               / np.linalg.norm(plain[:, i] - plain32[:, i]))
+         for i in range(got.shape[1])]
+    check(max(r) <= BF16_MODEL_RATIO, f"bf16 rollout windows "
+          f"{['%.3f' % x for x in r]} > {BF16_MODEL_RATIO}")
+    return max(r)
+
+
+def bf16_serve(ckpt, mode, data_dir, data, name="MSMP-PDE"):
+    """The HTTP server on ``ckpt`` with --mp_precision ``mode``: one
+    request of 4 test samples at N_WINDOWS windows, equal to
+    RolloutEngine.rollout, with the expected launches, held window by
+    window against the plain path. Returns the launch counts."""
+    import urllib.request
+
+    import torch
+
+    from msmp_pde_torch.data.graph import slice_windows
+    from msmp_pde_torch.serving import serve
+
+    sargs = serve.build_parser().parse_args([
+        "--experiment=E1", f"--model={name}", f"--checkpoint={ckpt}",
+        f"--data_dir={data_dir}", "--port=0", "--warmup_windows=0",
+        "--device=cuda", f"--mp_precision={mode}"])
+    srv, engine = serve.build_server(sargs)
+    trainer = engine.trainer
+    check(trainer.model.mp_precision == mode, "served precision")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+    u_t = data["test"][0]
+    steps = torch.full((4,), trainer.tw, dtype=torch.int64,
+                       device=trainer.device)
+    w = slice_windows(u_t[:4], steps, trainer.tw)[0]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        reset_counts()
+        got = serve.request_rollout("127.0.0.1", port, w.cpu().numpy(),
+                                    n_windows=N_WINDOWS)
+        counts = launch_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    check(health["mp_precision"] == mode, f"healthz {health}")
+    check(counts == expected_launches(trainer.model, N_WINDOWS),
+          f"served {mode}: launches {nonzero(counts)}")
+    import numpy as np
+
+    check(np.array_equal(got, engine.rollout(w.cpu().numpy(),
+                                             n_windows=N_WINDOWS)),
+          f"served {mode}: differs from engine.rollout")
+    r = bf16_windows_held(trainer, w, steps, got)
+    print(f"served {Path(ckpt).name} with --mp_precision={mode}: B=4, "
+          f"{N_WINDOWS} windows, equal to engine.rollout, launches "
+          f"{nonzero(counts)}; each window within {r:.3f} of the plain "
+          f"path's bf16-to-float32 distance from its plain bf16 forward")
+    return counts
+
+
+def bf16_fit(data_dir, work_dir, on, mode):
+    """The train CLI's fit of MSMP-PDE at full width one epoch on phase
+    17's E1 data with --mp_precision ``mode``: every step's launches as the
+    float32 fit's (``counted_fit``), a step held against the plain bf16
+    step. Returns (the launch counts, the checkpoint)."""
+    from msmp_pde_torch.training import train
+    from msmp_pde_torch.training.setup import setup_experiment
+
+    args = train.build_parser().parse_args([
+        "--experiment=E1", "--model=MSMP-PDE", "--num_epochs=1",
+        "--batch_size=16", "--unrolling=1", "--lr=1e-4",
+        "--print_interval=100", "--device=cuda", f"--data_dir={data_dir}",
+        f"--mp_precision={mode}"])
+    exp = setup_experiment(args, data_dir=data_dir)
+    model = exp.trainer.model
+    check(model.mp_precision == mode and model.hidden == 128
+          and model.layers == 6, f"fit: not MSMP-PDE at full width in {mode}")
+    data = {m: train.device_arrays(exp.datasets[m], exp.trainer.device)
+            for m in E1_SAMPLES}
+    ckpt = str(Path(work_dir) / "models" / f"MSMP-PDE_E1_{mode}.pt")
+    _, totals, _ = counted_fit(args, exp, data, ckpt, on)
+    bf16_step_check(exp.trainer, data["train"][0][:TRAIN_BATCH], "MSMP-PDE")
+    return totals, ckpt, data
+
+
 def main():
     import tempfile
 
@@ -3307,7 +4238,6 @@ def main():
     eval_phase(data_dir, work, "E1", "MSMP-PDE",
                str(Path(work) / "models" / "MSMP-PDE_E1.pt"))
     cv_phase(data_dir, work)
-    e1_dir.cleanup()
     rp_dir.cleanup()
     print(f"phase 24: {time.perf_counter() - t24:.3f} s")
 
@@ -3406,6 +4336,69 @@ def main():
           f"MP-PDE2D's train_epoch, the fallback step and the kernels' "
           f"times {t_rgrid - t_rfit:.3f} s, FNO2DPU {t_interp - t_rgrid:.3f} "
           f"s, the interpolated route {t_end - t_interp:.3f} s) ({on})")
+
+    # 27. the bf16 precision modes: the four message-passing kernels in
+    #     both modes at the slice's shapes, fit of MSMP-PDE and its server,
+    #     MP-PDE's train_epoch, the stash's fallback step -------------------
+    t27 = time.perf_counter()
+    rp_spec = build_trainer("RP", "MSMP-PDE2D", device=dev).spec
+    rpu_spec = build_trainer("RPU", "MSMP-PDE2D", device=dev,
+                             grid=rpu_grid).spec
+    indeg = torch.bincount(rpu_spec.idx.reshape(-1).long(),
+                           minlength=rpu_spec.nx)
+    check(int(indeg.min()) == 0, "RPU's graph has no node of in-degree 0")
+    bf16_err = {}  # (kernel, mode): (largest ratio, max |kernel - plain|)
+    cases27 = bf16_cases(rand, T, dev, spec, rp_spec, rpu_spec)
+    for mode in BF16_MODES:
+        for label, ops in cases27:
+            for name, args in ops:
+                r = bf16_kernel_check(f"{name}@{BF16_TAGS[mode]} {label}",
+                                      name, args, mode)
+                old = bf16_err.get((name, mode), (0.0, 0.0))
+                bf16_err[name, mode] = (max(old[0], r[0]), max(old[1], r[1]))
+    # the holds' teeth: faults planted in the plain site functions
+    bf16_fault_check(dict(cases27[1][1]))
+    # each kernel timed in the three modes in this call, at E1's batch 16
+    # (the stash at 48)
+    at16 = dict(cases27[1][1])
+    at16["mp_pair_fwd_stash"] = dict(cases27[2][1])["mp_pair_fwd_stash"]
+    modes3 = ("float32",) + BF16_MODES
+    t27k = dict(zip([(n, m) for n in at16 for m in modes3], mp_kernel_times(
+        [(n, args, m) for n, args in at16.items() for m in modes3])))
+    grid = mp_layer.grid_blocks
+    print("cooperative grid (blocks) in float32 / bfloat16 / bfloat16s: "
+          + ", ".join(f"{n} " + " / ".join(
+              str(grid(n, n.startswith("mp_layer"), m)) for m in modes3)
+              for n in ("mp_pair_fwd", "mp_pair_bwd", "mp_layer_fwd",
+                        "mp_layer_bwd")))
+    fit27, ckpt27 = {}, {}
+    for mode in BF16_MODES:
+        fit27[mode], ckpt27[mode], e1data = bf16_fit(data_dir, work, on,
+                                                     mode)
+        print(f"MSMP-PDE fit@{BF16_TAGS[mode]} main path launches: "
+              f"{nonzero(fit27[mode])} (phase 18's float32 fit of two "
+              f"epochs: {nonzero(fit_counts)})")
+    # the bf16 fit's checkpoint served in bfloat16s, phase 18's float32
+    # checkpoint served in bfloat16
+    bf16_serve(ckpt27["bfloat16"], "bfloat16s", data_dir, e1data)
+    bf16_serve(str(Path(work) / "models" / "MSMP-PDE_E1.pt"), "bfloat16",
+               data_dir, e1data)
+    u48 = torch.as_tensor(smooth(
+        48, spec.t_grid.cpu().numpy(), spec.x.cpu().numpy(), spec.L, seed=1),
+        device=dev)
+    mp27, stash27 = {}, {}
+    for mode in BF16_MODES:
+        tag = BF16_TAGS[mode]
+        tr = build_trainer("E1", "MP-PDE", device=dev, mp_precision=mode)
+        tr.model.load_state_dict(mp_params, strict=True)
+        bf16_step_check(tr, u_all, "MP-PDE")
+        mp27[mode], _ = train_main_path(tr, u_all, f"MP-PDE@{tag}")
+        trm = build_trainer("E1", "MSMP-PDE", device=dev, mp_precision=mode)
+        trm.model.load_state_dict(params, strict=True)
+        stash27[mode] = fallback_step(trm, u48, f"MSMP-PDE@{tag}")
+    del u48
+    e1_dir.cleanup()
+    print(f"phase 27: {time.perf_counter() - t27:.3f} s ({on})")
 
     kernels = [
         {"name": "lem_fwd", "route": "cuda",
@@ -3541,6 +4534,26 @@ def main():
             "replaces": REPLACES[name], "launches": rpu_launches[name],
             "max_abs_err": rpu_err[name], "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # the bf16 modes (phase 27, E1's shapes, hidden 128): launches in the
+    # modes' main paths (the pair in the MSMP-PDE fit, the single layer in
+    # MP-PDE's train_epoch, the stash in the forced-fallback step)
+    for mode in BF16_MODES:
+        launches27 = {
+            "mp_pair_fwd": fit27[mode]["mp_pair_fwd"],
+            "mp_pair_bwd": fit27[mode]["mp_pair_bwd"],
+            "mp_layer_fwd": mp27[mode]["mp_layer_fwd"],
+            "mp_layer_bwd": mp27[mode]["mp_layer_bwd"],
+            "mp_pair_fwd_stash": stash27[mode]["mp_pair_fwd_stash"]}
+        for name, n in launches27.items():
+            ms, pms, _, bms, by = t27k[name, mode]
+            kernels.append({
+                "name": f"{name}@{BF16_TAGS[mode]}", "route": "cuda",
+                "source": f"msmp_pde_torch/csrc/"
+                          f"{name.replace('_stash', '')}.cu",
+                "replaces": REPLACES[name], "launches": n,
+                "max_abs_err": bf16_err[name, mode][1], "ms": ms,
+                "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(on)
     print(json.dumps({"ok": True, "device": {

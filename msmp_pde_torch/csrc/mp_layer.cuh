@@ -14,8 +14,12 @@
 // FINAL_ACT and RESIDUAL are the bracketed terms: both for GNN_Layer,
 // neither for GNN_LayerLin (the gated pair's two layers). They are template
 // parameters, so the pair's <false, false> code has no branch on them.
+// The loaders of the inputs and weights read float32, or bf16 in the
+// storage mode (T = bf16, bf16_mma.cuh); biases are float32 in every mode.
 #pragma once
 #include <cuda_runtime.h>
+
+#include "bf16_mma.cuh"
 
 namespace mp {
 
@@ -26,28 +30,46 @@ __device__ __forceinline__ float dswish(float x) {
   return s * (1.0f + x * (1.0f - s));
 }
 
+template <class T = float>
 struct Mat {  // row-major w[k, n] with leading dimension ld
-  const float* w;
+  const T* w;
   int ld;
-  __device__ float operator()(int k, int n) const { return w[k * ld + n]; }
+  __device__ float operator()(int k, int n) const {
+    return f32(w[k * ld + n]);
+  }
 };
+template <class T>
+Mat(const T*, int) -> Mat<T>;
 
+template <class T = float>
 struct MatT {  // the transpose of row-major w: (k, n) -> w[n, k]
-  const float* w;
+  const T* w;
   int ld;
-  __device__ float operator()(int k, int n) const { return w[n * ld + k]; }
+  __device__ float operator()(int k, int n) const {
+    return f32(w[n * ld + k]);
+  }
 };
+template <class T>
+MatT(const T*, int) -> MatT<T>;
 
+template <class T>
 struct LayerW {  // the 12 weights in the flax layout, biases [H]
-  const float *w_hi, *w_hj, *w_du, *w_dx, *w_v, *b1, *w2, *b2, *w3, *b3,
-      *w4, *b4;
+  const T *w_hi, *w_hj, *w_du, *w_dx, *w_v;
+  const float* b1;
+  const T* w2;
+  const float* b2;
+  const T* w3;
+  const float* b3;
+  const T* w4;
+  const float* b4;
 };
 
-inline LayerW unpack(const void* const* p) {
-  const float* f[12];
-  for (int i = 0; i < 12; ++i) f[i] = static_cast<const float*>(p[i]);
-  return LayerW{f[0], f[1], f[2], f[3], f[4], f[5],
-                f[6], f[7], f[8], f[9], f[10], f[11]};
+template <class T>
+inline LayerW<T> unpack(const void* const* p) {
+  auto m = [&](int i) { return static_cast<const T*>(p[i]); };
+  auto b = [&](int i) { return static_cast<const float*>(p[i]); };
+  return LayerW<T>{m(0), m(1), m(2), m(3), m(4), b(5),
+                   m(6), b(7), m(8), b(9), m(10), b(11)};
 }
 
 struct StoreSides {  // s_i = acc + b1 (columns [0, H)), s_j = acc
@@ -60,22 +82,26 @@ struct StoreSides {  // s_i = acc + b1 (columns [0, H)), s_j = acc
   }
 };
 
+template <class T>
 struct MixIn {  // row r of [u | px]
-  const float *u, *px;
+  const T *u, *px;
   int D;
   __device__ float operator()(int r, int c) const {
-    return c < D ? u[r * D + c] : px[r];
+    return f32(c < D ? u[r * D + c] : px[r]);
   }
 };
 
+template <class T>
 struct UpdIn {  // row r of [h | agg | v]
-  const float *h, *agg, *v;
+  const T* h;
+  const float* agg;
+  const T* v;
   int H, V;
   __device__ float operator()(int r, int c) const {
-    if (c < H) return h[r * H + c];
+    if (c < H) return f32(h[r * H + c]);
     c -= H;
     if (c < H) return agg[r * H + c];
-    return v[r * V + c - H];
+    return f32(v[r * V + c - H]);
   }
 };
 

@@ -1,4 +1,4 @@
-// One message-passing layer, backward (float32).
+// One message-passing layer, backward (float32, or the bf16 modes).
 //
 // Replaces: msmp_pde_tpu/ops/mp_pallas.py::_bwd_kernel, driven there by
 // _layer_bwd_call from make_fused_layer's custom VJP and from the gated
@@ -18,7 +18,8 @@
 // cooperative kernel spreads each phase of the whole batch over every SM;
 // weight gradients are chunk partials over node rows summed in a fixed
 // order (bitwise repeatable, no float atomics); ds_j is a gather-sum over
-// the inverse neighbour list the wrapper passes.
+// the inverse neighbour list the wrapper passes. The precision mode mm
+// (bf16_mma.cuh) is a template parameter: each mode is a kernel of its own.
 #include "mp_phases.cuh"
 
 namespace {
@@ -26,18 +27,19 @@ namespace {
 using namespace mp;
 using namespace mp::phases;
 
-template <bool FINAL_ACT, bool RESIDUAL>
+template <bool FINAL_ACT, bool RESIDUAL, int MM>
 __global__ void __launch_bounds__(PT, 2)
-mp_layer_bwd_kernel(const __grid_constant__ Params p) {
+mp_layer_bwd_kernel(const __grid_constant__ Params<MM> p) {
   __shared__ float smem[SMEM_FLOATS];
   backward<1, FINAL_ACT, RESIDUAL>(p, smem);
 }
 
 // GNN_Layer (both switches) or GNN_LayerLin (neither): the two layers the
 // models build; the wrapper refuses the mixed cases.
+template <int MM>
 const void* kernel(int final_act) {
-  return final_act ? (const void*)mp_layer_bwd_kernel<true, true>
-                   : (const void*)mp_layer_bwd_kernel<false, false>;
+  return final_act ? (const void*)mp_layer_bwd_kernel<true, true, MM>
+                   : (const void*)mp_layer_bwd_kernel<false, false, MM>;
 }
 
 }  // namespace
@@ -47,29 +49,34 @@ extern "C" long mp_layer_bwd_scratch_floats(int B, int nx, int H, int D,
   return scratch_floats(1, B, nx, H, D, V, K);
 }
 
-// The blocks of the cooperative launch, or minus a CUDA error.
-extern "C" int mp_layer_bwd_grid(int final_act) {
+// The blocks of the cooperative launch in mode mm, or minus a CUDA error.
+extern "C" int mp_layer_bwd_grid(int final_act, int mm) {
   int blocks = 0;
-  const int err = cooperative_grid(kernel(final_act), &blocks);
+  const int err = with_mode(mm, [&](auto m) {
+    return cooperative_grid(kernel<decltype(m)::value>(final_act), &blocks);
+  });
   return err ? -err : blocks;
 }
 
-// dh: [B, nx, H]; dw: the 12 gradients, flat in parameter order and shapes;
-// rev_ptr [nx + 1], rev_e [nx K]: the inverse neighbour list; scratch:
-// mp_layer_bwd_scratch_floats floats.
-extern "C" int mp_layer_bwd(const float* h, const float* u, const float* px,
-                            const float* v, const int* idx, const float* mask,
+// h, u, px, v and the weight matrices of w: float32, or bf16 in mode 2;
+// g, dh: [B, nx, H] float32; dw: the 12 gradients, flat in parameter order
+// and shapes; rev_ptr [nx + 1], rev_e [nx K]: the inverse neighbour list;
+// scratch: mp_layer_bwd_scratch_floats floats.
+extern "C" int mp_layer_bwd(const void* h, const void* u, const void* px,
+                            const void* v, const int* idx, const float* mask,
                             const int* rev_ptr, const int* rev_e,
                             const void* const* w, const float* g, float* dh,
                             float* dw, float* scratch, int B, int nx, int H,
                             int D, int V, int K, int final_act, int residual,
-                            void* stream) {
+                            int mm, void* stream) {
   if ((final_act != 0) != (residual != 0)) return (int)cudaErrorInvalidValue;
-  const LayerW lw = unpack(w);
-  const Params p{h, u, px, v, idx, mask, rev_ptr, rev_e, {lw, lw}, g, dh,
-                 dw, scratch, B, nx, H, D, V, K, nullptr, nullptr,
-                 nullptr};
-  return launch(kernel(final_act), p, (cudaStream_t)stream);
+  return with_mode(mm, [&](auto m) {
+    constexpr int MM = decltype(m)::value;
+    const auto p = params<MM>(h, u, px, v, idx, mask, rev_ptr, rev_e, w, w,
+                              g, dh, dw, scratch, B, nx, H, D, V, K, nullptr,
+                              nullptr, nullptr);
+    return launch(kernel<MM>(final_act), p, (cudaStream_t)stream);
+  });
 }
 
 #ifdef MP_PHASE_TIMES

@@ -1,4 +1,4 @@
-// One message-passing layer, forward (float32).
+// One message-passing layer, forward (float32, or the bf16 modes).
 //
 // Replaces: msmp_pde_tpu/ops/mp_pallas.py::_fwd_kernel, driven there by
 // make_fused_layer._run_fwd and fused_mp_layer.
@@ -20,7 +20,9 @@
 // with NL = 1, the same A-D that the layer's backward runs, in one
 // persistent cooperative kernel over every SM whatever the batch; the
 // intermediates in an L2-resident workspace (mp_layer_fwd_scratch_floats,
-// 14 MB at batch 16).
+// 14 MB at batch 16). The precision mode mm (bf16_mma.cuh: 0 float32,
+// 1 bfloat16, 2 bfloat16s with h, u, px, v and the weight matrices in bf16)
+// is a template parameter: each mode is a kernel of its own.
 #include "mp_phases.cuh"
 
 namespace {
@@ -28,18 +30,19 @@ namespace {
 using namespace mp;
 using namespace mp::phases;
 
-template <bool FINAL_ACT, bool RESIDUAL>
+template <bool FINAL_ACT, bool RESIDUAL, int MM>
 __global__ void __launch_bounds__(PT, 2)
-mp_layer_fwd_kernel(const __grid_constant__ Params p) {
+mp_layer_fwd_kernel(const __grid_constant__ Params<MM> p) {
   __shared__ float smem[SMEM_FLOATS];
   forward<1, FINAL_ACT, RESIDUAL, false>(p, smem);
 }
 
 // GNN_Layer (both switches) or GNN_LayerLin (neither): the two layers the
 // models build; the wrapper refuses the mixed cases.
+template <int MM>
 const void* kernel(int final_act) {
-  return final_act ? (const void*)mp_layer_fwd_kernel<true, true>
-                   : (const void*)mp_layer_fwd_kernel<false, false>;
+  return final_act ? (const void*)mp_layer_fwd_kernel<true, true, MM>
+                   : (const void*)mp_layer_fwd_kernel<false, false, MM>;
 }
 
 }  // namespace
@@ -49,25 +52,31 @@ extern "C" long mp_layer_fwd_scratch_floats(int B, int nx, int H, int D,
   return fwd_scratch_floats(1, B, nx, H, K);
 }
 
-// The blocks of the cooperative launch, or minus a CUDA error.
-extern "C" int mp_layer_fwd_grid(int final_act) {
+// The blocks of the cooperative launch in mode mm, or minus a CUDA error.
+extern "C" int mp_layer_fwd_grid(int final_act, int mm) {
   int blocks = 0;
-  const int err = cooperative_grid(kernel(final_act), &blocks);
+  const int err = with_mode(mm, [&](auto m) {
+    return cooperative_grid(kernel<decltype(m)::value>(final_act), &blocks);
+  });
   return err ? -err : blocks;
 }
 
-// out: [B, nx, H]; scratch: mp_layer_fwd_scratch_floats floats.
-extern "C" int mp_layer_fwd(const float* h, const float* u, const float* px,
-                            const float* v, const int* idx, const float* mask,
+// h, u, px, v and the weight matrices of w: float32, or bf16 in mode 2;
+// out: [B, nx, H] float32; scratch: mp_layer_fwd_scratch_floats floats.
+extern "C" int mp_layer_fwd(const void* h, const void* u, const void* px,
+                            const void* v, const int* idx, const float* mask,
                             const void* const* w, float* out, float* scratch,
                             int B, int nx, int H, int D, int V, int K,
-                            int final_act, int residual, void* stream) {
+                            int final_act, int residual, int mm,
+                            void* stream) {
   if ((final_act != 0) != (residual != 0)) return (int)cudaErrorInvalidValue;
-  const LayerW lw = unpack(w);
-  const Params p{h, u, px, v, idx, mask, nullptr, nullptr, {lw, lw},
-                 nullptr, nullptr, nullptr, scratch, B, nx, H, D, V, K,
-                 out, nullptr, nullptr};
-  return launch(kernel(final_act), p, (cudaStream_t)stream);
+  return with_mode(mm, [&](auto m) {
+    constexpr int MM = decltype(m)::value;
+    const auto p = params<MM>(h, u, px, v, idx, mask, nullptr, nullptr, w,
+                              w, nullptr, nullptr, nullptr, scratch, B, nx,
+                              H, D, V, K, out, nullptr, nullptr);
+    return launch(kernel<MM>(final_act), p, (cudaStream_t)stream);
+  });
 }
 
 #ifdef MP_PHASE_TIMES

@@ -1,4 +1,4 @@
-// Fused gated message-passing pair, backward (float32).
+// Fused gated message-passing pair, backward (float32, or the bf16 modes).
 //
 // Replaces: msmp_pde_tpu/ops/mp_pallas.py::_pair_bwd_kernel, driven there
 // by _pair_bwd_call from make_fused_pair's custom VJP.
@@ -33,6 +33,8 @@
 //   inverse_neighbors), in increasing edge order.
 // * The grid is what the occupancy calculator fits on the card at once; a
 //   card that cannot run it cooperatively gets an error and no launch.
+// * The precision mode mm (bf16_mma.cuh) is a template parameter, each mode
+//   a kernel of its own.
 #include "mp_phases.cuh"
 
 namespace {
@@ -40,8 +42,9 @@ namespace {
 using namespace mp;
 using namespace mp::phases;
 
+template <int MM>
 __global__ void __launch_bounds__(PT, 2)
-mp_pair_bwd_kernel(const __grid_constant__ Params p) {
+mp_pair_bwd_kernel(const __grid_constant__ Params<MM> p) {
   __shared__ float smem[SMEM_FLOATS];
   backward<2, false, false>(p, smem);
 }
@@ -53,27 +56,35 @@ extern "C" long mp_pair_bwd_scratch_floats(int B, int nx, int H, int D, int V,
   return scratch_floats(2, B, nx, H, D, V, K);
 }
 
-// The blocks of the cooperative launch, or minus a CUDA error.
-extern "C" int mp_pair_bwd_grid() {
+// The blocks of the cooperative launch in mode mm, or minus a CUDA error.
+extern "C" int mp_pair_bwd_grid(int mm) {
   int blocks = 0;
-  const int err = cooperative_grid((const void*)mp_pair_bwd_kernel, &blocks);
+  const int err = with_mode(mm, [&](auto m) {
+    return cooperative_grid(
+        (const void*)mp_pair_bwd_kernel<decltype(m)::value>, &blocks);
+  });
   return err ? -err : blocks;
 }
 
-// dh: [B, nx, H]; dw: [gate 12 | main 12] gradients, flat in parameter
-// order and shapes; rev_ptr [nx + 1], rev_e [nx K]: the inverse neighbour
-// list; scratch: mp_pair_bwd_scratch_floats floats.
-extern "C" int mp_pair_bwd(const float* h, const float* u, const float* px,
-                           const float* v, const int* idx, const float* mask,
+// h, u, px, v and the weight matrices of wg, wl: float32, or bf16 in mode
+// 2; g, dh: [B, nx, H] float32; dw: [gate 12 | main 12] gradients, flat in
+// parameter order and shapes; rev_ptr [nx + 1], rev_e [nx K]: the inverse
+// neighbour list; scratch: mp_pair_bwd_scratch_floats floats.
+extern "C" int mp_pair_bwd(const void* h, const void* u, const void* px,
+                           const void* v, const int* idx, const float* mask,
                            const int* rev_ptr, const int* rev_e,
                            const void* const* wg, const void* const* wl,
                            const float* g, float* dh, float* dw,
                            float* scratch, int B, int nx, int H, int D, int V,
-                           int K, void* stream) {
-  const Params p{h, u, px, v, idx, mask, rev_ptr, rev_e,
-                 {unpack(wg), unpack(wl)}, g, dh, dw, scratch,
-                 B, nx, H, D, V, K, nullptr, nullptr, nullptr};
-  return launch((const void*)mp_pair_bwd_kernel, p, (cudaStream_t)stream);
+                           int K, int mm, void* stream) {
+  return with_mode(mm, [&](auto m) {
+    constexpr int MM = decltype(m)::value;
+    const auto p = params<MM>(h, u, px, v, idx, mask, rev_ptr, rev_e, wg, wl,
+                              g, dh, dw, scratch, B, nx, H, D, V, K, nullptr,
+                              nullptr, nullptr);
+    return launch((const void*)mp_pair_bwd_kernel<MM>, p,
+                  (cudaStream_t)stream);
+  });
 }
 
 #ifdef MP_PHASE_TIMES

@@ -1,4 +1,4 @@
-// Fused gated message-passing pair, forward (float32).
+// Fused gated message-passing pair, forward (float32, or the bf16 modes).
 //
 // Replaces: msmp_pde_tpu/ops/mp_pallas.py::_pair_fwd_kernel, both variants,
 // driven there by make_fused_pair._run_fwd and fused_gated_pair. With STASH
@@ -28,7 +28,10 @@
 // 50 MB L2. The edge product runs in 3xTF32 on the tensor cores, the node
 // products as plain FMAs. The grid is what the occupancy calculator fits on
 // the card at once; a card that cannot run it cooperatively gets an error
-// and no launch.
+// and no launch. The precision mode mm (bf16_mma.cuh: 0 float32, 1
+// bfloat16, 2 bfloat16s with the inputs and weight matrices in bf16) is a
+// template parameter, each mode a kernel of its own; in the bf16 modes the
+// edge product is one bf16 pass on the tensor cores.
 #include "mp_phases.cuh"
 
 namespace {
@@ -36,16 +39,17 @@ namespace {
 using namespace mp;
 using namespace mp::phases;
 
-template <bool STASH>
+template <bool STASH, int MM>
 __global__ void __launch_bounds__(PT, 2)
-mp_pair_fwd_kernel(const __grid_constant__ Params p) {
+mp_pair_fwd_kernel(const __grid_constant__ Params<MM> p) {
   __shared__ float smem[SMEM_FLOATS];
   forward<2, false, false, STASH>(p, smem);
 }
 
+template <int MM>
 const void* kernel(int stash) {
-  return stash ? (const void*)mp_pair_fwd_kernel<true>
-               : (const void*)mp_pair_fwd_kernel<false>;
+  return stash ? (const void*)mp_pair_fwd_kernel<true, MM>
+               : (const void*)mp_pair_fwd_kernel<false, MM>;
 }
 
 }  // namespace
@@ -55,25 +59,32 @@ extern "C" long mp_pair_fwd_scratch_floats(int B, int nx, int H, int D, int V,
   return fwd_scratch_floats(2, B, nx, H, K);
 }
 
-// The blocks of the cooperative launch, or minus a CUDA error.
-extern "C" int mp_pair_fwd_grid(int stash) {
+// The blocks of the cooperative launch in mode mm, or minus a CUDA error.
+extern "C" int mp_pair_fwd_grid(int stash, int mm) {
   int blocks = 0;
-  const int err = cooperative_grid(kernel(stash), &blocks);
+  const int err = with_mode(mm, [&](auto m) {
+    return cooperative_grid(kernel<decltype(m)::value>(stash), &blocks);
+  });
   return err ? -err : blocks;
 }
 
-// out, and with the stash gn and ln: [B, nx, H]; gn = ln = null selects
-// the variant without it. scratch: mp_pair_fwd_scratch_floats floats.
-extern "C" int mp_pair_fwd(const float* h, const float* u, const float* px,
-                           const float* v, const int* idx, const float* mask,
+// h, u, px, v and the weight matrices of wg, wl: float32, or bf16 in mode
+// 2; out, and with the stash gn and ln: [B, nx, H] float32; gn = ln = null
+// selects the variant without it. scratch: mp_pair_fwd_scratch_floats
+// floats.
+extern "C" int mp_pair_fwd(const void* h, const void* u, const void* px,
+                           const void* v, const int* idx, const float* mask,
                            const void* const* wg, const void* const* wl,
                            float* out, float* gn, float* ln, float* scratch,
-                           int B, int nx, int H, int D, int V, int K,
+                           int B, int nx, int H, int D, int V, int K, int mm,
                            void* stream) {
-  const Params p{h, u, px, v, idx, mask, nullptr, nullptr,
-                 {unpack(wg), unpack(wl)}, nullptr, nullptr, nullptr,
-                 scratch, B, nx, H, D, V, K, out, gn, ln};
-  return launch(kernel(gn != nullptr), p, (cudaStream_t)stream);
+  return with_mode(mm, [&](auto m) {
+    constexpr int MM = decltype(m)::value;
+    const auto p = params<MM>(h, u, px, v, idx, mask, nullptr, nullptr, wg,
+                              wl, nullptr, nullptr, nullptr, scratch, B, nx,
+                              H, D, V, K, out, gn, ln);
+    return launch(kernel<MM>(gn != nullptr), p, (cudaStream_t)stream);
+  });
 }
 
 #ifdef MP_PHASE_TIMES

@@ -48,6 +48,25 @@
 // (chunk, output tile) is an item that writes its own partial, and phase K
 // sums the chunks. A bias gradient, a column sum of dY, comes with the
 // weight tile whose rows start at 0, from the dY tiles in shared memory.
+//
+// Precision modes (the template parameter MM, bf16_mma.cuh): in the bf16
+// modes every product rounds both operands to bf16 and sums their exact
+// products in float32, as the TPU kernel's _dot / _dot_t (mp_pallas.py:
+// 84-100). A tile rounds its A operand when it writes it to shared memory
+// (after post(), so a swish rounds after it is taken) and its W operand when
+// it reads it for a product, so that a bias gradient sums the unrounded dY.
+// The edge products run on bf16 mma.sync instead of 3xTF32. The TPU
+// kernel's products with its one-hot and 1/deg matrices are gathers and sums
+// here, each with the rounding of its operands written out:
+//   A2  m0 = bf16(s_i[r]) + bf16(s_j[nbr])                   (E s_i + G s_j)
+//   B2  agg = sum_k bf16(mask / deg) bf16(swish(z2))                  (A m2)
+//   G   dz2 = bf16(dagg) bf16(mask / deg) swish'(z2)                (A^T dagg)
+//   I   ds_i = sum_k bf16(dm0), ds_j = sum mask bf16(dm0)   (E^T dm0, G^T dm0)
+//   J   [dw_du; dw_dx] from bf16(ds_i - ds_j), the W operand's rounding
+// Everything else (biases, swish and its derivative, the InstanceNorm, the
+// combine, the chunk sums) stays float32. The storage mode reads h, u, px,
+// v and the weight matrices as bf16, so a term that adds h (the residual,
+// the pair's combine and its backward) takes the rounded h.
 #pragma once
 #include <cooperative_groups.h>
 
@@ -73,8 +92,8 @@ constexpr int RG = PT / NF;      // its row groups
 // two buffers of a tile's A and W operands
 constexpr int SMEM_FLOATS = 2 * PK * (AP + WP);
 static_assert(SMEM_FLOATS >= 4 * PT, "phase E's sums need 4 PT floats");
-// the edge products (z2, dm0 and dw2, half of the operations) in 3xTF32
-// on the tensor cores
+// the edge products (z2, dm0 and dw2, half of the operations) on the tensor
+// cores: 3xTF32 in float32, one bf16 pass in the bf16 modes
 constexpr bool EDGE_TC = true;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -113,22 +132,53 @@ struct GradOff {
   }
 };
 
+template <int MM>  // the precision mode
 struct Params {
-  const float *h, *u, *px, *v;  // [R, H], [R, D], [R], [R, V]
-  const int* idx;               // [nx, K]
-  const float* mask;            // [nx, K]
-  const int *rev_ptr, *rev_e;   // inverse neighbour list (ops/mp_layer.py)
-  LayerW w[2];                  // the pair: gate, main
-  const float* g;               // [R, H], the output cotangent
-  float *dh, *dw, *scratch;     // [R, H], NL x 12 gradients, workspace
+  using T = In<MM>;         // the inputs' and weight matrices' type
+  const T *h, *u, *px, *v;  // [R, H], [R, D], [R], [R, V]
+  const int* idx;           // [nx, K]
+  const float* mask;        // [nx, K]
+  const int *rev_ptr, *rev_e;  // inverse neighbour list (ops/mp_layer.py)
+  LayerW<T> w[2];              // the pair: gate, main
+  const float* g;              // [R, H], the output cotangent
+  float *dh, *dw, *scratch;    // [R, H], NL x 12 gradients, workspace
   int B, nx, H, D, V, K;
   float *out, *gn, *ln;  // the forward's [R, H] output; the pair's stash
 };
 
+// The Params of mode MM from the entry points' untyped input pointers.
+template <int MM>
+inline Params<MM> params(const void* h, const void* u, const void* px,
+                         const void* v, const int* idx, const float* mask,
+                         const int* rev_ptr, const int* rev_e,
+                         const void* const* w0, const void* const* w1,
+                         const float* g, float* dh, float* dw,
+                         float* scratch, int B, int nx, int H, int D, int V,
+                         int K, float* out, float* gn, float* ln) {
+  using T = In<MM>;
+  auto in = [](const void* x) { return static_cast<const T*>(x); };
+  return Params<MM>{in(h), in(u), in(px), in(v), idx, mask, rev_ptr, rev_e,
+                    {unpack<T>(w0), unpack<T>(w1)}, g, dh, dw, scratch,
+                    B, nx, H, D, V, K, out, gn, ln};
+}
+
+// f(std::integral_constant<int, MM>) for the mode mm; an unknown mode is an
+// invalid value and runs nothing.
+template <class F>
+inline int with_mode(int mm, const F& f) {
+  switch (mm) {
+    case 0: return f(std::integral_constant<int, 0>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // The forward's workspace: per layer s_i, s_j, agg, z3, z4 [R, H] and m0,
 // z2 [E, H]; then nbr [E] (ints). The backward's adds per layer dz4, dz3,
-// ds_i, ds_j [R, H], dz2 [E, H] and the 6 H^2 transposed weights; then the
-// node-gradient partials, the edge-gradient partials and nbr.
+// ds_i, ds_j [R, H], dz2 [E, H], dh3 [R, H] and the 6 H^2 transposed
+// weights; then the node-gradient partials, the edge-gradient partials and
+// nbr.
 __host__ __device__ inline long fwd_layer_floats(int R, int H, int K) {
   return 5L * R * H + 2L * R * K * H;
 }
@@ -138,7 +188,7 @@ __host__ __device__ inline long fwd_scratch_floats(int NL, int B, int nx,
   return NL * fwd_layer_floats(R, H, K) + (long)R * K;
 }
 __host__ __device__ inline long layer_floats(int R, int H, int K) {
-  return fwd_layer_floats(R, H, K) + 4L * R * H + (long)R * K * H +
+  return fwd_layer_floats(R, H, K) + 5L * R * H + (long)R * K * H +
          6L * H * H;
 }
 __host__ __device__ inline long scratch_floats(int NL, int B, int nx, int H,
@@ -149,9 +199,9 @@ __host__ __device__ inline long scratch_floats(int NL, int B, int nx, int H,
          (long)cdiv(R, CHUNK_E) * NL * (H * H + H) + (long)R * K;
 }
 
-struct Lay {  // one layer's buffers; dm0 overwrites z2, dh3 dz4
+struct Lay {  // one layer's buffers; dm0 overwrites z2
   float *si, *sj, *agg, *z3, *z4, *m0, *z2;       // the forward's
-  float *dz4, *dz3, *dsi, *dsj, *dz2;             // the backward's
+  float *dz4, *dz3, *dsi, *dsj, *dz2, *dh3;       // the backward's
   float *t4, *t3, *t2, *thj;  // w4^T, w3[:2H]^T [H, 2H], w2^T, [w_hi; w_hj]^T
 };
 
@@ -174,7 +224,8 @@ __device__ inline Lay layer_bufs(float* scratch, int l, long per, int R,
   L.dsi = L.dz3 + RH;
   L.dsj = L.dsi + RH;
   L.dz2 = L.dsj + RH;
-  L.t4 = L.dz2 + EH;
+  L.dh3 = L.dz2 + EH;
+  L.t4 = L.dh3 + RH;
   L.t3 = L.t4 + H * H;
   L.t2 = L.t3 + 2 * H * H;
   L.thj = L.t2 + H * H;
@@ -204,28 +255,30 @@ __device__ __forceinline__ float post(const Tr<Sw>&, float x) {
   return swish(x);
 }
 
+template <class T>
 struct SidesIn {  // row r of [h | u | px | v]
-  const float *h, *u, *px, *v;
+  const T *h, *u, *px, *v;
   int H, D, V;
   __device__ float operator()(int r, int k) const {
-    if (k < H) return h[r * H + k];
+    if (k < H) return f32(h[r * H + k]);
     k -= H;
-    if (k < D) return u[r * D + k];
-    if (k == D) return px[r];
-    return v[r * V + k - D - 1];
+    if (k < D) return f32(u[r * D + k]);
+    if (k == D) return f32(px[r]);
+    return f32(v[r * V + k - D - 1]);
   }
 };
 
+template <class T>
 struct SidesW {  // [w_hi; w_du; w_dx; w_v | w_hj; -w_du; -w_dx; 0]
-  const float *w_hi, *w_hj, *w_du, *w_dx, *w_v;
+  const T *w_hi, *w_hj, *w_du, *w_dx, *w_v;
   int H, D;
   __device__ float operator()(int k, int n) const {
     const bool j = n >= H;
     if (j) n -= H;
-    if (k < H) return (j ? w_hj : w_hi)[k * H + n];
+    if (k < H) return f32((j ? w_hj : w_hi)[k * H + n]);
     k -= H;
-    if (k > D) return j ? 0.0f : w_v[(k - D - 1) * H + n];
-    const float x = k < D ? w_du[k * H + n] : w_dx[n];
+    if (k > D) return j ? 0.0f : f32(w_v[(k - D - 1) * H + n]);
+    const float x = f32(k < D ? w_du[k * H + n] : w_dx[n]);
     return j ? -x : x;
   }
 };
@@ -280,7 +333,9 @@ struct StoreDeriv {  // out[m, n] = acc * swish'(z[m, n])
   }
 };
 
-// [dh3 | dagg][r, n]: dh3 kept; dagg -> dz2[r K + k, n] for every k
+// [dh3 | dagg][r, n]: dh3 kept; dagg -> dz2[r K + k, n] for every k, in
+// the bf16 modes (RND) from the rounded dagg and mask / deg
+template <bool RND>
 struct StoreDh3Dz2 {
   float *dh3, *dz2;
   const float *z2, *mask;
@@ -297,7 +352,10 @@ struct StoreDh3Dz2 {
     deg = fmaxf(deg, 1.0f);
     for (int k = 0; k < K; ++k) {
       const int q = (r * K + k) * H + n;
-      dz2[q] = acc * (m[k] / deg) * dswish(z2[q]);
+      if constexpr (RND)
+        dz2[q] = bf16r(acc) * bf16r(m[k] / deg) * dswish(z2[q]);
+      else
+        dz2[q] = acc * (m[k] / deg) * dswish(z2[q]);
     }
   }
 };
@@ -335,9 +393,13 @@ struct Col {  // column sums of the W operand, columns [0, n) into out
 // result is bitwise the same from run to run. With A_BY_M the A tile loads
 // with consecutive threads on consecutive m (the transposed operand of a
 // weight gradient). With Col on, the tile at m0 = 0 also sums the W
-// operand's columns over [k0, k1) (a bias gradient), in k order.
-template <bool A_BY_M, bool TC, class ALoad, class WLoad, class StoreF,
-          class ColF = NoCol>
+// operand's columns over [k0, k1) (a bias gradient), in k order. With RND
+// (the bf16 modes) both operands round to bf16: A as it is written to shared
+// memory, W as it is read, so the column sums take the unrounded W; with TC
+// the products run on bf16 m16n8k16 tiles, one a warp's 8 columns and
+// k-step.
+template <bool A_BY_M, bool TC, bool RND, class ALoad, class WLoad,
+          class StoreF, class ColF = NoCol>
 __device__ void tile(int m0, int n0, int M, int N, int k0, int k1,
                      const ALoad& A, const WLoad& W, const StoreF& S,
                      float* smem, const ColF& C = ColF{}) {
@@ -371,7 +433,9 @@ __device__ void tile(int m0, int n0, int M, int N, int k0, int k1,
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const int e = tid + i * PT;
-      As[A_BY_M ? e / TM : e % PK][A_BY_M ? e % TM : e / PK] = post(A, ra[i]);
+      const float x = post(A, ra[i]);
+      As[A_BY_M ? e / TM : e % PK][A_BY_M ? e % TM : e / PK] =
+          RND ? bf16r(x) : x;
     }
 #pragma unroll
     for (int i = 0; i < NW; ++i) {
@@ -393,7 +457,27 @@ __device__ void tile(int m0, int n0, int M, int N, int k0, int k1,
         reinterpret_cast<const float(*)[AP]>(smem + buf * PK * AP);
     const float(*Ws)[WP] = reinterpret_cast<const float(*)[WP]>(
         smem + 2 * PK * AP + buf * PK * WP);
-    if constexpr (TC) {
+    if constexpr (TC && RND) {
+      // the m16n8k16 fragments: A rows r, r + 8 at k 2t, 2t + 1 (and + 8);
+      // B (column n) at k 2t, 2t + 1 (and + 8); As is k-major
+      float(*d)[4] = reinterpret_cast<float(*)[4]>(&acc[0][0]);
+      const int r = wm * 16 + g;
+      const uint32_t a[4] = {pack_bf16(As[2 * t][r], As[2 * t + 1][r]),
+                             pack_bf16(As[2 * t][r + 8], As[2 * t + 1][r + 8]),
+                             pack_bf16(As[2 * t + 8][r], As[2 * t + 9][r]),
+                             pack_bf16(As[2 * t + 8][r + 8],
+                                       As[2 * t + 9][r + 8])};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int n = wn * 16 + nt * 8 + g;
+        const uint32_t b[2] = {pack_bf16(Ws[2 * t][n], Ws[2 * t + 1][n]),
+                               pack_bf16(Ws[2 * t + 8][n], Ws[2 * t + 9][n])};
+        mma_bf16(d[nt], a, b);
+      }
+      if (ColF::on && tid < TN)
+#pragma unroll
+        for (int k = 0; k < PK; ++k) cs += Ws[k][tid];
+    } else if constexpr (TC) {
       float(*d)[4] = reinterpret_cast<float(*)[4]>(&acc[0][0]);
 #pragma unroll
       for (int kk = 0; kk < PK; kk += 8) {
@@ -425,14 +509,17 @@ __device__ void tile(int m0, int n0, int M, int N, int k0, int k1,
         for (int i = 0; i < RM; ++i) a[i] = As[k][ty * RM + i];
 #pragma unroll
         for (int j = 0; j < RN; ++j) w[j] = Ws[k][tx * RN + j];
+        if (ColF::on)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) csr[j] += w[j];
+        if constexpr (RND)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) w[j] = bf16r(w[j]);
 #pragma unroll
         for (int i = 0; i < RM; ++i)
 #pragma unroll
           for (int j = 0; j < RN; ++j)
             acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-        if (ColF::on)
-#pragma unroll
-          for (int j = 0; j < RN; ++j) csr[j] += w[j];
       }
     }
     if (more) put(buf ^ 1);
@@ -481,21 +568,22 @@ __device__ int items(int base, int n, const F& f) {
   return base + n;
 }
 
-// The tiles of an M x N product over rows [0, M): n items from `base`.
-template <bool TC = false, class ALoad, class WLoad, class StoreF>
+// The tiles of an M x N product over rows [0, M): n items from `base`;
+// RND rounds the operands to bf16.
+template <bool RND, bool TC = false, class ALoad, class WLoad, class StoreF>
 __device__ int product(int base, int M, int N, int Kd, const ALoad& A,
                        const WLoad& W, const StoreF& S, float* smem) {
   const int tn = cdiv(N, TN);
   return items(base, cdiv(M, TM) * tn, [&](int q) {
-    tile<false, TC>((q / tn) * TM, (q % tn) * TN, M, N, 0, Kd, A, W, S,
-                    smem);
+    tile<false, TC, RND>((q / tn) * TM, (q % tn) * TN, M, N, 0, Kd, A, W, S,
+                         smem);
   });
 }
 
 // The chunk partials of a weight gradient X^T dY ([M, N]) over `rows` data
 // rows, chunks of `per` rows; out(c) is chunk c's partial slice, col(c) its
 // bias column sums (NoCol for none).
-template <bool TC = false, class ALoad, class WLoad, class StoreAt,
+template <bool RND, bool TC = false, class ALoad, class WLoad, class StoreAt,
           class ColAt>
 __device__ int grad(int base, int M, int N, int rows, int per,
                     const ALoad& A, const WLoad& W, const StoreAt& out,
@@ -504,8 +592,8 @@ __device__ int grad(int base, int M, int N, int rows, int per,
   return items(base, nch * tm * tn, [&](int q) {
     const int c = q / (tm * tn), t = q % (tm * tn);
     const int k0 = c * per, k1 = min(rows, k0 + per);
-    tile<true, TC>((t / tn) * TM, (t % tn) * TN, M, N, k0, k1, A, W,
-                   out(c), smem, col(c));
+    tile<true, TC, RND>((t / tn) * TM, (t % tn) * TN, M, N, k0, k1, A, W,
+                        out(c), smem, col(c));
   });
 }
 
@@ -529,16 +617,16 @@ __device__ void sum_groups(float (&x)[NV], float* red) {
 
 // The layers' pre-norm outputs x(l, q): the single layer's
 // [h +] [swish](z4), the pair's z4 of the gate (l = 0) and the main layer.
-template <int NL, bool FA, bool RES>
+template <int NL, bool FA, bool RES, class T>
 struct PreNorm {
-  const float* h;
+  const T* h;
   const float* z4[NL];
   __device__ float operator()(int l, int q) const {
     if constexpr (NL == 2) {
       return z4[l][q];
     } else {
       const float a = FA ? swish(z4[0][q]) : z4[0][q];
-      return RES ? h[q] + a : a;
+      return RES ? f32(h[q]) + a : a;
     }
   }
 };
@@ -549,8 +637,8 @@ struct PreNorm {
 // InstanceNorm's mean and rsqrt factor of each layer's x for the feature,
 // every thread of a feature with the same values, summed in an order fixed
 // by the shapes.
-template <int NL, class X, class F>
-__device__ __forceinline__ void norm_items(const Params& p, const X& x,
+template <int NL, class P, class X, class F>
+__device__ __forceinline__ void norm_items(const P& p, const X& x,
                                            float* red, const F& f) {
   const int H = p.H, nx = p.nx, fch = cdiv(H, NF);
   const int rg = threadIdx.x / NF;
@@ -585,11 +673,11 @@ __device__ __forceinline__ void norm_items(const Params& p, const X& x,
 // the stash with STASH (the same values the combine reads, so out is
 // bitwise the variant's without it), and out = (1 - sigmoid(gn)) h +
 // sigmoid(gn) swish(ln).
-template <int NL, bool FA, bool RES, bool STASH>
-__device__ __forceinline__ void norm_fwd(const Params& p, const Lay (&L)[NL],
-                                         float* red) {
+template <int NL, bool FA, bool RES, bool STASH, int MM>
+__device__ __forceinline__ void norm_fwd(const Params<MM>& p,
+                                         const Lay (&L)[NL], float* red) {
   const int H = p.H;
-  PreNorm<NL, FA, RES> x{p.h, {}};
+  PreNorm<NL, FA, RES, In<MM>> x{p.h, {}};
 #pragma unroll
   for (int l = 0; l < NL; ++l) x.z4[l] = L[l].z4;
   norm_items<NL>(p, x, red, [&](int q0, int rows, int rg, const float* mean,
@@ -606,7 +694,7 @@ __device__ __forceinline__ void norm_fwd(const Params& p, const Lay (&L)[NL],
           p.ln[q] = ln;
         }
         const float tau = sigm(gn);
-        p.out[q] = (1.0f - tau) * p.h[q] + tau * swish(ln);
+        p.out[q] = (1.0f - tau) * f32(p.h[q]) + tau * swish(ln);
       }
     }
   });
@@ -617,12 +705,12 @@ __device__ __forceinline__ void norm_fwd(const Params& p, const Lay (&L)[NL],
 // xh mean(g xh)), dh = [dxo], dz4 = dxo [swish'(z4)]. The pair (NL = 2)
 // normalizes gn and ln, takes g back through the combine
 // (1 - sigmoid(gn)) h + sigmoid(gn) swish(ln), then each layer's norm.
-template <int NL, bool FA, bool RES>
-__device__ __forceinline__ void norm_bwd(const Params& p, const Lay (&L)[NL],
-                                         float* red) {
+template <int NL, bool FA, bool RES, int MM>
+__device__ __forceinline__ void norm_bwd(const Params<MM>& p,
+                                         const Lay (&L)[NL], float* red) {
   const int H = p.H;
   const float fnx = (float)p.nx;
-  PreNorm<NL, FA, RES> x{p.h, {}};
+  PreNorm<NL, FA, RES, In<MM>> x{p.h, {}};
 #pragma unroll
   for (int l = 0; l < NL; ++l) x.z4[l] = L[l].z4;
   norm_items<NL>(p, x, red, [&](int q0, int rows, int rg, const float* mean,
@@ -652,7 +740,7 @@ __device__ __forceinline__ void norm_bwd(const Params& p, const Lay (&L)[NL],
         tau = sigm(gn);
         const float gq = p.g[q];
         dln = gq * tau * dswish(ln);
-        dgn = gq * (swish(ln) - p.h[q]) * tau * (1.0f - tau);
+        dgn = gq * (swish(ln) - f32(p.h[q])) * tau * (1.0f - tau);
       };
       float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int i = rg; i < rows; i += RG) {
@@ -678,11 +766,13 @@ __device__ __forceinline__ void norm_bwd(const Params& p, const Lay (&L)[NL],
 
 // Phases A-D, the layers' forward, into nbr and each layer's s_i, s_j, m0,
 // z2, agg, z3 and z4; each phase ends with its grid-wide barrier.
-template <int NL>
-__device__ __forceinline__ void forward_phases(const Params& p,
+template <int NL, int MM>
+__device__ __forceinline__ void forward_phases(const Params<MM>& p,
                                                const Lay (&L)[NL], int* nbr,
                                                float* smem,
                                                cg::grid_group& grid) {
+  using T = In<MM>;
+  constexpr bool RND = MM != 0;
   const int nx = p.nx, H = p.H, D = p.D, V = p.V, K = p.K;
   const int R = p.B * nx, E = R * K, RH = R * H, EH = E * H;
   const int gthreads = gridDim.x * PT;
@@ -693,11 +783,12 @@ __device__ __forceinline__ void forward_phases(const Params& p,
   int base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
-    const LayerW& w = p.w[l];
-    base = product(base, R, 2 * H, H + D + 1 + V,
-                   SidesIn{p.h, p.u, p.px, p.v, H, D, V},
-                   SidesW{w.w_hi, w.w_hj, w.w_du, w.w_dx, w.w_v, H, D},
-                   StoreSides{L[l].si, L[l].sj, w.b1, H}, smem);
+    const LayerW<T>& w = p.w[l];
+    base = product<RND>(base, R, 2 * H, H + D + 1 + V,
+                        SidesIn<T>{p.h, p.u, p.px, p.v, H, D, V},
+                        SidesW<T>{w.w_hi, w.w_hj, w.w_du, w.w_dx, w.w_v, H,
+                                  D},
+                        StoreSides{L[l].si, L[l].sj, w.b1, H}, smem);
   }
   phase_end(grid, 1);
   // A2: m0, the edges' pre-activations
@@ -705,15 +796,17 @@ __device__ __forceinline__ void forward_phases(const Params& p,
   for (int l = 0; l < NL; ++l)
     for (int q = gtid; q < EH; q += gthreads) {
       const int e = q / H, c = q % H;
-      L[l].m0[q] = L[l].si[(e / K) * H + c] + L[l].sj[nbr[e] * H + c];
+      const float si = L[l].si[(e / K) * H + c], sj = L[l].sj[nbr[e] * H + c];
+      L[l].m0[q] = RND ? bf16r(si) + bf16r(sj) : si + sj;
     }
   phase_end(grid, 2);
   // B: z2
   base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l)
-    base = product<EDGE_TC>(base, E, H, H, Sw{L[l].m0, H}, Mat{p.w[l].w2, H},
-                            StoreBias{L[l].z2, p.w[l].b2, H}, smem);
+    base = product<RND, EDGE_TC>(base, E, H, H, Sw{L[l].m0, H},
+                                 Mat{p.w[l].w2, H},
+                                 StoreBias{L[l].z2, p.w[l].b2, H}, smem);
   phase_end(grid, 3);
   // B2: agg
 #pragma unroll
@@ -722,34 +815,42 @@ __device__ __forceinline__ void forward_phases(const Params& p,
       const int r = q / H, c = q % H;
       const float* m = p.mask + (r % nx) * K;
       float s = 0.0f, deg = 0.0f;
-      for (int k = 0; k < K; ++k) {
-        s += swish(L[l].z2[(r * K + k) * H + c]) * m[k];
-        deg += m[k];
+      if constexpr (RND) {  // a sum of products with bf16(mask / deg)
+        for (int k = 0; k < K; ++k) deg += m[k];
+        deg = fmaxf(deg, 1.0f);
+        for (int k = 0; k < K; ++k)
+          s += bf16r(m[k] / deg) * bf16r(swish(L[l].z2[(r * K + k) * H + c]));
+        L[l].agg[q] = s;
+      } else {
+        for (int k = 0; k < K; ++k) {
+          s += swish(L[l].z2[(r * K + k) * H + c]) * m[k];
+          deg += m[k];
+        }
+        L[l].agg[q] = s / fmaxf(deg, 1.0f);
       }
-      L[l].agg[q] = s / fmaxf(deg, 1.0f);
     }
   phase_end(grid, 4);
   // C: z3
   base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l)
-    base = product(base, R, H, 2 * H + V,
-                   UpdIn{p.h, L[l].agg, p.v, H, V}, Mat{p.w[l].w3, H},
-                   StoreBias{L[l].z3, p.w[l].b3, H}, smem);
+    base = product<RND>(base, R, H, 2 * H + V,
+                        UpdIn<T>{p.h, L[l].agg, p.v, H, V}, Mat{p.w[l].w3, H},
+                        StoreBias{L[l].z3, p.w[l].b3, H}, smem);
   phase_end(grid, 5);
   // D: z4
   base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l)
-    base = product(base, R, H, H, Sw{L[l].z3, H}, Mat{p.w[l].w4, H},
-                   StoreBias{L[l].z4, p.w[l].b4, H}, smem);
+    base = product<RND>(base, R, H, H, Sw{L[l].z3, H}, Mat{p.w[l].w4, H},
+                        StoreBias{L[l].z4, p.w[l].b4, H}, smem);
   phase_end(grid, 6);
 }
 
 // The whole forward; NL = 2 is the gated pair (both layers GNN_LayerLin),
-// whose stash (gn, ln) STASH writes.
-template <int NL, bool FA, bool RES, bool STASH>
-__device__ __forceinline__ void forward(const Params& p, float* smem) {
+// whose stash (gn, ln) STASH writes; MM the precision mode.
+template <int NL, bool FA, bool RES, bool STASH, int MM>
+__device__ __forceinline__ void forward(const Params<MM>& p, float* smem) {
   static_assert(NL == 1 || (!FA && !RES), "the pair's layers are LayerLin");
   static_assert(NL == 2 || !STASH, "the stash is the pair's");
   cg::grid_group grid = cg::this_grid();
@@ -767,10 +868,13 @@ __device__ __forceinline__ void forward(const Params& p, float* smem) {
   if (PHASE_TIMES) phase_end(grid, 7);
 }
 
-// The whole backward; NL = 2 is the gated pair (both layers GNN_LayerLin).
-template <int NL, bool FA, bool RES>
-__device__ __forceinline__ void backward(const Params& p, float* smem) {
+// The whole backward; NL = 2 is the gated pair (both layers GNN_LayerLin);
+// MM the precision mode.
+template <int NL, bool FA, bool RES, int MM>
+__device__ __forceinline__ void backward(const Params<MM>& p, float* smem) {
   static_assert(NL == 1 || (!FA && !RES), "the pair's layers are LayerLin");
+  using T = In<MM>;
+  constexpr bool RND = MM != 0;
   cg::grid_group grid = cg::this_grid();
   if (PHASE_TIMES) phase_end(grid, 0);
   const int nx = p.nx, H = p.H, D = p.D, V = p.V, K = p.K;
@@ -797,15 +901,15 @@ __device__ __forceinline__ void backward(const Params& p, float* smem) {
   // A (the backward's part): the transposed weights
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
-    const LayerW& w = p.w[l];
+    const LayerW<T>& w = p.w[l];
     for (int q = gtid; q < H * H; q += gthreads) {
       const int k = q / H, n = q % H;  // element (k, n) of the transposes
-      L[l].t4[q] = w.w4[n * H + k];
-      L[l].t2[q] = w.w2[n * H + k];
-      L[l].t3[k * 2 * H + n] = w.w3[n * H + k];
-      L[l].t3[k * 2 * H + H + n] = w.w3[(H + n) * H + k];
-      L[l].thj[q] = w.w_hi[n * H + k];
-      L[l].thj[H * H + q] = w.w_hj[n * H + k];
+      L[l].t4[q] = f32(w.w4[n * H + k]);
+      L[l].t2[q] = f32(w.w2[n * H + k]);
+      L[l].t3[k * 2 * H + n] = f32(w.w3[n * H + k]);
+      L[l].t3[k * 2 * H + H + n] = f32(w.w3[(H + n) * H + k]);
+      L[l].thj[q] = f32(w.w_hi[n * H + k]);
+      L[l].thj[H * H + q] = f32(w.w_hj[n * H + k]);
     }
   }
   // A-D: the layers' forward
@@ -818,26 +922,27 @@ __device__ __forceinline__ void backward(const Params& p, float* smem) {
   base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
-    base = product(base, R, H, H, Mat{L[l].dz4, H}, Mat{L[l].t4, H},
-                   StoreDeriv{L[l].dz3, L[l].z3, H}, smem);
+    base = product<RND>(base, R, H, H, Mat{L[l].dz4, H}, Mat{L[l].t4, H},
+                        StoreDeriv{L[l].dz3, L[l].z3, H}, smem);
     auto out = part(l, go.w4);
     auto col = part(l, go.b4);
-    base = grad(base, H, H, R, CHUNK, Tr<Sw>{{L[l].z3, H}},
+    base = grad<RND>(base, H, H, R, CHUNK, Tr<Sw>{{L[l].z3, H}},
                 Mat{L[l].dz4, H}, [=](int c) { return Store{out(c), H}; },
                 [=](int c) { return Col{col(c), H}; }, smem);
   }
   phase_end(grid, 8);
-  // G: dh3 (over dz4) and dagg into dz2; dw3 and db3
+  // G: dh3 and dagg into dz2; dw3 and db3
   base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
-    base = product(base, R, 2 * H, H, Mat{L[l].dz3, H}, Mat{L[l].t3, 2 * H},
-                   StoreDh3Dz2{L[l].dz4, L[l].dz2, L[l].z2, p.mask, H, K, nx},
-                   smem);
+    base = product<RND>(
+        base, R, 2 * H, H, Mat{L[l].dz3, H}, Mat{L[l].t3, 2 * H},
+        StoreDh3Dz2<RND>{L[l].dh3, L[l].dz2, L[l].z2, p.mask, H, K, nx},
+        smem);
     auto out = part(l, go.w3);
     auto col = part(l, go.b3);
-    base = grad(base, 2 * H + V, H, R, CHUNK,
-                Tr<UpdIn>{{p.h, L[l].agg, p.v, H, V}}, Mat{L[l].dz3, H},
+    base = grad<RND>(base, 2 * H + V, H, R, CHUNK,
+                Tr<UpdIn<T>>{{p.h, L[l].agg, p.v, H, V}}, Mat{L[l].dz3, H},
                 [=](int c) { return Store{out(c), H}; },
                 [=](int c) { return Col{col(c), H}; }, smem);
   }
@@ -846,10 +951,11 @@ __device__ __forceinline__ void backward(const Params& p, float* smem) {
   base = 0;
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
-    base = product<EDGE_TC>(base, E, H, H, Mat{L[l].dz2, H}, Mat{L[l].t2, H},
-                            StoreDeriv{L[l].z2, L[l].m0, H}, smem);
+    base = product<RND, EDGE_TC>(base, E, H, H, Mat{L[l].dz2, H},
+                                 Mat{L[l].t2, H},
+                                 StoreDeriv{L[l].z2, L[l].m0, H}, smem);
     float* ep = epart + l * (H * H + H);
-    base = grad<EDGE_TC>(
+    base = grad<RND, EDGE_TC>(
         base, H, H, E, CHUNK_E * K, Tr<Sw>{{L[l].m0, H}}, Mat{L[l].dz2, H},
         [=](int c) { return Store{ep + (long)c * estride, H}; },
         [=](int c) { return Col{ep + (long)c * estride + H * H, H}; }, smem);
@@ -862,12 +968,15 @@ __device__ __forceinline__ void backward(const Params& p, float* smem) {
     for (int q = gtid; q < RH; q += gthreads) {
       const int r = q / H, c = q % H, i = r % nx;
       float a = 0.0f, b = 0.0f;
-      for (int k = 0; k < K; ++k) a += dm0[(r * K + k) * H + c];
+      for (int k = 0; k < K; ++k) {
+        const float x = dm0[(r * K + k) * H + c];
+        a += RND ? bf16r(x) : x;
+      }
       // this graph's edges
       const float* g0 = dm0 + (long)(r - i) * K * H + c;
       for (int j = p.rev_ptr[i]; j < p.rev_ptr[i + 1]; ++j) {
         const int e = p.rev_e[j];
-        b += g0[e * H] * p.mask[e];
+        b += (RND ? bf16r(g0[e * H]) : g0[e * H]) * p.mask[e];
       }
       L[l].dsi[q] = a;
       L[l].dsj[q] = b;
@@ -881,24 +990,25 @@ __device__ __forceinline__ void backward(const Params& p, float* smem) {
   for (int l = 0; l < NL; ++l) {
     const Cat2 ds{L[l].dsi, L[l].dsj, H};
     if constexpr (NL == 1)
-      base = product(base, R, H, 2 * H, ds, Mat{L[l].thj, H},
-                     StoreAdd2{p.dh, L[l].dz4, H}, smem);
+      base = product<RND>(base, R, H, 2 * H, ds, Mat{L[l].thj, H},
+                          StoreAdd2{p.dh, L[l].dh3, H}, smem);
     else
-      base = product(base, R, H, 2 * H, ds, Mat{L[l].thj, H},
-                     StoreAdd{L[l].dz4, H}, smem);
+      base = product<RND>(base, R, H, 2 * H, ds, Mat{L[l].thj, H},
+                          StoreAdd{L[l].dh3, H}, smem);
     auto hi = part(l, go.hi);
     auto hj = part(l, go.hj);
     auto b1 = part(l, go.b1);
-    base = grad(base, H, 2 * H, R, CHUNK, MatT{p.h, H}, ds,
+    base = grad<RND>(base, H, 2 * H, R, CHUNK, MatT{p.h, H}, ds,
                 [=](int c) { return StoreSplit{hi(c), hj(c), H}; },
                 [=](int c) { return Col{b1(c), H}; }, smem);
     auto du = part(l, go.du);  // dw_du and dw_dx are adjacent
-    base = grad(base, D + 1, H, R, CHUNK, Tr<MixIn>{{p.u, p.px, D}},
+    // dmix = ds_i - ds_j, rounded (in the bf16 modes) as the W operand
+    base = grad<RND>(base, D + 1, H, R, CHUNK, Tr<MixIn<T>>{{p.u, p.px, D}},
                 Diff{L[l].dsi, L[l].dsj, H},
                 [=](int c) { return Store{du(c), H}; },
                 [](int) { return NoCol{}; }, smem);
     auto dv = part(l, go.v);
-    base = grad(base, V, H, R, CHUNK, MatT{p.v, V}, Mat{L[l].dsi, H},
+    base = grad<RND>(base, V, H, R, CHUNK, MatT{p.v, V}, Mat{L[l].dsi, H},
                 [=](int c) { return Store{dv(c), H}; },
                 [](int) { return NoCol{}; }, smem);
   }
@@ -919,7 +1029,7 @@ __device__ __forceinline__ void backward(const Params& p, float* smem) {
   }
   if constexpr (NL == 2)
     for (int q = gtid; q < RH; q += gthreads)
-      p.dh[q] = p.dh[q] + L[0].dz4[q] + L[1].dz4[q];
+      p.dh[q] = p.dh[q] + L[0].dh3[q] + L[1].dh3[q];
   if (PHASE_TIMES) phase_end(grid, 13);
 }
 
@@ -956,7 +1066,8 @@ inline int cooperative_grid(const void* kernel, int* blocks) {
   return 0;
 }
 
-inline int launch(const void* kernel, Params p, cudaStream_t st) {
+template <int MM>
+inline int launch(const void* kernel, Params<MM> p, cudaStream_t st) {
   int blocks = 0;
   const int err = cooperative_grid(kernel, &blocks);
   if (err) return err;

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from msmp_pde_torch.models.common import (
@@ -69,12 +70,21 @@ class GNNLayer(nn.Module):
                 self.TorchDense_1.kernel, self.TorchDense_1.bias,
                 self.TorchDense_2.kernel, self.TorchDense_2.bias)
 
-    def forward(self, h, u, px, variables, idx, mask):
+    def forward(self, h, u, px, variables, idx, mask,
+                mp_precision="float32"):
         """h [B, nx, H], px [B, nx] -> [B, nx, H]; on CUDA tensors through
-        the layer kernels (ops/mp_layer.py)."""
+        the layer kernels (ops/mp_layer.py), their products in
+        ``mp_precision``, which the model passes."""
         return mp_layer.fused_mp_layer(h, u, px[..., None], variables, idx,
                                        mask, self.weights(), self.final_act,
-                                       self.residual)
+                                       self.residual, mp_precision)
+
+    def plain(self, h, u, px, variables, idx, mask):
+        """The layer's float32 math in torch ops, differentiated by
+        autograd: the ``mp_remat`` route's."""
+        return mp_layer.fused_mp_layer_plain(
+            h, u, px[..., None], variables, idx, mask, self.weights(),
+            self.final_act, self.residual)
 
 
 class GATLayer(nn.Module):
@@ -152,7 +162,16 @@ class MPSolver(nn.Module):
     ops/mp_layer.py, ops/mp_pair.py). The sigmoid-gated message-passing
     pairs run the fused pair kernel, every other message-passing layer the
     single-layer kernel; the attention layers, the gradient gate and the
-    LSTM are plain torch ops on every device."""
+    LSTM are plain torch ops on every device.
+
+    ``mp_precision`` (``float32``, ``bfloat16``, ``bfloat16s``) is the
+    message-passing kernels' operand precision (ops/mp_layer.py); the
+    attention layers ignore it, as the JAX package's do. ``mp_remat``
+    (msmp_pde_tpu/models/gnn.py:333-336) runs each layer's float32 math in
+    torch ops under ``torch.utils.checkpoint`` instead of the kernels, and
+    the gated pairs as their two layers and the combine: the one route on
+    which the layers run as torch ops on the card, recomputed in the
+    backward. It takes float32 only."""
 
     def __init__(self, tw: int, *, n_vars: int, hidden: int = 128,
                  layers: int = 6, n_components: int = 1,
@@ -160,8 +179,14 @@ class MPSolver(nn.Module):
                  decoder: str = "cnn", twin_scale: bool = False,
                  save_state: bool = False, layer_type: str = "mp",
                  L: float = 16.0, tmax: float = 4.0, dt: float = 4.0 / 249,
-                 seed: int = 0):
+                 seed: int = 0, mp_precision: str = "float32",
+                 mp_remat: bool = False):
         super().__init__()
+        mp_layer.mode_of(mp_precision)
+        if mp_remat and mp_precision != "float32":
+            raise ValueError(
+                "mp_remat runs the float32 layer math in torch ops; "
+                f"mp_precision={mp_precision!r} needs the kernels")
         if (encoder not in ("mlp", "lem", "lstm")
                 or gate not in ("none", "sigmoid", "grad")
                 or decoder not in ("cnn", "glu", "diff_only")
@@ -177,6 +202,7 @@ class MPSolver(nn.Module):
         self.decoder, self.twin_scale = decoder, twin_scale
         self.save_state = save_state
         self.L, self.tmax, self.dt = L, tmax, dt
+        self.mp_precision, self.mp_remat = mp_precision, mp_remat
         if twin_scale:
             # MSSMP (gnn.py:269-287): two full towers, no parameter of
             # its own
@@ -185,7 +211,8 @@ class MPSolver(nn.Module):
                     tw, n_vars=n_vars, hidden=hidden, layers=layers,
                     n_components=n_components, encoder="lem",
                     gate="sigmoid", decoder="diff_only", L=L, tmax=tmax,
-                    dt=dt, seed=seed + i))
+                    dt=dt, seed=seed + i, mp_precision=mp_precision,
+                    mp_remat=mp_remat))
             return
         d, dtw = n_components, n_components * tw
         g = torch.Generator().manual_seed(seed)
@@ -230,19 +257,58 @@ class MPSolver(nn.Module):
         px_n = pos_x / self.L
         variables = var_vec[:, None, :].expand(B, nx, V)
         h, new_state = self._encode(window, px_n, variables, lem_state)
+        args = (window, px_n, variables, idx, mask)
+        run = self._remat if self.mp_remat else self._apply_layer
         for i in range(self.layers):
             layer = getattr(self, f"gnn_{i}")
-            args = (window, px_n, variables, idx, mask)
             if self.gate == "none":
-                h = layer(h, *args)
-            elif self.gate == "sigmoid" and self.layer_type == "mp":
+                h = run(layer, h, *args)
+            elif (self.gate == "sigmoid" and self.layer_type == "mp"
+                  and not self.mp_remat):
                 h = mp_pair.fused_gated_pair(
                     h, window, px_n[..., None], variables, idx, mask,
-                    getattr(self, f"gate_{i}").weights(), layer.weights())
+                    getattr(self, f"gate_{i}").weights(), layer.weights(),
+                    self.mp_precision)
             else:
-                h = self._gated(h, getattr(self, f"gate_{i}")(h, *args),
-                                layer(h, *args), idx, mask)
+                h = self._gated(h, run(getattr(self, f"gate_{i}"), h, *args),
+                                run(layer, h, *args), idx, mask)
         return self._decode(h, window), new_state
+
+    @property
+    def mp_precision(self) -> str:
+        """The message-passing kernels' operand precision; the model's one
+        setting of it, passed to each layer's call (and set on the twin
+        towers with it). Setting an unknown mode raises, as does a bf16
+        mode under ``mp_remat``."""
+        return self._mp_precision
+
+    @mp_precision.setter
+    def mp_precision(self, mode: str):
+        mp_layer.mode_of(mode)
+        if getattr(self, "mp_remat", False) and mode != "float32":
+            raise ValueError(f"mp_remat takes float32 only, not {mode!r}")
+        self._mp_precision = mode
+        for tower in self.children():
+            if isinstance(tower, MPSolver):
+                tower.mp_precision = mode
+
+    def _apply_layer(self, layer, h, *args):
+        """``layer`` at h; a message-passing layer in ``mp_precision``."""
+        if isinstance(layer, GNNLayer):
+            return layer(h, *args, mp_precision=self.mp_precision)
+        return layer(h, *args)
+
+    @staticmethod
+    def _remat(layer, h, *args):
+        """``layer`` at h under ``torch.utils.checkpoint`` (the
+        ``mp_remat`` route): a message-passing layer's float32 torch ops
+        (``GNNLayer.plain``), an attention layer itself, recomputed in the
+        backward instead of kept."""
+        f = layer.plain if isinstance(layer, GNNLayer) else layer
+        if not torch.is_grad_enabled():
+            return f(h, *args)
+        return torch.utils.checkpoint.checkpoint(f, h, *args,
+                                                 use_reentrant=False)
 
     def _gated(self, h, g, ln, idx, mask):
         """(1 - tau) h + tau swish(ln), tau = sigmoid(g) or the gradient

@@ -69,16 +69,25 @@ MODEL_REGISTRY = (
 def get_model(name: str, *, tw: int, n_eq_vars: int, L: float, tmax: float,
               dt: float, n_layers: int = 6, hidden: int = 128,
               eq_var_names: Tuple[str, ...] = (), positions=None,
-              seed: int = 0) -> Tuple[torch.nn.Module, str]:
+              seed: int = 0, mp_precision: str = "float32",
+              mp_remat: bool = False) -> Tuple[torch.nn.Module, str]:
     """(module, kind). A graph module takes ``1 + n_eq_vars`` model
     variables (normalized time first); a grid module takes the variables
     of ``eq_var_names`` that are in FNO_VARS (the Param variants) and
     ignores ``hidden`` and ``n_layers``. VNO builds its transform from
-    ``positions``, the grid's [nx] coordinates."""
+    ``positions``, the grid's [nx] coordinates. ``mp_precision`` and
+    ``mp_remat`` are the graph models' (models/gnn.py::MPSolver); a grid
+    model has no message-passing layer and ignores them, as the JAX
+    registry does, but an unknown precision raises for every name."""
+    from msmp_pde_torch.ops.mp_layer import mode_of
+
+    mode_of(mp_precision)
     if name in _GRAPH:
         kw = {"hidden": hidden, **_GRAPH[name]}  # MSGMP-PDE*'s 164 wins
         return MPSolver(tw, n_vars=1 + n_eq_vars, layers=n_layers, L=L,
-                        tmax=tmax, dt=dt, seed=seed, **kw), "graph"
+                        tmax=tmax, dt=dt, seed=seed,
+                        mp_precision=mp_precision, mp_remat=mp_remat,
+                        **kw), "graph"
     gen = torch.Generator().manual_seed(seed)
     n_vars = sum(v in FNO_VARS for v in eq_var_names)
     grid = {

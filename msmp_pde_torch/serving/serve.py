@@ -5,8 +5,9 @@
 
 Protocol (stdlib only, npz over HTTP):
 
-* ``GET /healthz`` -> JSON {status, backend, experiment, model, buckets,
-  grid} (grid: the dataset file the grid came from, or "uniform").
+* ``GET /healthz`` -> JSON {status, backend, experiment, model,
+  mp_precision, buckets, grid} (grid: the dataset file the grid came from,
+  or "uniform").
 * ``GET /metrics`` -> request counters and latency quantiles.
 * ``POST /v1/rollout?n_windows=8[&format=trajectory]`` with an ``.npz``
   body containing ``window`` [B, nx, d*tw] float32, optional ``steps`` [B]
@@ -297,6 +298,7 @@ def build_server(args):
         "backend": trainer.device.type,
         "experiment": args.experiment,
         "model": args.model,
+        "mp_precision": args.mp_precision,
         "buckets": list(buckets),
         "grid": data_path or "uniform",
     }
@@ -357,7 +359,12 @@ def build_parser():
                         "directory without the dataset rebuilds the "
                         "uniform grid from the PDE")
     p.add_argument("--data_suffix", type=str, default="")
-    p.add_argument("--mp_precision", type=str, default="float32")
+    p.add_argument("--mp_precision", type=str, default="float32",
+                   choices=["float32", "bfloat16", "bfloat16s"],
+                   help="the message-passing kernels' operand precision "
+                        "(bfloat16: bf16 operands, float32 sums; "
+                        "bfloat16s: the layers' inputs and weight matrices "
+                        "stored in bf16 too)")
     p.add_argument("--dp", type=int, default=0,
                    help="serving data-parallel devices (only 0 or 1)")
     p.add_argument("--device", type=str, default="cuda",

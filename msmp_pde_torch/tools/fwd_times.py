@@ -1,6 +1,6 @@
 """Card and host time of the two message-passing forward kernels.
 
-    python3 -m msmp_pde_torch.tools.fwd_times
+    python3 -m msmp_pde_torch.tools.fwd_times [--mp_precision bfloat16]
     PYTHONPATH=<another checkout> python3 <this file>  # that checkout's
 
 Runs ``mp_pair.fused_gated_pair_kernel`` and
@@ -12,10 +12,12 @@ around 50 calls (median of 7 rounds), which read the larger of the card's
 and the host's time; the host's time to enqueue a call (perf_counter, from
 an idle card); and the kernel's own time on the card from torch.profiler
 (mean over 50 launches), or "not measured" where the profiler shows none.
-Also the card's name and power limit. Needs a CUDA card. It uses only
-what every version of the port has, so that one checkout's copy times
-another's kernels.
+Also the card's name and power limit. ``--mp_precision`` (bfloat16,
+bfloat16s) runs the kernels in that mode. Needs a CUDA card. In float32
+it uses only what every version of the port has, so that one checkout's
+copy times another's kernels.
 """
+import argparse
 import statistics
 import subprocess
 import sys
@@ -86,7 +88,13 @@ def kernel_us(fn, kernel):
     return total / count if count and total else None
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mp_precision", default="float32",
+                    choices=["float32", "bfloat16", "bfloat16s"])
+    mode = ap.parse_args(argv).mp_precision
+    # the keyword only off float32, which older checkouts do not take
+    kw = {} if mode == "float32" else {"mp_precision": mode}
     if not torch.cuda.is_available():
         sys.exit("fwd_times: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -107,17 +115,18 @@ def main():
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
           else torch.cuda.get_device_name(0))
-    print(f"msmp_pde_torch from {mp_pair.__file__}")
+    print(f"msmp_pde_torch from {mp_pair.__file__}; mp_precision {mode}")
     with torch.no_grad():
         for B in (1, 4, 16):
             args = (rand(B, 100, 128), rand(B, 100, 25), rand(B, 100, 1),
                     rand(B, 100, 1), idx, mask)
             runs = (
                 ("mp_pair_fwd",
-                 lambda: mp_pair.fused_gated_pair_kernel(*args, Wg, Wl)),
+                 lambda: mp_pair.fused_gated_pair_kernel(*args, Wg, Wl,
+                                                         **kw)),
                 ("mp_layer_fwd",
                  lambda: mp_layer.fused_mp_layer_kernel(*args, W1, True,
-                                                        True)))
+                                                        True, **kw)))
             for name, fn in runs:
                 k = kernel_us(fn, f"{name}_kernel")
                 print(f"{name} bucket {B}: events {events_us(fn):.2f} us, "

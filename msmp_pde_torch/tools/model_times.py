@@ -1,6 +1,7 @@
 """Card and host time of a model's rollouts and train step.
 
     python3 -m msmp_pde_torch.tools.model_times [--model MSGMP-PDE]
+        [--mp_precision bfloat16]
     PYTHONPATH=<another checkout> python3 <this file> [--model ...]
         # that checkout's
 
@@ -17,6 +18,9 @@ card. Of the port it uses only modules that older checkouts have too
 (``kernels_us`` takes its ``calls`` from the grid models' slice on), so
 that one checkout's copy times another's kernels and host path.
 ``chip_smoke.py`` times its models through the same functions.
+``--mp_precision`` (bfloat16, bfloat16s) builds the graph model's
+message-passing layers in that mode; float32 passes no keyword, which
+older checkouts do not take.
 """
 import argparse
 import sys
@@ -143,7 +147,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="MSGMP-PDE")
     ap.add_argument("--requests", type=int, default=REQUESTS)
+    ap.add_argument("--mp_precision", default="float32",
+                    choices=["float32", "bfloat16", "bfloat16s"])
     args = ap.parse_args(argv)
+    kw = ({} if args.mp_precision == "float32"
+          else {"mp_precision": args.mp_precision})
     if not torch.cuda.is_available():
         sys.exit("model_times: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -153,10 +161,10 @@ def main(argv=None):
     print(f"msmp_pde_torch from {msmp_pde_torch.__file__}")
     experiment = experiment_of(args.model)
     engine = RolloutEngine(build_serving_trainer(experiment, args.model,
-                                                 device="cuda"),
+                                                 device="cuda", **kw),
                            batch_buckets=BUCKETS)
     time_rollouts(engine, args.model, args.requests)
-    trainer = build_trainer(experiment, args.model, device="cuda")
+    trainer = build_trainer(experiment, args.model, device="cuda", **kw)
     u_all, var_all = train_data(trainer, BATCH, seed=0)
     time_train_steps(trainer, u_all, args.model, var_all)
 

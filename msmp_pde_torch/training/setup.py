@@ -140,26 +140,24 @@ def uniform_grid(pde, base_resolution) -> GridInfo:
 def build_trainer(experiment: str, model: str, *,
                   base_resolution=(250, 100), neighbors: int = 3,
                   time_window: int = 25, n_graph_layers: int = 6,
-                  mp_precision: str = "float32", device=None,
-                  seed: int = 0, grid=None, parameter_ablation: bool = False,
-                  data_suffix: str = ""):
+                  mp_precision: str = "float32", mp_remat: bool = False,
+                  device=None, seed: int = 0, grid=None,
+                  parameter_ablation: bool = False, data_suffix: str = ""):
     """The ``Trainer`` of ``model`` on ``experiment``'s uniform grid, or on
     ``grid`` (a ``PDEDataset`` or ``GridInfo``), with weights random from
     ``seed``: a graph model, or a grid model with the experiment's
     equation variables and the grid's positions (VNO's transform), as
     msmp_pde_tpu/training/setup.py:134-146 builds it. A ``data_suffix``
     (the ``_I`` files) takes RPU's graph as the uniform grid's radius
-    stencil. ``device`` defaults to CUDA and raises without it."""
+    stencil. ``mp_precision`` (float32, bfloat16, bfloat16s; any other
+    raises) and ``mp_remat`` are the graph model's (models/gnn.py::
+    MPSolver). ``device`` defaults to CUDA and raises without it."""
     from msmp_pde_torch.data.graph import build_graph_spec
     from msmp_pde_torch.device import resolve_device
     from msmp_pde_torch.models.registry import get_model
     from msmp_pde_torch.training.loop import Trainer
 
     dev = resolve_device(device)
-    if mp_precision != "float32":
-        raise NotImplementedError(
-            f"mp_precision={mp_precision!r} is not ported yet (ROADMAP.md "
-            "Queue 2 item 7)")
     pde = pde_for_experiment(experiment, tuple(base_resolution))
     if data_suffix:
         pde.unstructured_grid = False
@@ -171,7 +169,8 @@ def build_trainer(experiment: str, model: str, *,
         model, tw=time_window, n_eq_vars=len(eq_norms),
         L=float(getattr(pde, "L", 16.0)), tmax=grid.tmax, dt=grid.dt,
         n_layers=n_graph_layers, eq_var_names=tuple(eq_norms),
-        positions=np.asarray(grid.x), seed=seed,
+        positions=np.asarray(grid.x), seed=seed, mp_precision=mp_precision,
+        mp_remat=mp_remat,
     )
     return Trainer(model=m.to(dev), kind=kind, spec=spec, eq_norms=eq_norms)
 
@@ -212,6 +211,7 @@ def setup_experiment(args, modes=("train", "valid", "test"),
         neighbors=args.neighbors, time_window=args.time_window,
         n_graph_layers=args.n_graph_layers,
         mp_precision=getattr(args, "mp_precision", "float32"),
+        mp_remat=getattr(args, "mp_remat", False),
         device=getattr(args, "device", None), seed=args.seed,
         grid=datasets[modes[0]], parameter_ablation=ablation,
         data_suffix=suffix)

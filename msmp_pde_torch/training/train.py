@@ -19,9 +19,12 @@ of the 26 ported registry names (models/registry.py::PORTED): the nine
 1-D grid models BaseCNN, FNO, FNOP (the equation variables of E2 or E3)
 and VNO, and the 2-D BaseCNN2D, FNO2D and FNO2DP (a and b); FNO2DPU
 raises. ``--device`` is cuda by default and raises without it. ``--dp``
-> 1, ``--mp_precision`` other than float32 and ``--mp_remat`` are not
-ported. cuDNN's TF32 stays at PyTorch's default (on) for the
-convolutions, as for every CLI of the port.
+> 1 is not ported. ``--mp_precision`` bfloat16 or bfloat16s runs the
+message-passing kernels with bf16 operands (ops/mp_layer.py);
+``--mp_remat`` runs each layer's float32 math in torch ops under
+``torch.utils.checkpoint`` instead of the kernels. cuDNN's TF32 stays at
+PyTorch's default (on) for the convolutions, as for every CLI of the
+port.
 """
 from __future__ import annotations
 
@@ -236,10 +239,6 @@ def main(args):
     if args.dp > 1:
         raise NotImplementedError(
             "data parallelism is not ported yet (ROADMAP.md Queue 1 item 13)")
-    if args.mp_precision != "float32" or args.mp_remat:
-        raise NotImplementedError(
-            "the bf16 modes and mp_remat are not ported yet (ROADMAP.md "
-            "Queue 2 item 7)")
     os.makedirs("models", exist_ok=True)
     os.makedirs("experiments/log", exist_ok=True)
 
@@ -320,9 +319,15 @@ def build_parser():
                    help="dataset filename suffix")
     p.add_argument("--mp_precision", type=str, default="float32",
                    choices=["float32", "bfloat16", "bfloat16s"],
-                   help="only float32 is ported")
+                   help="the message-passing kernels' operand precision: "
+                        "bfloat16 rounds every product's operands to bf16 "
+                        "(float32 sums); bfloat16s also stores the layers' "
+                        "inputs and weight matrices in bf16")
     p.add_argument("--mp_remat", action="store_true",
-                   help="not ported")
+                   help="run each message-passing layer's float32 math as "
+                        "torch ops under torch.utils.checkpoint, "
+                        "recomputed in the backward, instead of the "
+                        "kernels (float32 only)")
     return p
 
 

@@ -840,3 +840,87 @@ def test_rpu_model_kernel_path_matches_plain_path_knn_rpu(cuda_device, name):
     for pname, a, b in zip(names, grads_k, grads_p):
         ok, err = scale_aware(a, b, scales[pname])
         assert ok, (pname, err, scales[pname])
+
+
+# ---- the bf16 precision modes (chip_smoke.py phase 27) --------------------
+# E1's shapes at batches 1, 16 and 48, hidden 164, D = 50 with V = 3 on the
+# radius graph and on RPU's k-NN graph (nodes of in-degree 0). A kernel in
+# bfloat16 or bfloat16s is held as chip_smoke.bf16_kernel_held holds it
+# (phase 27): a forward's outputs against the plain version in the same
+# mode, a backward's against the spread of three sound plain versions, and
+# every rounding site on the kernel's own operands from its workspace; two
+# runs bitwise equal. Each fault planted in the plain site functions fails
+# its site on the kernel's run.
+BF16_CASES = [(B, 128, 25, 1, 3) for B in (1, 16, 48)] + [
+    (16, 164, 25, 1, 3), (16, 128, 50, 3, 3), (16, 128, 50, 3, "rpu")]
+BF16_MODES = ["bfloat16", "bfloat16s"]
+
+
+def _bf16_args(dev, B, H, D, V, n, seed):
+    """(h, u, px, v, idx, mask, Wg, Wl, W1, g) on the graph ``n``."""
+    rng = np.random.default_rng(seed)
+    graphs = {"knn": _knn_graph, "rpu": _rpu_graph}
+    idx, mask = (graphs[n](100) if n in graphs else
+                 build_neighbors_radius(np.linspace(0.0, 16.0, 100), n))
+    W = [tuple(w.detach() for w in GNNLayer(
+        H, D, V, torch.Generator().manual_seed(seed + i), i == 2,
+        i == 2).to(dev).weights()) for i in range(3)]
+    r = lambda *s, **k: _rand(rng, dev, *s, **k)
+    return (r(B, 100, H), r(B, 100, D), r(B, 100, 1), r(B, 100, V, scale=.5),
+            torch.as_tensor(idx, device=dev),
+            torch.as_tensor(mask, device=dev), *W, r(B, 100, H))
+
+
+@pytest.mark.parametrize("mode", BF16_MODES)
+@pytest.mark.parametrize("name", ["mp_pair_fwd", "mp_pair_bwd",
+                                  "mp_layer_fwd", "mp_layer_bwd"])
+@pytest.mark.parametrize("B,H,D,V,n", BF16_CASES)
+def test_bf16_kernels_match_plain(cuda_device, B, H, D, V, n, name, mode):
+    from chip_smoke import bf16_kernel_held, bf16_kernel_run, flat, mp_calls
+
+    *base, wg, wl, w1, g = _bf16_args(cuda_device, B, H, D, V, n, 90 + B)
+    ws = (wg, wl) if name.startswith("mp_pair") else (w1,)
+    args = (*base, *ws) + ((g,) if name.endswith("_bwd") else ())
+    out, layers = bf16_kernel_run(name, args, mode)
+    with torch.no_grad():
+        again = flat(mp_calls(name, mode)[0](*args))
+    assert all(torch.equal(a, b) for a, b in zip(flat(out), again))
+    ok, r, site_r, site, _, held = bf16_kernel_held(name, args, mode, out,
+                                                    layers)
+    assert ok, (held, r, site, site_r)
+
+
+def test_bf16_planted_faults_fail_their_sites(cuda_device):
+    from chip_smoke import bf16_fault_check
+
+    *base, wg, wl, w1, g = _bf16_args(cuda_device, 16, 128, 25, 1, 3, 96)
+    bf16_fault_check({"mp_pair_fwd": (*base, wg, wl),
+                      "mp_pair_bwd": (*base, wg, wl, g),
+                      "mp_layer_fwd": (*base, w1),
+                      "mp_layer_bwd": (*base, w1, g)})
+
+
+@pytest.mark.parametrize("mode", BF16_MODES)
+def test_bf16_pair_stash_at_batch_48(cuda_device, mode):
+    """The stash variant's out is bitwise the variant's without it; its
+    gn and ln are held as the forward is."""
+    from chip_smoke import BF16_FWD_RATIO, bf16_ratios, mp_calls
+
+    *base, wg, wl, _, _ = _bf16_args(cuda_device, 48, 128, 25, 1, 3, 95)
+    args = (*base, wg, wl)
+    kern, plain = mp_calls("mp_pair_fwd_stash", mode)
+    with torch.no_grad():
+        out, gn, ln = kern(*args)
+        assert torch.equal(out, mp_calls("mp_pair_fwd", mode)[0](*args))
+        r = bf16_ratios([out, gn, ln], plain(*args),
+                        mp_calls("mp_pair_fwd_stash")[1](*args))
+    assert max(r) <= BF16_FWD_RATIO, r
+
+
+@pytest.mark.parametrize("mode", BF16_MODES)
+def test_bf16_cooperative_grids_fill_every_sm(cuda_device, mode):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("mp_pair_fwd", "mp_pair_bwd", "mp_layer_fwd",
+                 "mp_layer_bwd"):
+        n = mp_layer.grid_blocks(name, name.startswith("mp_layer"), mode)
+        assert n >= sms and n % sms == 0, (name, n)
