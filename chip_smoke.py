@@ -185,7 +185,28 @@ Phases, each of which fails the run on error:
      bfloat16s and phase 18's float32 checkpoint in bfloat16, each window
      held against the plain path; MP-PDE's step (held as MSMP-PDE's) and
      train_epoch in each mode; the forced-fallback step of MSMP-PDE at
-     batch 48 in each mode.
+     batch 48 in each mode;
+ 28. the exported rollouts (serving/export.py, the kernels as the msmp
+     torch.library ops): MSMP-PDE at full width (E1, hidden 128, bucket
+     16, 8 windows), MP-PDE, MSGMP-PDE at hidden 164 (the LEM's ring
+     route) and MSMP-PDE in bfloat16s exported on the card, then replayed
+     in a fresh process (``chip_smoke.py --replay``) that builds no model,
+     each bitwise equal to the engine's rollout of the same request with
+     the engine's launches; the exported program's and the engine's
+     rollout p50 at buckets 1, 4 and 16, in turns; MSMP-PDE exported on
+     the CPU and moved to the card at load time (move_to_device_pass)
+     against the card's rollout; the op layer's host time a launch beside
+     the kernel function's;
+ 29. data parallelism (parallel/mesh.py): whether a process keeps a
+     failed CUDA initialisation; MSMP-PDE's step at batch 16, unrolled 0
+     and 1, at world size 1 under NCCL (a rank process, ``chip_smoke.py
+     --ddp``) bitwise equal to the step without a group, and at two gloo
+     ranks on the one card (NCCL takes a card a rank), 8 samples each,
+     every gradient within scale_aware of the plain step's, each rank with
+     a step's launches; the steps' times in the group and before it, and
+     the gradients' all-reduce alone. cuDNN runs its deterministic
+     algorithms in this phase: its default conv backward need not repeat
+     bitwise.
 
 Comparisons run in full float32 (TF32 off for matmuls and cuDNN convs),
 the bf16 modes' against the plain versions in the same mode.
@@ -195,6 +216,7 @@ The last line is {"ok": true, "device": {...}}.
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3772,6 +3794,489 @@ def bf16_fit(data_dir, work_dir, on, mode):
     return totals, ckpt, data
 
 
+def full_float32():
+    """TF32 off for matmuls and cuDNN's convolutions, as every comparison
+    of this script runs (its worker processes too)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# ---- phase 28: the exported rollouts ----------------------------------
+EXPORT_BUCKET = 16
+EXPORT_REQUESTS = 30
+
+
+def _export_inputs(trainer, B, seed):
+    """A request of B windows, start steps of which some windows cross
+    nt - tw, and the model's variables (U(0.1, 1))."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nx, dtw = trainer.spec.nx, trainer.d * trainer.tw
+    nt = int(trainer.spec.t_grid.shape[0])
+    window = rng.normal(size=(B, nx, dtw)).astype(np.float32)
+    steps = rng.integers(trainer.tw, nt - trainer.tw + 1, size=B)
+    var = {k: rng.uniform(0.1, 1.0, B).astype(np.float32)
+           for k in trainer.eq_norms}
+    return window, steps, var
+
+
+def replay_worker(task_path):
+    """``chip_smoke.py --replay <task.json>``, the fresh process of phase
+    28: with the msmp ops registered (``msmp_pde_torch.ops``) and no model
+    built, each artifact loaded with torch.export.load and run on its
+    request, the launches counted around each run; writes the outputs and
+    prints {name: launches} and the package's modules it imported."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import msmp_pde_torch.ops  # noqa: F401  (the msmp ops)
+
+    full_float32()
+    task = json.loads(Path(task_path).read_text())
+    dev = torch.device("cuda")
+    report = {}
+    for name, art in task["artifacts"].items():
+        prog = torch.export.load(art["path"]).module()
+        z = np.load(art["inputs"])
+        var = {k[4:]: torch.as_tensor(z[k], device=dev) for k in z.files
+               if k.startswith("var/")}
+        args = (torch.as_tensor(z["window"], device=dev),
+                torch.as_tensor(z["steps"], device=dev), var)
+        with torch.no_grad():
+            prog(*args)  # a first run, uncounted
+            torch.cuda.synchronize()
+            reset_counts()
+            out = prog(*args)
+            torch.cuda.synchronize()
+        report[name] = launch_counts()
+        np.save(art["out"], out.cpu().numpy())
+    mods = sorted(m for m in sys.modules if m.startswith("msmp_pde_torch"))
+    print(json.dumps({"launches": report, "modules": mods}))
+
+
+def export_phase(engines, work_dir, on):
+    """Phase 28: each engine's rollout at bucket EXPORT_BUCKET and
+    N_WINDOWS windows exported on the card (serving/export.py), replayed in
+    a fresh process (``replay_worker``) bitwise equal to the engine's
+    rollout of the same request with the same launches (the expected ones);
+    the first engine's artifact also loaded here at buckets 1, 4 and 16 and
+    its rollout p50 timed beside the engine's, in turns; the same model
+    exported on the CPU and moved to the card at load time
+    (``move_to_device_pass``), bitwise the card's rollout; the op layer's
+    host time a launch."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.serving.engine import (
+        RolloutEngine,
+        build_serving_trainer,
+    )
+    from msmp_pde_torch.serving.export import export_rollout, load_exported
+
+    work = Path(work_dir)
+    task = {"artifacts": {}}
+    want = {}
+    for i, (name, engine) in enumerate(engines.items()):
+        tr = engine.trainer
+        t0 = time.perf_counter()
+        path = work / f"{name}.pt2"
+        blob = export_rollout(engine, EXPORT_BUCKET, N_WINDOWS,
+                              path=str(path))
+        took = time.perf_counter() - t0
+        window, steps, var = _export_inputs(tr, EXPORT_BUCKET, 80 + i)
+        reset_counts()
+        ref = engine.rollout(window, var or None, start_step=steps,
+                             n_windows=N_WINDOWS)
+        launches = launch_counts()
+        expect = expected_launches(tr.model, N_WINDOWS)
+        check(launches == expect, f"export {name}: the engine's launches "
+              f"{nonzero(launches)}, expected {nonzero(expect)}")
+        want[name] = (ref, launches)
+        inputs = work / f"{name}.in.npz"
+        np.savez(inputs, window=window, steps=steps,
+                 **{f"var/{k}": v for k, v in var.items()})
+        task["artifacts"][name] = {"path": str(path), "inputs": str(inputs),
+                                   "out": str(work / f"{name}.out.npy")}
+        print(f"export {name} @bucket {EXPORT_BUCKET} x {N_WINDOWS} "
+              f"windows: {took:.3f} s, {len(blob)} bytes")
+    (work / "replay.json").write_text(json.dumps(task))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--replay", str(work / "replay.json")],
+                         capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"the replay process failed:\n"
+          f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"replay process: {time.perf_counter() - t0:.3f} s; the "
+          f"package's modules it imported: {', '.join(report['modules'])}")
+    built = [m for m in report["modules"] if m.startswith((
+        "msmp_pde_torch.models.gnn", "msmp_pde_torch.models.registry",
+        "msmp_pde_torch.serving", "msmp_pde_torch.training",
+        "msmp_pde_torch.utils"))]
+    check(not built, f"the replay process imported {built}")
+    for name, (ref, launches) in want.items():
+        got = np.load(task["artifacts"][name]["out"])
+        check(np.array_equal(got, ref), f"export {name}: the replay differs "
+              f"from the engine by {np.abs(got - ref).max():.3e} (max "
+              f"|engine| {np.abs(ref).max():.3e})")
+        check(report["launches"][name] == launches,
+              f"export {name}: replay launches "
+              f"{nonzero(report['launches'][name])}, the engine's "
+              f"{nonzero(launches)}")
+        print(f"export {name}: the fresh process's replay is bitwise the "
+              f"engine's rollout; launches {nonzero(launches)} each")
+
+    # the exported program and the engine, timed in turns in this process
+    name, engine = next(iter(engines.items()))
+    tr = engine.trainer
+    for B in BUCKETS:
+        art = load_exported(str(work / f"{name}.pt2")
+                            if B == EXPORT_BUCKET else
+                            export_rollout(engine, B, N_WINDOWS))
+        window, steps, var = _export_inputs(tr, B, 90 + B)
+        ref = engine.rollout(window, var or None, start_step=steps,
+                             n_windows=N_WINDOWS)
+        check(np.array_equal(art(window, steps, var), ref),
+              f"export {name} @bucket {B}: differs from the engine")
+        lats = {"exported": [], "engine": []}
+        runs = {"exported": lambda: art(window, steps, var),
+                "engine": lambda: engine.rollout(
+                    window, var or None, start_step=steps,
+                    n_windows=N_WINDOWS)}
+        for i in range(EXPORT_REQUESTS):
+            for k in (("exported", "engine") if i % 2 == 0
+                      else ("engine", "exported")):
+                t0 = time.perf_counter()
+                runs[k]()
+                lats[k].append((time.perf_counter() - t0) * 1e3)
+        p50 = {k: float(np.percentile(v, 50)) for k, v in lats.items()}
+        print(f"{name} @bucket {B} x {N_WINDOWS} windows, {EXPORT_REQUESTS} "
+              f"requests each in turns: exported p50 "
+              f"{p50['exported']:.3f} ms, engine p50 {p50['engine']:.3f} ms "
+              f"({on})")
+
+    # exported on the CPU, moved to the card at load time
+    cpu_tr = build_serving_trainer("E1", name, device="cpu")
+    cpu_engine = RolloutEngine(cpu_tr, {k: v.detach().cpu() for k, v in
+                                        tr.model.state_dict().items()},
+                               batch_buckets=(EXPORT_BUCKET,))
+    moved = load_exported(export_rollout(cpu_engine, EXPORT_BUCKET,
+                                         N_WINDOWS), device="cuda")
+    window, steps, var = _export_inputs(tr, EXPORT_BUCKET, 99)
+    ref = engine.rollout(window, var or None, start_step=steps,
+                         n_windows=N_WINDOWS)
+    reset_counts()
+    got = moved(window, steps, var)
+    moved_launches = launch_counts()
+    check(moved.device.type == "cuda" and moved_launches == expected_launches(
+        tr.model, N_WINDOWS), f"the CPU export moved to the card launched "
+        f"{nonzero(moved_launches)}")
+    check(np.array_equal(got, ref), f"the CPU export moved to the card "
+          f"differs from the engine by {np.abs(got - ref).max():.3e}")
+    print(f"{name} exported on the CPU, moved to the card "
+          f"(move_to_device_pass): bitwise the engine's rollout, launches "
+          f"{nonzero(moved_launches)}")
+
+    # the op layer's host time a launch: the pair's forward at bucket 1
+    # through msmp::pair_fwd and through its kernel function
+    from msmp_pde_torch.ops import mp_pair
+
+    spec, model = tr.spec, tr.model
+    g = torch.Generator(device="cuda").manual_seed(28)
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=g)  # noqa: E731
+    Wg, Wl = model.gate_0.weights(), model.gnn_0.weights()
+    args = (rand(1, spec.nx, Wg[0].shape[0]), rand(1, spec.nx, tr.tw),
+            rand(1, spec.nx, 1), rand(1, spec.nx, Wg[4].shape[0]), spec.idx,
+            spec.mask)
+    with torch.no_grad():
+        op_ms = host_ms(lambda: torch.ops.msmp.pair_fwd(
+            *args, list(Wg), list(Wl), False, "float32"), reps=200)
+        fn_ms = host_ms(lambda: mp_pair.fused_gated_pair_kernel(
+            *args, Wg, Wl), reps=200)
+    print(f"host time a launch of mp_pair_fwd @bucket 1: msmp::pair_fwd "
+          f"{op_ms * 1e3:.1f} us, the kernel function "
+          f"{fn_ms * 1e3:.1f} us ({on})")
+
+
+# ---- phase 29: data parallelism ----------------------------------------
+DDP_UNROLLED = (0, 1)
+DDP_TIMED_STEPS = 20
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms in the block: phase 29 compares
+    steps bit for bit, and cuDNN may otherwise pick a convolution backward
+    that sums in another order from one call to the next."""
+    import torch
+
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            was
+
+
+def _step_grads(trainer, u_all, batch, unrolled):
+    """(loss, {name: gradient}) of one AdamW step of ``trainer`` at
+    ``unrolled`` on ``batch`` = (idx, steps), from its current weights."""
+    tx = trainer.make_optimizer(1e-4, 0.4, [1, 5, 10, 15], 250)
+    loss = trainer.train_step_fn(tx, unrolled)(u_all, {}, *batch)
+    return loss.detach().clone(), {n: p.grad.detach().clone() for n, p in
+                                   trainer.model.named_parameters()}
+
+
+def _step_ms(trainer, u_all, batch):
+    """Median CUDA-event time of a step at unrolled 0 over
+    DDP_TIMED_STEPS steps, after three."""
+    import torch
+
+    step = trainer.train_step_fn(trainer.make_optimizer(
+        1e-4, 0.4, [1, 5, 10, 15], 250), 0)
+    for _ in range(3):
+        step(u_all, {}, *batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DDP_TIMED_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(u_all, {}, *batch)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def ddp_worker(task_path):
+    """``chip_smoke.py --ddp <task.json>``, a rank of phase 29 (torchrun's
+    environment set by the caller): joins the group with the task's
+    backend, runs one step a depth from the task's weights on its slice of
+    the batch, and rank 0 saves the loss, the gradients, the launches of
+    each step and the step's time."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from msmp_pde_torch.parallel import mesh
+    from msmp_pde_torch.training.setup import build_trainer
+
+    full_float32()
+    task = json.loads(Path(task_path).read_text())
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    z = torch.load(task["inputs"], weights_only=True)
+    u_all = z["u"].to(dev)
+    state = torch.load(task["state"], weights_only=True)
+    batch0 = (z["idx0"].to(dev), z["steps0"].to(dev))
+
+    def trainer():
+        tr = build_trainer("E1", "MSMP-PDE", device=dev)
+        tr.model.load_state_dict(state, strict=True)
+        return tr
+
+    # the step without a group first, in this process, for its time
+    plain_ms = _step_ms(trainer(), u_all, batch0)
+    check(mesh.init_distributed("cuda", backend=task["backend"] or None),
+          "no torchrun environment")
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "plain_step_ms": plain_ms}
+    for unrolled in DDP_UNROLLED:
+        tr = trainer()
+        batch = (z[f"idx{unrolled}"].to(dev), z[f"steps{unrolled}"].to(dev))
+        reset_counts()
+        with cudnn_deterministic():
+            loss, grads = _step_grads(tr, u_all, batch, unrolled)
+        res[f"launches{unrolled}"] = launch_counts()
+        res[f"loss{unrolled}"] = loss.cpu()
+        res[f"grads{unrolled}"] = {n: g.cpu() for n, g in grads.items()}
+    res["step_ms"] = _step_ms(tr, u_all, batch0)
+    # the gradients' all-reduce alone (sum_grads), by CUDA events
+    params = list(tr.model.parameters())
+    times = []
+    for _ in range(DDP_TIMED_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        mesh.sum_grads(params)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    res["sum_grads_ms"] = statistics.median(times)
+    if mesh.rank() == 0:
+        torch.save(res, task["out"])
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _ranks(task, work, world):
+    """Start ``world`` ranks of ``ddp_worker`` on the card (every rank
+    LOCAL_RANK 0: one card) and wait for them; fails on any rank's
+    error."""
+    path = Path(work) / f"ddp_{task['backend'] or 'nccl'}_{world}.json"
+    path.write_text(json.dumps(task))
+    port = str(_free_port())
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp", str(path)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    backend = task["backend"] or "nccl"
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{world} rank(s), {backend}: rank {r} "
+              f"failed ({p.returncode}):\n{o[-2000:]}\n{e[-4000:]}")
+
+
+def ddp_phase(params, u_all, work_dir, on):
+    """Phase 29: MSMP-PDE's step (batch 16, unrolled 0 and 1, weights from
+    phase 4) in a process group against the step without one: at world
+    size 1 under NCCL (the default backend on the card) its loss and every
+    gradient bitwise equal; at two ranks on the one card with gloo (NCCL
+    takes one rank a card), each rank its 8 samples, each gradient within
+    ``scale_aware`` of the plain step's; each rank's launches those of a
+    step; the step's time in each."""
+    import numpy as np
+    import torch
+
+    from msmp_pde_torch.training.setup import build_trainer
+
+    dev = torch.device("cuda")
+    work = Path(work_dir)
+    rng = np.random.default_rng(29)
+    nt = u_all.shape[1]
+    inputs = {"u": u_all.cpu()}
+    for unrolled in DDP_UNROLLED:
+        inputs[f"idx{unrolled}"] = torch.as_tensor(
+            rng.permutation(u_all.shape[0])[:TRAIN_BATCH])
+        inputs[f"steps{unrolled}"] = torch.as_tensor(rng.integers(
+            25, nt - 25 * (unrolled + 1) + 1, size=TRAIN_BATCH))
+    torch.save(inputs, work / "ddp_inputs.pt")
+    torch.save({k: v.detach().cpu() for k, v in params.items()},
+               work / "ddp_state.pt")
+    plain = {}
+    for unrolled in DDP_UNROLLED:
+        batch = (inputs[f"idx{unrolled}"].to(dev),
+                 inputs[f"steps{unrolled}"].to(dev))
+        runs = []
+        for _ in range(2):  # the plain step, twice: it must repeat bitwise
+            tr = build_trainer("E1", "MSMP-PDE", device=dev)
+            tr.model.load_state_dict(params, strict=True)
+            with cudnn_deterministic():
+                runs.append(_step_grads(tr, u_all, batch, unrolled))
+        (l1, g1), (l2, g2) = runs
+        check(torch.equal(l1, l2) and all(torch.equal(g1[n], g2[n])
+                                          for n in g1),
+              f"the plain step at unrolled {unrolled} does not repeat "
+              "bitwise")
+        plain[unrolled] = runs[0]
+    plain_ms = _step_ms(tr, u_all, (inputs["idx0"].to(dev),
+                                    inputs["steps0"].to(dev)))
+    model = tr.model
+    for backend, world in ((None, 1), ("gloo", 2)):
+        out = work / f"ddp_{backend or 'nccl'}_{world}.pt"
+        t0 = time.perf_counter()
+        _ranks({"backend": backend, "inputs": str(work / "ddp_inputs.pt"),
+                "state": str(work / "ddp_state.pt"), "out": str(out)},
+               work, world)
+        took = time.perf_counter() - t0
+        res = torch.load(out, weights_only=False)
+        label = f"{res['backend']} at world size {res['world']}"
+        check(res["world"] == world and res["backend"] == (backend or "nccl"),
+              f"phase 29: ran {label}")
+        for unrolled in DDP_UNROLLED:
+            loss, grads = plain[unrolled]
+            want = expected_launches(model, unrolled + 1, 1)
+            check(res[f"launches{unrolled}"] == want,
+                  f"{label}, unrolled {unrolled}: a rank's launches "
+                  f"{nonzero(res[f'launches{unrolled}'])}, expected "
+                  f"{nonzero(want)}")
+            got_loss = res[f"loss{unrolled}"].to(dev)
+            got = {n: g.to(dev) for n, g in res[f"grads{unrolled}"].items()}
+            if world == 1:
+                same = torch.equal(got_loss, loss) and all(
+                    torch.equal(got[n], g) for n, g in grads.items())
+                check(same, f"{label}, unrolled {unrolled}: the step is not "
+                      "bitwise the step without a group")
+                print(f"DDP {label}, unrolled {unrolled}: loss and every "
+                      "gradient bitwise the plain step's; launches "
+                      f"{nonzero(want)}")
+                continue
+            scales = grad_scales(grads.items())
+            worst = 0.0
+            for n, g in grads.items():
+                ok, e = scale_aware(got[n], g, scales[n])
+                check(ok, f"{label}, unrolled {unrolled}: {n} differs by "
+                      f"{e:.3e} (scale {scales[n]:.3e})")
+                worst = max(worst, e / max(scales[n], 1e-30))
+            le = abs(got_loss.item() - loss.item()) / abs(loss.item())
+            check(le <= TRAIN_LOSS_RTOL, f"{label}: loss off by {le:.3e}")
+            print(f"DDP {label} on one card, unrolled {unrolled}: loss "
+                  f"rel {le:.3e}, every gradient within scale_aware (largest "
+                  f"|diff| / scale {worst:.3e}); launches a rank "
+                  f"{nonzero(want)}")
+        print(f"DDP {label}: {took:.3f} s of ranks; on rank 0 a step at "
+              f"unrolled 0 {res['step_ms']:.4f} ms in the group, "
+              f"{res['plain_step_ms']:.4f} ms before it joined (the "
+              f"gradients' all-reduce alone {res['sum_grads_ms']:.4f} ms); "
+              f"the plain step in this process {plain_ms:.4f} ms ({on})")
+
+
+CUDA_CACHE_PROBE = """
+import json, os
+os.environ["CUDA_VISIBLE_DEVICES"] = ""
+import torch
+first = torch.cuda.is_available()
+os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+again = torch.cuda.is_available()
+try:
+    torch.cuda.init()
+    init = "ok"
+except Exception as e:
+    init = type(e).__name__
+print(json.dumps([first, again, torch.cuda.device_count(), init]))
+"""
+
+
+def cuda_failure_cached():
+    """Whether torch keeps a failed CUDA initialisation for the rest of
+    its process (parallel/mesh.py::wait_for_backend probes in a child
+    for that reason): a child that sees no card first, then the card."""
+    run = subprocess.run([sys.executable, "-c", CUDA_CACHE_PROBE],
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, f"the CUDA probe failed: {run.stderr}")
+    first, again, count, init = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"a process whose first CUDA call saw no card: is_available "
+          f"{first}, then with the card visible {again}, device_count "
+          f"{count}, torch.cuda.init {init}")
+    return not again
+
+
 def main():
     import tempfile
 
@@ -3807,8 +4312,7 @@ def main():
     from msmp_pde_torch.training.train import device_arrays
     from msmp_pde_torch.utils.convert import params_from_flax
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_float32()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
@@ -4400,6 +4904,28 @@ def main():
     e1_dir.cleanup()
     print(f"phase 27: {time.perf_counter() - t27:.3f} s ({on})")
 
+    # 28. the exported rollouts: MSMP-PDE, MP-PDE, MSGMP-PDE at hidden 164
+    #     and MSMP-PDE in bfloat16s, replayed in a fresh process; timed ---
+    t28 = time.perf_counter()
+    x_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_export_")
+    bf16_engine = RolloutEngine(
+        build_serving_trainer("E1", "MSMP-PDE", device=dev,
+                              mp_precision="bfloat16s"),
+        params, batch_buckets=BUCKETS)
+    export_phase(
+        {"MSMP-PDE": engine, "MP-PDE": mp_engine,
+         f"MSGMP-PDE@hidden{GLU_H}": msgmp_engine,
+         "MSMP-PDE@bf16s": bf16_engine}, x_dir.name, on)
+    t29 = time.perf_counter()
+    print(f"phase 28: {t29 - t28:.3f} s ({on})")
+
+    # 29. data parallelism: MSMP-PDE's step at world size 1 under NCCL and
+    #     at two gloo ranks on the card, against the plain step -----------
+    cuda_failure_cached()
+    ddp_phase(params, u_all, x_dir.name, on)
+    x_dir.cleanup()
+    print(f"phase 29: {time.perf_counter() - t29:.3f} s ({on})")
+
     kernels = [
         {"name": "lem_fwd", "route": "cuda",
          "source": "msmp_pde_torch/csrc/lem_fwd.cu",
@@ -4561,5 +5087,10 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+WORKERS = {"--replay": replay_worker, "--ddp": ddp_worker}
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] in WORKERS:
+        WORKERS[sys.argv[1]](sys.argv[2])
+    else:
+        main()

@@ -52,6 +52,16 @@ forcing term added to the right-hand side at every stage time.
 
 Precision: float64 by default, ``--dtype float32`` for speed.
 ``--device`` is cuda by default and raises without it.
+
+Under ``torchrun --nproc_per_node N`` (parallel/mesh.py; the JAX CLI's
+``_sharder``) every rank draws the same numbers and, where N divides a
+CE or KF chunk, solves its contiguous rows of it, the adaptive solver's
+maxima all-reduced on every trial step (temporal/erk.py), so the ranks
+take the one process's steps; KS's rows, at fixed steps, split the same
+way. The rows are gathered in order and rank 0 writes the files. A chunk
+N does not divide is solved whole on every rank, as the sharder leaves
+such an array whole; AD and WE, which the JAX CLI does not shard, run on
+rank 0 alone.
 """
 from __future__ import annotations
 
@@ -62,6 +72,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from msmp_pde_torch.parallel import mesh
 
 # resolutions (nt, nx) of the CE family, the super resolution first
 RES_CE = [(250, 200), (250, 100), (250, 50), (250, 40)]
@@ -94,6 +107,45 @@ RES_KF = RES_CE
 RES_KS = RES_CE
 RES_WE = RES_CE + [(250, 20)]
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+class _NoWriter:
+    """The writer of a rank other than 0: rank 0 writes the dataset."""
+
+    npz_path = h5_path = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def mode(self, *a, **k):
+        return self
+
+    def write(self, *a, **k):
+        pass
+
+    def write_scalar(self, *a, **k):
+        pass
+
+
+def _writer(stem: str):
+    from msmp_pde_torch.datagen.hdf5_io import DatasetWriter
+
+    return DatasetWriter(stem) if mesh.rank() == 0 else _NoWriter()
+
+
+def solve_chunk(solve, draws):
+    """``solve(*draws)`` of one chunk (every draw [c, ...] on the device),
+    on every rank: in a process group whose size divides c each rank
+    solves its contiguous rows with the group's shared steps and the rows
+    are gathered in order; otherwise the whole chunk here."""
+    c = draws[0].shape[0]
+    if mesh.active() and c % mesh.world_size() == 0:
+        return mesh.gather_rows(solve(*[mesh.shard_rows(a) for a in draws],
+                                      group=dist.group.WORLD))
+    return solve(*draws)
 
 
 def _chunks(total: int, chunk: int):
@@ -134,9 +186,10 @@ def draw_chunk(rng: np.random.Generator, c: int, batch_size: int, alpha,
 
 
 def ce_solver(pde, dtype: torch.dtype, device):
-    """solve(alpha, beta, gamma, A, omega, phi, l) -> [B, nt, 1, nx]: the
-    trajectories of one chunk on ``pde``'s grid, every argument a
-    [B, 1, 1] or [B, 1, N] tensor on ``device``."""
+    """solve(alpha, beta, gamma, A, omega, phi, l, group=None) ->
+    [B, nt, 1, nx]: the trajectories of one chunk on ``pde``'s grid, every
+    argument a [B, 1, 1] or [B, 1, N] tensor on ``device``; ``group`` as
+    ``solve_adaptive``'s."""
     from msmp_pde_torch.datagen import ics
     from msmp_pde_torch.temporal import DOPRI45, solve_adaptive
 
@@ -144,21 +197,20 @@ def ce_solver(pde, dtype: torch.dtype, device):
                         device=device)
     ts = np.linspace(pde.tmin, pde.tmax, pde.nt)
 
-    def solve(alpha, beta, gamma, A, omega, phi, l):
+    def solve(alpha, beta, gamma, A, omega, phi, l, group=None):
         sines = ics.sum_of_sines(A, omega, phi, l, pde.L)
 
         def force(t):
             return sines(x, t)[:, None, :]
 
         rhs = pde.make_rhs(alpha, beta, gamma, force)
-        return solve_adaptive(rhs, force(0.0), ts, DOPRI45)
+        return solve_adaptive(rhs, force(0.0), ts, DOPRI45, group=group)
 
     return solve
 
 
 def generate_ce(args, tmax: float, alpha, beta, gamma):
     """Writes the dataset; returns {(mode, resolution key): seconds}."""
-    from msmp_pde_torch.datagen.hdf5_io import DatasetWriter
     from msmp_pde_torch.device import resolve_device
     from msmp_pde_torch.equations import CE
 
@@ -178,7 +230,7 @@ def generate_ce(args, tmax: float, alpha, beta, gamma):
     seconds = {}
     os.makedirs(args.data_dir, exist_ok=True)
     stem = os.path.join(args.data_dir, f"CE_{args.experiment}")
-    with DatasetWriter(stem) as out:
+    with _writer(stem) as out:
         for mode in MODES:
             n = counts[mode]
             w = out.mode(mode, n, res_meta, ("alpha", "beta", "gamma"))
@@ -190,8 +242,8 @@ def generate_ce(args, tmax: float, alpha, beta, gamma):
                           for a in draws]
                 for k, pde in pdes.items():
                     t1 = time.perf_counter()
-                    traj = solvers[k](*on_dev).reshape(c, pde.nt, pde.nx)
-                    traj = traj.cpu().numpy()
+                    traj = solve_chunk(solvers[k], on_dev).reshape(
+                        c, pde.nt, pde.nx).cpu().numpy()
                     took = time.perf_counter() - t1
                     seconds[(mode, k)] = seconds.get((mode, k), 0.0) + took
                     print(f"{k}: {took:.4f}s")
@@ -350,10 +402,10 @@ def draw_kf_chunk(rng: np.random.Generator, c: int, batch_size: int,
 
 
 def kf_solver(pde, dtype: torch.dtype, device):
-    """solve(r, D, A, omega, phi, l) -> [B, nt, nx]: the trajectories of
-    one chunk on ``pde``'s grid (DOPRI45 at rtol 1e-7, atol 1e-9, at most
-    14 halvings), r and D [B], the sines [B, 1, N], tensors on
-    ``device``."""
+    """solve(r, D, A, omega, phi, l, group=None) -> [B, nt, nx]: the
+    trajectories of one chunk on ``pde``'s grid (DOPRI45 at rtol 1e-7,
+    atol 1e-9, at most 14 halvings), r and D [B], the sines [B, 1, N],
+    tensors on ``device``; ``group`` as ``solve_adaptive``'s."""
     import dataclasses
 
     from msmp_pde_torch.datagen import ics
@@ -364,17 +416,16 @@ def kf_solver(pde, dtype: torch.dtype, device):
                         device=device)
     ts = np.linspace(pde.tmin, pde.tmax, pde.nt)
 
-    def solve(r, D, A, omega, phi, l):
+    def solve(r, D, A, omega, phi, l, group=None):
         u0 = ics.kf_ic(A, l, x, pde.L)
         rhs = pde.make_rhs(r=r[:, None], D=D[:, None])
-        return solve_adaptive(rhs, u0, ts, tab, max_depth=14)
+        return solve_adaptive(rhs, u0, ts, tab, max_depth=14, group=group)
 
     return solve
 
 
 def generate_kf(args, tmax: float, r_range, d_range):
     """Writes the KF dataset; returns {(mode, resolution key): seconds}."""
-    from msmp_pde_torch.datagen.hdf5_io import DatasetWriter
     from msmp_pde_torch.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -390,8 +441,8 @@ def generate_kf(args, tmax: float, r_range, d_range):
     rng = np.random.default_rng(args.seed)
     seconds = {}
     os.makedirs(args.data_dir, exist_ok=True)
-    with DatasetWriter(os.path.join(args.data_dir,
-                                    f"KF_{args.experiment}")) as out:
+    with _writer(os.path.join(args.data_dir,
+                              f"KF_{args.experiment}")) as out:
         for mode, n in _counts(args).items():
             w = out.mode(mode, n, res_meta, ("r", "D"))
             print(f"Mode: {mode}  samples: {n}")
@@ -402,7 +453,7 @@ def generate_kf(args, tmax: float, r_range, d_range):
                           for a in draws]
                 for k in pdes:
                     t1 = time.perf_counter()
-                    traj = solvers[k](*on_dev).cpu().numpy()
+                    traj = solve_chunk(solvers[k], on_dev).cpu().numpy()
                     took = time.perf_counter() - t1
                     seconds[(mode, k)] = seconds.get((mode, k), 0.0) + took
                     print(f"{k}: {took:.4f}s")
@@ -451,7 +502,6 @@ def generate_ks(args, tend: float, dt_fine: float, resolutions=None):
     {("all", "all resolutions"): seconds}: one batch of every sample of
     the three modes a resolution, the resolutions together."""
     from msmp_pde_torch.datagen import ics
-    from msmp_pde_torch.datagen.hdf5_io import DatasetWriter
     from msmp_pde_torch.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -474,11 +524,18 @@ def generate_ks(args, tend: float, dt_fine: float, resolutions=None):
     params = [np.concatenate([d[2][i] for d in draws]) for i in range(4)]
     seconds = {}
     os.makedirs(args.data_dir, exist_ok=True)
-    with DatasetWriter(os.path.join(args.data_dir,
-                                    f"KS_{args.experiment}")) as out:
+    with _writer(os.path.join(args.data_dir,
+                              f"KS_{args.experiment}")) as out:
         writers = {m: out.mode(m, n, res_meta) for m, n in counts.items()}
         t1 = time.perf_counter()
-        solved = ks_solve(kss.values(), params, dtype, dev)
+        if mesh.active() and len(params[0]) % mesh.world_size() == 0:
+            # each rank its rows of every resolution, gathered in order
+            solved = [(mesh.gather_rows(traj), mesh.gather_rows(
+                valid.to(torch.uint8)).bool()) for traj, valid in ks_solve(
+                    kss.values(), [mesh.shard_rows(p) for p in params],
+                    dtype, dev)]
+        else:
+            solved = ks_solve(kss.values(), params, dtype, dev)
         solved = [(traj.cpu().numpy(), valid) for traj, valid in solved]
         took = time.perf_counter() - t1
         seconds[("all", "all resolutions")] = took
@@ -614,6 +671,25 @@ def generate_we(args, boundary: str, tend: float, wave_speed: float):
 
 
 def main(args):
+    """Generate ``args.experiment``'s dataset; in a torchrun group (see
+    the module's docstring) rank 0 prints and writes."""
+    from msmp_pde_torch.device import resolve_device
+
+    if args.experiment not in {**CE_EXPERIMENTS, **AD_EXPERIMENTS,
+                               **KF_EXPERIMENTS, **KS_EXPERIMENTS,
+                               **WE_EXPERIMENTS}:
+        raise ValueError(f"unknown experiment {args.experiment!r}")
+    mesh.init_distributed(args.device)
+    mesh.wait_for_backend(args.device)
+    args.device = str(mesh.local_device(resolve_device(args.device)))
+    if mesh.rank() != 0 and args.experiment in {**AD_EXPERIMENTS,
+                                                **WE_EXPERIMENTS}:
+        return {}  # AD and WE are not sharded: rank 0 makes them
+    with mesh.rank0_stdout():
+        return _generate(args)
+
+
+def _generate(args):
     e = args.experiment
     if e in AD_EXPERIMENTS:
         return generate_rp(args, *AD_EXPERIMENTS[e],
@@ -624,8 +700,6 @@ def main(args):
         return generate_ks(args, *KS_EXPERIMENTS[e])
     if e in WE_EXPERIMENTS:
         return generate_we(args, WE_EXPERIMENTS[e], WE_TEND, args.wave_speed)
-    if e not in CE_EXPERIMENTS:
-        raise ValueError(f"unknown experiment {e!r}")
     return generate_ce(args, *CE_EXPERIMENTS[e])
 
 

@@ -8,8 +8,10 @@ each CTA, at 164 with the weights streamed to the cluster; see
 ``csrc/lem_fwd.cu`` (``lem_scan_plain``),
 with the per-step stash when a gradient is needed, and ``csrc/lem_bwd.cu``
 (``lem_scan_bwd_plain``), the BPTT reverse sweep, through the
-``torch.autograd.Function`` ``LemScan``. The input projections (``gx``,
-``zx``) are computed outside, by the caller (models/lem.py).
+``torch.autograd.Function`` ``LemScan``, each through its ``torch.library``
+op (``msmp::lem_fwd``, ``msmp::lem_bwd``; ops/library.py). The input
+projections (``gx``, ``zx``) are computed outside, by the caller
+(models/lem.py).
 """
 from __future__ import annotations
 
@@ -296,6 +298,8 @@ def lem_scan_bwd_kernel(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
 
 
 # ---- dispatch and autograd -----------------------------------------------
+# through the ops of ops/library.py: the kernels on CUDA tensors, the plain
+# loops on CPU tensors
 class LemScan(torch.autograd.Function):
     """apply(gx, zx, y0, z0, wy, wzz, dt) -> (y_T, z_T). The forward runs
     the stash variant and saves the per-step states; the backward is the
@@ -304,20 +308,16 @@ class LemScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gx, zx, y0, z0, wy, wzz, dt):
-        if gx.is_cuda:
-            yT, zT, ys, zs = lem_scan_kernel(gx, zx, y0, z0, wy, wzz, dt=dt,
-                                             stash=True)
-        else:
-            yT, zT, ys, zs = lem_scan_plain(gx, zx, y0, z0, wy, wzz, dt=dt,
-                                            stash=True)
+        yT, zT, ys, zs = torch.ops.msmp.lem_fwd(gx, zx, y0, z0, wy, wzz, dt,
+                                                True)
         ctx.save_for_backward(gx, zx, y0, z0, wy, wzz, ys, zs)
         ctx.dt = dt
         return yT, zT
 
     @staticmethod
     def backward(ctx, dyT, dzT):
-        bwd = lem_scan_bwd_kernel if dyT.is_cuda else lem_scan_bwd_plain
-        return bwd(*ctx.saved_tensors, dyT, dzT, dt=ctx.dt) + (None,)
+        return torch.ops.msmp.lem_bwd(*ctx.saved_tensors, dyT, dzT,
+                                      ctx.dt) + (None,)
 
 
 def lem_scan(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0):
@@ -328,6 +328,5 @@ def lem_scan(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (gx, zx, y0, z0, wy, wzz)):
         return LemScan.apply(gx, zx, y0, z0, wy, wzz, float(dt))
-    if gx.is_cuda:
-        return lem_scan_kernel(gx, zx, y0, z0, wy, wzz, dt=dt)
-    return lem_scan_plain(gx, zx, y0, z0, wy, wzz, dt=dt)
+    return torch.ops.msmp.lem_fwd(gx, zx, y0, z0, wy, wzz, float(dt),
+                                  False)[:2]

@@ -5,8 +5,9 @@ math and the checks and pointers of the kernel wrappers.
 
 ``fused_mp_layer`` runs the hand-written kernels ``csrc/mp_layer_fwd.cu``
 and ``csrc/mp_layer_bwd.cu`` on CUDA tensors and the plain PyTorch versions
-``fused_mp_layer_plain`` / ``fused_mp_layer_bwd_plain`` on CPU tensors. With
-grad enabled it goes through the ``torch.autograd.Function``
+``fused_mp_layer_plain`` / ``fused_mp_layer_bwd_plain`` on CPU tensors,
+through the ``torch.library`` ops ``msmp::layer_fwd`` and
+``msmp::layer_bwd`` (ops/library.py). With grad enabled it goes through the ``torch.autograd.Function``
 ``FusedMPLayer``, which saves its inputs and recomputes in the backward, as
 the TPU's layer backward does. ``final_act`` and ``residual`` are
 GNN_Layer's switches (both for the ungated models, neither for
@@ -497,12 +498,11 @@ def fused_mp_layer_bwd_kernel(h, u, px, v, idx, mask, W, g, final_act=False,
 
 
 # ---- dispatch and autograd -----------------------------------------------
+# through the ops of ops/library.py: the kernels on CUDA tensors, the plain
+# versions on CPU tensors
 def _forward(h, u, px, v, idx, mask, W, final_act, residual, mp_precision):
-    if h.is_cuda:
-        return fused_mp_layer_kernel(h, u, px, v, idx, mask, W, final_act,
-                                     residual, mp_precision)
-    return fused_mp_layer_plain(h, u, px, v, idx, mask, W, final_act,
-                                residual, mp_precision)
+    return torch.ops.msmp.layer_fwd(h, u, px, v, idx, mask, list(W),
+                                    final_act, residual, mp_precision)
 
 
 def layer_backward(h, u, px, v, idx, mask, W, g, final_act, residual,
@@ -510,11 +510,9 @@ def layer_backward(h, u, px, v, idx, mask, W, g, final_act, residual,
     """(dh, 12-tuple) of one layer: the kernel on CUDA tensors, the plain
     version on CPU tensors. The gated pair's fallback backward calls it
     once per layer."""
-    if h.is_cuda:
-        return fused_mp_layer_bwd_kernel(h, u, px, v, idx, mask, W, g,
-                                         final_act, residual, mp_precision)
-    return fused_mp_layer_bwd_plain(h, u, px, v, idx, mask, W, g, final_act,
-                                    residual, mp_precision)
+    dh, dw = torch.ops.msmp.layer_bwd(h, u, px, v, idx, mask, list(W), g,
+                                      final_act, residual, mp_precision)
+    return dh, _split_grads(dw, h.shape[-1], u.shape[-1], v.shape[-1], 1)[0]
 
 
 class FusedMPLayer(torch.autograd.Function):

@@ -3,8 +3,9 @@ msmp_pde_tpu/ops/mp_pallas.py::fused_gated_pair and its custom VJP).
 
 ``fused_gated_pair`` runs the hand-written kernels ``csrc/mp_pair_fwd.cu``
 and ``csrc/mp_pair_bwd.cu`` on CUDA tensors and the plain PyTorch versions
-``fused_gated_pair_plain`` / ``fused_gated_pair_bwd_plain`` on CPU tensors.
-With grad enabled it goes through the ``torch.autograd.Function``
+``fused_gated_pair_plain`` / ``fused_gated_pair_bwd_plain`` on CPU tensors,
+each direction through its ``torch.library`` op (``msmp::pair_fwd``,
+``msmp::pair_bwd``; ops/library.py). With grad enabled it goes through the ``torch.autograd.Function``
 ``FusedGatedPair``. Its backward takes one of two routes, chosen per shape
 (``pair_bwd_fused_fits``) where the TPU's VJP chooses by its VMEM fit
 (mp_pallas.py:700-730):
@@ -194,21 +195,20 @@ def fused_gated_pair_bwd_kernel(h, u, px, v, idx, mask, Wg, Wl, g,
 
 
 # ---- dispatch and autograd -----------------------------------------------
+# through the ops of ops/library.py: the kernels on CUDA tensors, the plain
+# versions on CPU tensors
 def _forward(h, u, px, v, idx, mask, Wg, Wl, stash=False,
              mp_precision="float32"):
-    if h.is_cuda:
-        return fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl, stash,
-                                       mp_precision)
-    return fused_gated_pair_plain(h, u, px, v, idx, mask, Wg, Wl, stash,
-                                  mp_precision)
+    out, gn, ln = torch.ops.msmp.pair_fwd(h, u, px, v, idx, mask, list(Wg),
+                                          list(Wl), stash, mp_precision)
+    return (out, gn, ln) if stash else out
 
 
 def _backward(h, u, px, v, idx, mask, Wg, Wl, g, mp_precision):
-    if h.is_cuda:
-        return fused_gated_pair_bwd_kernel(h, u, px, v, idx, mask, Wg, Wl, g,
-                                           mp_precision)
-    return fused_gated_pair_bwd_plain(h, u, px, v, idx, mask, Wg, Wl, g,
-                                      mp_precision)
+    dh, dw = torch.ops.msmp.pair_bwd(h, u, px, v, idx, mask, list(Wg),
+                                     list(Wl), g, mp_precision)
+    dwg, dwl = _split_grads(dw, h.shape[-1], u.shape[-1], v.shape[-1], 2)
+    return dh, dwg, dwl
 
 
 class FusedGatedPair(torch.autograd.Function):

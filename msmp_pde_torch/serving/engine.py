@@ -15,9 +15,17 @@ FNO) runs torch ops alone, on windows mapped to its grid layout by
 ``Trainer.forward``. The stateful model
 (SaveMSMP-PDE) carries its LEM state from window to window, reset per
 sample past the data horizon (``reset_past_horizon``).
+
+The loop is ``RolloutProgram``, a module of tensors in and out for a fixed
+number of windows, which the engine calls and serving/export.py exports:
+the eager path and the exported one share one body. ``devices`` holds one
+replica of the model on each device (the JAX engine's ``mesh``); a bucket
+that their number divides is split across them in order.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -89,6 +97,65 @@ def reset_past_horizon(state, steps, last: int):
     return tuple(torch.where(keep, x, torch.zeros_like(x)) for x in state)
 
 
+class RolloutProgram(torch.nn.Module):
+    """The rollout of ``n_windows`` windows as one module:
+    forward(window [B, nx, d*tw] float32, steps [B] int64 label-window
+    starts, variables {name: [B] float32}) -> predictions
+    [B, n_windows, nx, d*tw]. Each window advances by the pushforward rule;
+    the time feature freezes at the last in-horizon window (``clamp``) and
+    a stateful model's state is zeroed per sample past it
+    (``reset_past_horizon``, a ``where``): no branch depends on the data,
+    so ``torch.export`` traces it whole. The model is a submodule, so an
+    export carries its weights."""
+
+    def __init__(self, trainer, n_windows: int):
+        super().__init__()
+        self.model = trainer.model
+        self.trainer = trainer
+        self.n_windows = int(n_windows)
+
+    def forward(self, window, steps, variables: Dict[str, torch.Tensor]):
+        trainer = self.trainer
+        tw, d = trainer.tw, trainer.d
+        nt = int(trainer.spec.t_grid.shape[0])
+        preds, state = [], None
+        for i in range(self.n_windows):
+            if i:
+                window = advance_windows(window, preds[-1], d, tw)
+                steps = steps + tw
+                if state is not None:
+                    state = reset_past_horizon(state, steps, nt - tw)
+            pred, state = trainer.forward(window,
+                                          torch.clamp(steps, tw, nt - tw),
+                                          variables, lem_state=state)
+            preds.append(pred)
+        return torch.stack(preds, dim=1)
+
+
+def _same_device(a, b) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device
+    return (a.index if a.index is not None else current()) == (
+        b.index if b.index is not None else current())
+
+
+def replica(trainer, device):
+    """``trainer`` on ``device``: itself where it is there already, else a
+    copy of its model and graph moved there."""
+    if _same_device(trainer.device, device):
+        return trainer
+    spec = trainer.spec
+    spec = dataclasses.replace(spec, **{
+        k: getattr(spec, k).to(device) for k in ("idx", "mask", "x",
+                                                  "t_grid")})
+    return dataclasses.replace(trainer, spec=spec,
+                               model=copy.deepcopy(trainer.model).to(device))
+
+
 class RolloutEngine:
     """Serve-many rollout over fixed batch buckets.
 
@@ -96,19 +163,38 @@ class RolloutEngine:
     the autoregressive predictions [B, n_windows, nx, d*tw] as numpy. B is
     padded up to the nearest bucket; pad rows are dropped before returning.
     ``params``: optional state dict (utils/convert.py) loaded strictly into
-    the trainer's model.
+    the trainer's model. ``devices``: the devices of the replicas (default
+    the trainer's alone), the counterpart of the JAX engine's ``mesh``; a
+    bucket their number divides is split into as many parts, part k on
+    replica k, and the parts come back in order; any other bucket runs on
+    the first replica.
     """
 
     def __init__(self, trainer, params=None,
-                 batch_buckets: Sequence[int] = (1, 4, 16)):
-        self.trainer = trainer
+                 batch_buckets: Sequence[int] = (1, 4, 16), devices=None):
         model = trainer.model
         if params is not None:
             model.load_state_dict(params, strict=True)
         model.to(device=trainer.device, dtype=torch.float32).eval()
+        self.replicas = [replica(trainer, d)
+                         for d in (devices or [trainer.device])]
+        self.trainer = self.replicas[0]
         self.buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
         if not self.buckets:
             raise ValueError("need at least one batch bucket")
+        self._programs = {}
+
+    @property
+    def devices(self):
+        return [tr.device for tr in self.replicas]
+
+    def program(self, n_windows: int, part: int = 0) -> RolloutProgram:
+        """The rollout program of ``n_windows`` on replica ``part``."""
+        key = (int(n_windows), part)
+        if key not in self._programs:
+            self._programs[key] = RolloutProgram(self.replicas[part],
+                                                 n_windows)
+        return self._programs[key]
 
     def _bucket_for(self, B: int) -> int:
         for b in self.buckets:
@@ -122,25 +208,19 @@ class RolloutEngine:
 
     @torch.inference_mode()
     def _run(self, window, steps, variables, n_windows: int):
-        trainer = self.trainer
-        dev, tw, d = trainer.device, trainer.tw, trainer.d
-        nt = int(trainer.spec.t_grid.shape[0])
-        w = torch.as_tensor(window, device=dev)
-        s = torch.as_tensor(steps, device=dev, dtype=torch.int64)
-        var = {k: torch.as_tensor(v, device=dev)
-               for k, v in variables.items()}
-        preds, state = [], None
-        for i in range(n_windows):
-            if i:
-                w = advance_windows(w, preds[-1], d, tw)
-                s = s + tw
-                if state is not None:
-                    state = reset_past_horizon(state, s, nt - tw)
-            # the time feature freezes at the last in-horizon window
-            pred, state = trainer.forward(w, torch.clamp(s, tw, nt - tw),
-                                          var, lem_state=state)
-            preds.append(pred)
-        return torch.stack(preds, dim=1).cpu().numpy()
+        B, n = window.shape[0], len(self.replicas)
+        parts = n if n > 1 and B % n == 0 else 1
+        rows = B // parts
+        outs = []
+        for k in range(parts):  # enqueue every part, then wait for each
+            dev = self.replicas[k].device
+            sl = slice(k * rows, (k + 1) * rows)
+            outs.append(self.program(n_windows, k)(
+                torch.as_tensor(window[sl], device=dev),
+                torch.as_tensor(steps[sl], device=dev, dtype=torch.int64),
+                {name: torch.as_tensor(v[sl], device=dev)
+                 for name, v in variables.items()}))
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     def rollout(self, window, variables: Optional[Dict] = None,
                 start_step=None, n_windows: int = 1) -> np.ndarray:

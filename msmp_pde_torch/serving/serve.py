@@ -6,8 +6,8 @@
 Protocol (stdlib only, npz over HTTP):
 
 * ``GET /healthz`` -> JSON {status, backend, experiment, model,
-  mp_precision, buckets, grid} (grid: the dataset file the grid came from,
-  or "uniform").
+  mp_precision, buckets, devices, grid} (grid: the dataset file the grid
+  came from, or "uniform").
 * ``GET /metrics`` -> request counters and latency quantiles.
 * ``POST /v1/rollout?n_windows=8[&format=trajectory]`` with an ``.npz``
   body containing ``window`` [B, nx, d*tw] float32, optional ``steps`` [B]
@@ -25,8 +25,13 @@ CLI's checkpoint (utils/checkpoint.py) or an ``.npz`` keyed by
 ``/``-joined flax paths (utils/convert.py). The grid comes from the test
 mode of ``--data_dir``'s dataset file where there is one, else the
 uniform grid is rebuilt from the PDE; the wave equation's Chebyshev grid
-exists only in its data, so WE1-3 need ``--data_dir``. Device work is
-serialized through a lock (one card).
+exists only in its data, so WE1-3 need ``--data_dir``. A JAX (orbax)
+checkpoint directory is converted first, where JAX is installed, by
+``convert_jax_checkpoint.py`` at the root of the repository. ``--dp`` is
+the number of devices the engine holds a replica on (0: every visible
+card, as the JAX server takes every device; with ``--device=cpu``, N CPU
+replicas), a bucket they divide split across them. Device work is
+serialized through a lock.
 """
 from __future__ import annotations
 
@@ -251,11 +256,36 @@ def request_rollout(host: str, port: int, window, *, steps=None,
 
 def load_checkpoint(path: str):
     """State dict from an ``.npz`` of flax paths or a ``torch.save``
-    checkpoint of the train CLI."""
+    checkpoint of the train CLI. A directory is a JAX (orbax) checkpoint,
+    which the port does not read: it raises, naming the converter."""
+    import os
+
     from msmp_pde_torch.utils.checkpoint import restore_params
     from msmp_pde_torch.utils.convert import load_npz
 
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, a JAX (orbax) checkpoint: convert it "
+            "where JAX is installed with `python convert_jax_checkpoint.py "
+            f"--checkpoint={path} --out=<file>.npz --experiment=... "
+            "--model=...` (the server's model arguments) and serve the "
+            ".npz")
     return load_npz(path) if path.endswith(".npz") else restore_params(path)
+
+
+def serving_devices(device, dp: int):
+    """The engine's devices for ``--dp``: on the card 0 takes every
+    visible card and N the first N (more than there are raises); on the
+    CPU N replicas (0 or 1: one)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev] * max(dp, 1)
+    n = torch.cuda.device_count()
+    if dp > n:
+        raise ValueError(f"--dp {dp}: only {n} CUDA devices are visible")
+    return [torch.device("cuda", i) for i in range(dp or n)]
 
 
 def build_server(args):
@@ -269,10 +299,12 @@ def build_server(args):
     )
     from msmp_pde_torch.training.setup import data_family, resolve_data_path
 
-    if args.dp > 1:
-        raise NotImplementedError(
-            "serving data parallelism is not ported yet (ROADMAP.md Queue 1 "
-            "item 13)")
+    from msmp_pde_torch.parallel import mesh
+
+    from msmp_pde_torch.device import resolve_device
+
+    mesh.wait_for_backend(args.device)
+    devices = serving_devices(resolve_device(args.device), args.dp)
     data_path = None
     if args.data_dir:
         p = resolve_data_path(args.data_dir, data_family(args.experiment),
@@ -284,12 +316,14 @@ def build_server(args):
         base_resolution=tuple(args.base_resolution),
         neighbors=args.neighbors, time_window=args.time_window,
         n_graph_layers=args.n_graph_layers,
-        mp_precision=args.mp_precision, device=args.device,
+        mp_precision=args.mp_precision, device=devices[0],
         data_suffix=args.data_suffix,
     )
     buckets = tuple(args.batch_buckets)
     engine = RolloutEngine(trainer, load_checkpoint(args.checkpoint),
-                           batch_buckets=buckets)
+                           batch_buckets=buckets, devices=devices)
+    if len(devices) > 1:
+        print(f"serving data parallelism over {len(devices)} devices")
     if args.warmup_windows:
         print(f"warming up buckets {buckets} at {args.warmup_windows} "
               "windows...")
@@ -300,6 +334,7 @@ def build_server(args):
         "model": args.model,
         "mp_precision": args.mp_precision,
         "buckets": list(buckets),
+        "devices": [str(d) for d in devices],
         "grid": data_path or "uniform",
     }
     srv = ThreadingHTTPServer(
@@ -366,7 +401,8 @@ def build_parser():
                         "bfloat16s: the layers' inputs and weight matrices "
                         "stored in bf16 too)")
     p.add_argument("--dp", type=int, default=0,
-                   help="serving data-parallel devices (only 0 or 1)")
+                   help="devices holding a replica: 0 every visible card "
+                        "(one with --device=cpu), N the first N")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without it) or cpu")
     return p

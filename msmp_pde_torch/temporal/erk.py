@@ -15,7 +15,10 @@ The error is a batch-global scalar: sc = atol + rtol * max over axis 0 of
 max(|y_in|, |y_hi|), RMS over the last axis, max over the rest; accept iff
 error < 1 or the step is one unit (the depth cap). So a whole chunk of
 samples shares one subdivision pattern, and the chunk is part of what
-defines the data.
+defines the data. With a process ``group`` (datagen over ranks, each
+solving its rows of the chunk) both maxima, over the samples and over
+the error, are all-reduced on every trial step, so every rank takes the
+steps one process would take on the whole chunk.
 
 RHS signature: ``f(t, y) -> dy/dt`` with t a Python float and y of shape
 [batch, ..., nx].
@@ -25,6 +28,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from msmp_pde_torch.temporal.tableaux import Tableau
 
@@ -78,17 +82,23 @@ def solve_fixed(f: Callable, y0: torch.Tensor, ts, tab: Tableau,
     return torch.stack(traj, dim=1)
 
 
-def _error_scalar(y_in, y_hi, y_lo, atol, rtol):
-    """Batch-global embedded error (a 0-d tensor)."""
+def _error_scalar(y_in, y_hi, y_lo, atol, rtol, group=None):
+    """Batch-global embedded error (a 0-d tensor); with ``group`` the
+    batch is the ranks' rows together, its maxima all-reduced."""
     ymax = torch.amax(torch.maximum(torch.abs(y_in), torch.abs(y_hi)), dim=0,
                       keepdim=True)
+    if group is not None:
+        dist.all_reduce(ymax, op=dist.ReduceOp.MAX, group=group)
     sc = atol + ymax * rtol
-    err = torch.sqrt(torch.mean(((y_hi - y_lo) / sc) ** 2, dim=-1))
-    return torch.amax(err)
+    err = torch.amax(torch.sqrt(torch.mean(((y_hi - y_lo) / sc) ** 2,
+                                           dim=-1)))
+    if group is not None:
+        dist.all_reduce(err, op=dist.ReduceOp.MAX, group=group)
+    return err
 
 
 def _adaptive_interval(tab: Tableau, f: Callable, t0: float, dt: float, y0,
-                       max_depth: int):
+                       max_depth: int, group=None):
     """Integrate one output interval [t0, t0 + dt] by dyadic subdivision."""
     total = 1 << max_depth
     t_units, h_units, y = 0, total, y0
@@ -96,7 +106,8 @@ def _adaptive_interval(tab: Tableau, f: Callable, t0: float, dt: float, y0,
         h = dt * (h_units / total)
         t = t0 + dt * (t_units / total)
         y_hi, y_lo = erk_step(tab, f, t, y, h)
-        err = _error_scalar(y, y_hi, y_lo, tab.atol, tab.rtol).item()
+        err = _error_scalar(y, y_hi, y_lo, tab.atol, tab.rtol,
+                            group).item()
         if err < 1.0 or h_units <= 1:  # the depth cap forces an accept
             t_units += h_units
             y = y_hi
@@ -108,15 +119,17 @@ def _adaptive_interval(tab: Tableau, f: Callable, t0: float, dt: float, y0,
 
 
 def solve_adaptive(f: Callable, y0: torch.Tensor, ts, tab: Tableau,
-                   max_depth: int = 12) -> torch.Tensor:
+                   max_depth: int = 12, group=None) -> torch.Tensor:
     """Adaptive integration with dense output at every ts[i], at most
-    ``max_depth`` halvings an output interval. Returns [batch, nt, ...]."""
+    ``max_depth`` halvings an output interval. Returns [batch, nt, ...].
+    ``group``: the process group whose ranks hold the batch's other rows
+    (every rank calls it), or None."""
     if not tab.is_adaptive:
         raise ValueError("solve_adaptive requires an embedded (adaptive) "
                          "tableau")
     ts = _times(ts)
     traj, y = [y0], y0
     for t, t_next in zip(ts[:-1], ts[1:]):
-        y = _adaptive_interval(tab, f, t, t_next - t, y, max_depth)
+        y = _adaptive_interval(tab, f, t, t_next - t, y, max_depth, group)
         traj.append(y)
     return torch.stack(traj, dim=1)

@@ -8,6 +8,8 @@ with ``np.random.default_rng(seed + rep)`` and re-splits them 1024/128/128
 (proportionally where there are fewer samples), then trains with the train
 CLI's ``fit``, the checkpoint saved under ``--cv_folder`` (default
 ``cvMSWG3``, the reference's folder) with the replicate in its name.
+Under ``torchrun --nproc_per_node N`` it trains on N ranks as the train
+CLI does (``--dp`` 0 or N); rank 0 prints and writes.
 """
 from __future__ import annotations
 
@@ -37,16 +39,25 @@ def split_indices(n_total: int, seed: int, rep: int):
 
 
 def main(args):
+    from msmp_pde_torch.device import resolve_device
+    from msmp_pde_torch.parallel import mesh
+    from msmp_pde_torch.training.train import check_dp
+
+    mesh.init_distributed(args.device)
+    mesh.wait_for_backend(args.device)
+    dev = mesh.local_device(resolve_device(args.device))
+    args.device = str(dev)
+    check_dp(args)
+    with mesh.rank0_stdout():
+        return _main(args, dev)
+
+
+def _main(args, dev):
     import torch
 
-    from msmp_pde_torch.device import resolve_device
     from msmp_pde_torch.training.setup import setup_experiment
     from msmp_pde_torch.training.train import fit
 
-    if args.dp > 1:
-        raise NotImplementedError(
-            "data parallelism is not ported yet (ROADMAP.md Queue 1 item 13)")
-    dev = resolve_device(args.device)
     os.makedirs(args.cv_folder, exist_ok=True)
     exp = setup_experiment(args, data_dir=args.data_dir)
     ds = [exp.datasets[m] for m in MODES]

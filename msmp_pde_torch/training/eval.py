@@ -17,9 +17,13 @@ returns every metric printed, and the rollout store.
 diagnostics of the first test sample's rollout and its ground truth with
 the port's ``KS`` methods on the device in float64 (``ks_spectrum``),
 writes them to ``plots/ks_spectrum.npz`` and returns them, and draws
-``plots/ks_spectrum.png`` where matplotlib imports. ``--dp`` > 1 waits
-for ROADMAP.md Queue 1 item 13. ``--device`` is cuda by default and
-raises without it.
+``plots/ks_spectrum.png`` where matplotlib imports. ``--device`` is cuda
+by default and raises without it.
+
+Under ``torchrun --nproc_per_node N`` the metrics' batches are split over
+the N ranks (training/metrics.py), as the JAX CLI shards them over its
+mesh; ``--dp`` 0 takes the world size, another must equal it. Every rank
+returns the same metrics; rank 0 prints and writes the files.
 """
 from __future__ import annotations
 
@@ -232,17 +236,26 @@ def main(args):
     metrics printed, the rollout store ([N, T, d, nx] each), whether the
     figures were written and ``ks_spectrum``'s arrays."""
     from msmp_pde_torch.device import resolve_device
+    from msmp_pde_torch.parallel import mesh
+    from msmp_pde_torch.training.train import check_dp
+
+    if args.ks_spectrum and args.experiment != "KS":
+        raise ValueError("--ks_spectrum is a KS-family diagnostic")
+    mesh.init_distributed(args.device)
+    mesh.wait_for_backend(args.device)
+    dev = mesh.local_device(resolve_device(args.device))
+    args.device = str(dev)
+    check_dp(args, batch=False)
+    with mesh.rank0_stdout():
+        return _main(args, dev, lead=mesh.rank() == 0)
+
+
+def _main(args, dev, lead: bool):
     from msmp_pde_torch.serving.serve import load_checkpoint
     from msmp_pde_torch.training import metrics
     from msmp_pde_torch.training.setup import setup_experiment
     from msmp_pde_torch.training.train import device_arrays
 
-    if args.ks_spectrum and args.experiment != "KS":
-        raise ValueError("--ks_spectrum is a KS-family diagnostic")
-    if args.dp > 1:
-        raise NotImplementedError(
-            "data parallelism is not ported yet (ROADMAP.md Queue 1 item 13)")
-    dev = resolve_device(args.device)
     exp = setup_experiment(args, modes=("test",), data_dir=args.data_dir)
     trainer = exp.trainer
     trainer.model.load_state_dict(load_checkpoint(args.model_to_test),
@@ -271,7 +284,7 @@ def main(args):
         n_more_rollout=args.n_more_rollout)
     out["preds"], out["trues"] = preds, trues
     horizon = preds.shape[1] - args.n_more_rollout * args.time_window
-    out["figures"] = _matplotlib()
+    out["figures"] = lead and _matplotlib()
     if out["figures"]:
         plot_rollouts(preds[:, :horizon], trues[:, :horizon],
                       trainer.spec.x.cpu().numpy(),
@@ -283,14 +296,15 @@ def main(args):
         diag = ks_spectrum(exp.pde, preds[:, :horizon], trues[:, :horizon],
                            args.ks_k_cut, dev)
         out["ks_spectrum"] = diag
-        os.makedirs(PLOTS, exist_ok=True)
-        np.savez(f"{PLOTS}/ks_spectrum.npz", **diag)
+        if lead:
+            os.makedirs(PLOTS, exist_ok=True)
+            np.savez(f"{PLOTS}/ks_spectrum.npz", **diag)
         if out["figures"]:
             plot_ks_spectrum(diag, args.ks_k_cut)
         print(f"KS spectral diagnostics: {PLOTS}/ks_spectrum.npz"
               + (f" + {PLOTS}/ks_spectrum.png" if out["figures"] else
                  " (the figure skipped: matplotlib does not import)"))
-    if args.n_more_rollout:
+    if args.n_more_rollout and lead:
         os.makedirs(PLOTS, exist_ok=True)
         np.save(f"{PLOTS}/long_rollout_pred.npy", preds)
         if out["figures"]:

@@ -15,7 +15,8 @@ the uniform grid, the interp-back comparison on the unstructured one)
 go to ``plots/`` where matplotlib imports; ``--n_more_rollout`` rolls
 past the horizon into ``plots/long_rollout_interp_pred.npy``. ``main``
 returns the metrics and the stores. ``--device`` is cuda by default and
-raises without it.
+raises without it. ``--dp`` is taken and shards nothing, as in the JAX
+CLI.
 """
 from __future__ import annotations
 
@@ -79,9 +80,9 @@ def main(args):
     )
     from msmp_pde_torch.training.train import device_arrays
 
-    if args.dp > 1:
-        raise NotImplementedError(
-            "data parallelism is not ported yet (ROADMAP.md Queue 1 item 13)")
+    from msmp_pde_torch.parallel import mesh
+
+    mesh.wait_for_backend(args.device)
     dev = resolve_device(args.device)
     exp = setup_experiment(args, modes=("test",), data_dir=args.data_dir)
     ds_unstruct = exp.datasets["test"]

@@ -12,6 +12,21 @@ single-layer backward where its fused backward does not fit). A grid model
 (CNN, FNO) runs no custom kernel: its convolutions, FFTs and products are
 torch ops. The JAX package runs a whole pass as one jitted scan; here it
 is a Python loop over eager steps.
+
+Data parallelism (parallel/mesh.py): in a process group each rank takes
+its contiguous slice of every batch (``dp_sharded_step``), and the step is
+the single-process step of the whole batch. The JAX package's sharded
+step computes sqrt(sum of squares) with the sum all-reduced inside the
+square root, so its gradient is exactly the one-device gradient; here the
+sum of squares is summed over the ranks differentiably (``global_sum``,
+whose backward hands each rank the common cotangent of the sum) before
+the square root, so each rank's backward gives its samples' part of the
+global gradient, and the parts are summed (``sum_grads``), not averaged as
+DistributedDataParallel would. The sum is the whole batch's sum in
+another order, so the gradient is the single process's up to rounding; a
+rank that averaged, or took the root of its own part, would be off by a
+factor (and AdamW, dividing by the root of the second moment, would hide
+a uniform factor).
 """
 from __future__ import annotations
 
@@ -29,6 +44,7 @@ from msmp_pde_torch.data.graph import (
 )
 from msmp_pde_torch.models.common import assemble_variables
 from msmp_pde_torch.models.registry import FNO_VARS
+from msmp_pde_torch.parallel import mesh
 
 
 def make_var_fns(eq_norms: Dict[str, float], tmax: float):
@@ -143,7 +159,9 @@ class Trainer:
                   forward: Optional[Callable] = None):
         """The loss of one batch after ``unrolled`` pushforward windows,
         with grad; ``forward`` (default ``self.forward``) maps (window,
-        steps, variables, lem_state) -> (pred, lem_state)."""
+        steps, variables, lem_state) -> (pred, lem_state). In a process
+        group the batch is this rank's slice and the loss the whole
+        batch's (the sum of squares summed over the ranks)."""
         forward = forward or self.forward
         tw = self.tw
         u_traj = u_all[idx_batch]
@@ -159,23 +177,26 @@ class Trainer:
                 steps = steps + tw
         _, labels = slice_windows(u_traj, steps, tw)
         pred, _ = forward(window, steps, variables, lem_state=state)
-        return torch.sqrt(torch.sum((pred - labels) ** 2))
+        return torch.sqrt(mesh.global_sum(torch.sum((pred - labels) ** 2)))
 
     def _one_step(self, tx, unrolled: int):
         """The single optimizer step for a pushforward depth:
         step(u_all, var_all, idx_batch, steps) -> loss (a 0-d tensor on the
-        device; the parameters and ``tx``'s state update in place)."""
+        device; the parameters and ``tx``'s state update in place). In a
+        process group each rank runs its slice of the batch and the
+        gradients are summed over the ranks before AdamW."""
         opt, sched = tx
 
         def step(u_all, var_all, idx_batch, steps):
             loss = self.step_loss(u_all, var_all, idx_batch, steps, unrolled)
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            mesh.sum_grads(self.model.parameters())
             opt.step()
             sched.step()
             return loss.detach()
 
-        return step
+        return mesh.dp_sharded_step(step)
 
     def train_step_fn(self, tx, unrolled: int):
         """The step for a given pushforward depth, built once per (tx,

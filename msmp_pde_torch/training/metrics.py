@@ -14,6 +14,12 @@ a short last batch weighs as much as a full one. The L2 norms are the
 mean over samples (the JAX package raises where a short last batch
 follows full ones; wherever it returns, the two agree).
 
+In a process group (parallel/mesh.py) the batches are split across the
+ranks, batch i on rank i mod world size, and their values gathered back
+in batch order on every rank (``_per_batch``): every reduction then runs
+on the single process's values, so the metrics equal its own, the short
+last batch's weight included.
+
 RPU's interpolated route (``compute_l2_norms_u``,
 ``interp_rollout_to_unstructured``): a model rolled out on the uniform
 grid of the interpolated files is measured on the unstructured grid, its
@@ -27,18 +33,29 @@ import numpy as np
 import torch
 
 from msmp_pde_torch.data.graph import advance_windows, slice_windows
+from msmp_pde_torch.parallel import mesh
 
 
 def _per_batch(one_fn, u_args, var_all, batch_size: int):
-    """[one_fn(*u_batch, variables) for each batch], in order."""
+    """[one_fn(*u_batch, variables) for each batch], in order; in a
+    process group each rank runs its share of the batches and gets every
+    batch's value, tensors on the inputs' device."""
     n = int(u_args[0].shape[0])
-    outs = []
+    starts = range(0, n, batch_size)
+    share = (lambda i: i % mesh.world_size() == mesh.rank()) \
+        if mesh.active() else (lambda i: True)
+    outs = {}
     with torch.inference_mode():
-        for s in range(0, n, batch_size):
-            sl = slice(s, min(s + batch_size, n))
-            outs.append(one_fn(*(a[sl] for a in u_args),
-                               {k: v[sl] for k, v in var_all.items()}))
-    return outs
+        for i, s in enumerate(starts):
+            if share(i):
+                sl = slice(s, min(s + batch_size, n))
+                outs[i] = one_fn(*(a[sl] for a in u_args),
+                                 {k: v[sl] for k, v in var_all.items()})
+        if mesh.active():
+            dev = u_args[0].device
+            outs = {i: v.to(dev) if torch.is_tensor(v) else v
+                    for i, v in mesh.gather_in_order(outs).items()}
+    return [outs[i] for i in range(len(starts))]
 
 
 def _full(u_traj, value):

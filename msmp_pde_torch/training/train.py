@@ -18,13 +18,22 @@ of the 26 ported registry names (models/registry.py::PORTED): the nine
 1-D graph models and their ten 2-D versions (MP-PDE2D ... LSTM2D), the
 1-D grid models BaseCNN, FNO, FNOP (the equation variables of E2 or E3)
 and VNO, and the 2-D BaseCNN2D, FNO2D and FNO2DP (a and b); FNO2DPU
-raises. ``--device`` is cuda by default and raises without it. ``--dp``
-> 1 is not ported. ``--mp_precision`` bfloat16 or bfloat16s runs the
+raises. ``--device`` is cuda by default and raises without it.
+``--mp_precision`` bfloat16 or bfloat16s runs the
 message-passing kernels with bf16 operands (ops/mp_layer.py);
 ``--mp_remat`` runs each layer's float32 math in torch ops under
 ``torch.utils.checkpoint`` instead of the kernels. cuDNN's TF32 stays at
 PyTorch's default (on) for the convolutions, as for every CLI of the
 port.
+
+Data parallelism: ``torchrun --nproc_per_node N -m
+msmp_pde_torch.training.train ...`` runs N ranks, one a card
+(parallel/mesh.py), each step split over them and its gradients summed
+(training/loop.py), the metrics' batches split over them
+(training/metrics.py). ``--dp 0`` takes the world size; another ``--dp``
+must equal it. The batch size must be a multiple of the world size (the
+JAX CLI takes the gcd instead). Rank 0 prints and writes the checkpoints;
+every rank reads ``--resume``.
 """
 from __future__ import annotations
 
@@ -74,13 +83,23 @@ def _running_as_cli() -> bool:
 def _stall_recovery(args, save_path: str):
     """Watchdog action: re-exec this CLI, resuming from the last best-val
     checkpoint where one exists (a checkpoint file is always complete,
-    utils/checkpoint.py), else from the start."""
+    utils/checkpoint.py), else from the start. In a process group a rank
+    re-exec'd alone could not rejoin it: the rank exits non-zero instead,
+    saying so, and the launcher (torchrun) ends the group."""
     import __main__
+
+    from msmp_pde_torch.parallel import mesh
 
     spec = getattr(__main__, "__spec__", None)
     head = ["-m", spec.name] if spec is not None else [sys.argv[0]]
 
     def action():
+        if mesh.active():
+            print(f"watchdog: rank {mesh.rank()} stalled; exiting with "
+                  f"status 75 (a rank cannot be re-exec'd into its group; "
+                  f"resume from {save_path} with --resume)", file=sys.stderr)
+            sys.stderr.flush()
+            os._exit(75)
         argv = _recovery_argv(
             sys.argv[1:],
             resume=save_path if os.path.isfile(save_path) else None)
@@ -114,7 +133,36 @@ def fit(args, exp, data, save_path: str):
     on the trainer's device. Returns the JAX package's results dict (valid_L2, valid_rel_L2,
     test_L2, test_rel_L2, min_val_loss, test_loss) plus ``history``: a
     dict an epoch with its losses [t_res, n_batches], mean train loss,
-    validation loss and the seconds of its passes and of its metrics."""
+    validation loss and the seconds of its passes and of its metrics. In
+    a process group every rank runs it and gets the same results; rank 0
+    prints and writes the checkpoint."""
+    from msmp_pde_torch.parallel import mesh
+
+    check_dp(args)
+    with mesh.rank0_stdout():
+        return _fit(args, exp, data, save_path)
+
+
+def check_dp(args, batch: bool = True):
+    """``--dp`` against the process group: 0 takes the world size, any
+    other must equal it; with ``batch`` the batch size must be a multiple
+    of it (a train step splits every batch)."""
+    from msmp_pde_torch.parallel import mesh
+
+    world = mesh.world_size()
+    dp = getattr(args, "dp", 0) or world
+    if dp != world:
+        raise ValueError(
+            f"--dp {dp} needs {dp} processes, one a device: launch with "
+            f"torchrun --nproc_per_node {dp} (this process group has "
+            f"{world})")
+    if batch and args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} is not a multiple "
+                         f"of the world size {world}")
+
+
+def _fit(args, exp, data, save_path: str):
+    from msmp_pde_torch.parallel import mesh
     from msmp_pde_torch.training import metrics
     from msmp_pde_torch.training.loop import train_epoch
     from msmp_pde_torch.utils.checkpoint import (
@@ -123,12 +171,13 @@ def fit(args, exp, data, save_path: str):
     )
     from msmp_pde_torch.utils.watchdog import Watchdog
 
-    if getattr(args, "dp", 0) > 1:
-        raise NotImplementedError(
-            "data parallelism is not ported yet (ROADMAP.md Queue 1 item 13)")
     trainer = exp.trainer
     t_res = exp.t_res
     nx_base = args.base_resolution[1]
+    if mesh.active():
+        print(f"Data parallelism over {mesh.world_size()} processes "
+              f"({args.batch_size // mesh.world_size()} samples of each "
+              "batch a rank)")
     u_train, _, var_train = data["train"]
     u_valid, ub_valid, var_valid = data["valid"]
     u_test, ub_test, var_test = data["test"]
@@ -146,6 +195,8 @@ def fit(args, exp, data, save_path: str):
     if getattr(args, "resume", None):
         start_epoch = restore_checkpoint(args.resume, trainer.model, tx) + 1
         print(f"Resumed from {args.resume} at epoch {start_epoch}")
+    # one set of weights on every rank (each built them from --seed)
+    mesh.broadcast_params(trainer.model)
     rng = np.random.default_rng(args.seed)
 
     # stall watchdog (utils/watchdog.py), armed only when this process is
@@ -209,7 +260,8 @@ def fit(args, exp, data, save_path: str):
                 print(f"*Test short-horizon rel-L2 (first {shw} windows)*")
                 results["test_L2_short"], results["test_rel_L2_short"] = l2(
                     u_test, var_test, max_windows=shw)
-            save_checkpoint(save_path, trainer.model, tx, epoch)
+            if mesh.rank() == 0:
+                save_checkpoint(save_path, trainer.model, tx, epoch)
             print(f"Saved model at {save_path}\n")
             min_val_loss = val_loss
         wd.beat()
@@ -233,12 +285,14 @@ def fit(args, exp, data, save_path: str):
 
 def main(args):
     from msmp_pde_torch.device import resolve_device
+    from msmp_pde_torch.parallel import mesh
     from msmp_pde_torch.training.setup import setup_experiment
 
-    dev = resolve_device(args.device)
-    if args.dp > 1:
-        raise NotImplementedError(
-            "data parallelism is not ported yet (ROADMAP.md Queue 1 item 13)")
+    mesh.init_distributed(args.device)
+    mesh.wait_for_backend(args.device)
+    dev = mesh.local_device(resolve_device(args.device))
+    args.device = str(dev)
+    check_dp(args)
     os.makedirs("models", exist_ok=True)
     os.makedirs("experiments/log", exist_ok=True)
 
@@ -307,7 +361,9 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without it) or cpu")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel devices (only 0 or 1 are ported)")
+                   help="data-parallel processes: 0 takes the world size of "
+                        "the torchrun group (1 without one); another must "
+                        "equal it")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint to resume training from")
     p.add_argument("--profile", type=str, default=None,
