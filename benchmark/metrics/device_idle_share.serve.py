@@ -1,0 +1,9 @@
+"""Percent of the traced window in which no operation ran on the card:
+100 (1 - the union of the device's intervals / the window)."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
