@@ -146,7 +146,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             if _stale(name):
-                _finish(name, _start(name))
+                from msmp_pde_torch import tracing
+
+                with tracing.span("op.build"):
+                    _finish(name, _start(name))
             _libs[name] = ctypes.CDLL(str(_paths(name)[1]))
         return _libs[name]
 

@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from msmp_pde_torch.ops import _build
+from msmp_pde_torch import tracing
 
 launches = 0        # lem_fwd launches (both variants) since the last reset
 stash_launches = 0  # of which with the per-step stash
@@ -254,7 +255,7 @@ def lem_scan_kernel(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0,
         outs += [torch.empty_like(args[1]), torch.empty_like(args[1])]
     ptr = [x.data_ptr() for x in outs] + [None] * (4 - len(outs))
     stream = torch.cuda.current_stream(gx.device).cuda_stream
-    with torch.cuda.device(gx.device):
+    with torch.cuda.device(gx.device), tracing.span("launch.lem_fwd"):
         err = lib.lem_fwd(*[x.data_ptr() for x in args], *ptr, T, N, H,
                           float(dt), stream)
     _build.check(err, "lem_fwd")
@@ -288,7 +289,7 @@ def lem_scan_bwd_kernel(gx, zx, y0, z0, wy, wzz, ys, zs, dyT, dzT, *,
                           device=gx.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(gx.device).cuda_stream
     outs = (dgx, dzx, dy0, dz0, dwy, dwzz)
-    with torch.cuda.device(gx.device):
+    with torch.cuda.device(gx.device), tracing.span("launch.lem_bwd"):
         err = lib.lem_bwd(*[x.data_ptr() for x in args],
                           *[x.data_ptr() for x in outs], partial.data_ptr(),
                           T, N, H, float(dt), stream)
@@ -316,17 +317,20 @@ class LemScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dyT, dzT):
-        return torch.ops.msmp.lem_bwd(*ctx.saved_tensors, dyT, dzT,
-                                      ctx.dt) + (None,)
+        with tracing.span("op.lem_bwd"):
+            return torch.ops.msmp.lem_bwd(*ctx.saved_tensors, dyT, dzT,
+                                          ctx.dt) + (None,)
 
 
 def lem_scan(gx, zx, y0, z0, wy, wzz, *, dt: float = 1.0):
     """CPU tensors -> the plain loops; CUDA tensors -> the kernels. With
     grad enabled and a differentiable input, through ``LemScan`` (stash
     forward, BPTT backward); otherwise the stash-free forward, as the TPU
-    primal path (lem_pallas.py:260-263)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (gx, zx, y0, z0, wy, wzz)):
-        return LemScan.apply(gx, zx, y0, z0, wy, wzz, float(dt))
-    return torch.ops.msmp.lem_fwd(gx, zx, y0, z0, wy, wzz, float(dt),
-                                  False)[:2]
+    primal path (lem_pallas.py:260-263). Its span: ``op.lem_fwd``; the
+    backward's ``op.lem_bwd``."""
+    with tracing.span("op.lem_fwd"):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (gx, zx, y0, z0, wy, wzz)):
+            return LemScan.apply(gx, zx, y0, z0, wy, wzz, float(dt))
+        return torch.ops.msmp.lem_fwd(gx, zx, y0, z0, wy, wzz, float(dt),
+                                      False)[:2]

@@ -39,6 +39,7 @@ import torch
 
 from msmp_pde_torch.models.common import swish
 from msmp_pde_torch.ops import _build
+from msmp_pde_torch import tracing
 
 launches = 0      # forward kernel launches since the last reset
 bwd_launches = 0  # backward kernel launches since the last reset
@@ -340,7 +341,8 @@ def _inverse_of(idx, mask):
     if (hit is not None and hit[0]() is idx and hit[1]() is mask
             and hit[2] == versions):
         return hit[3]
-    lists = inverse_neighbors(idx, mask)
+    with tracing.span("op.inverse_lists"):
+        lists = inverse_neighbors(idx, mask)
     if len(_inverse_memo) >= 8:
         _inverse_memo.pop(next(iter(_inverse_memo)))
     _inverse_memo[id(idx)] = (weakref.ref(idx), weakref.ref(mask), versions,
@@ -452,7 +454,7 @@ def fused_mp_layer_kernel(h, u, px, v, idx, mask, W, final_act=False,
     # The tensors freed on return (scratch, contiguous copies) are reused
     # only by later work on this stream, which runs after the kernel.
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    with torch.cuda.device(h.device):
+    with torch.cuda.device(h.device), tracing.span("launch.layer_fwd"):
         err = lib.mp_layer_fwd(
             h.data_ptr(), u.data_ptr(), px.data_ptr(), v.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), _ptrs(w), out.data_ptr(),
@@ -485,7 +487,7 @@ def fused_mp_layer_bwd_kernel(h, u, px, v, idx, mask, W, g, final_act=False,
     scratch = _scratch(lib, "mp_layer_bwd", B, nx, H, D, V, K, h.device,
                        workspace)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    with torch.cuda.device(h.device):
+    with torch.cuda.device(h.device), tracing.span("launch.layer_bwd"):
         err = lib.mp_layer_bwd(
             h.data_ptr(), u.data_ptr(), px.data_ptr(), v.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), rev_ptr.data_ptr(),
@@ -509,10 +511,13 @@ def layer_backward(h, u, px, v, idx, mask, W, g, final_act, residual,
                    mp_precision="float32"):
     """(dh, 12-tuple) of one layer: the kernel on CUDA tensors, the plain
     version on CPU tensors. The gated pair's fallback backward calls it
-    once per layer."""
-    dh, dw = torch.ops.msmp.layer_bwd(h, u, px, v, idx, mask, list(W), g,
-                                      final_act, residual, mp_precision)
-    return dh, _split_grads(dw, h.shape[-1], u.shape[-1], v.shape[-1], 1)[0]
+    once per layer. Its span: ``op.layer_bwd``."""
+    with tracing.span("op.layer_bwd"):
+        dh, dw = torch.ops.msmp.layer_bwd(h, u, px, v, idx, mask, list(W),
+                                          g, final_act, residual,
+                                          mp_precision)
+        return dh, _split_grads(dw, h.shape[-1], u.shape[-1], v.shape[-1],
+                                1)[0]
 
 
 class FusedMPLayer(torch.autograd.Function):
@@ -542,9 +547,12 @@ def fused_mp_layer(h, u, px, v, idx, mask, W, final_act=False,
                    residual=False, mp_precision="float32"):
     """CPU tensors -> the plain versions; CUDA tensors -> the kernels, in
     ``mp_precision``. With grad enabled and a differentiable input, through
-    ``FusedMPLayer``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (h, *W)):
-        return FusedMPLayer.apply(h, u, px, v, idx, mask, final_act,
-                                  residual, mp_precision, *W)
-    return _forward(h, u, px, v, idx, mask, W, final_act, residual,
-                    mp_precision)
+    ``FusedMPLayer``. Its span: ``op.layer_fwd``; the backward's
+    ``op.layer_bwd``."""
+    with tracing.span("op.layer_fwd"):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (h, *W)):
+            return FusedMPLayer.apply(h, u, px, v, idx, mask, final_act,
+                                      residual, mp_precision, *W)
+        return _forward(h, u, px, v, idx, mask, W, final_act, residual,
+                        mp_precision)

@@ -43,6 +43,7 @@ from msmp_pde_torch.ops.mp_layer import (
     mode_of,
     plain_inputs,
 )
+from msmp_pde_torch import tracing
 
 launches = 0        # forward kernel launches since the last reset
 stash_launches = 0  # of which with the gn/ln stash
@@ -144,7 +145,7 @@ def fused_gated_pair_kernel(h, u, px, v, idx, mask, Wg, Wl, stash=False,
     # tensors freed on return (scratch, contiguous copies) are reused only by
     # later work on this stream, which runs after the kernel.
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    with torch.cuda.device(h.device):
+    with torch.cuda.device(h.device), tracing.span("launch.pair_fwd"):
         err = lib.mp_pair_fwd(
             h.data_ptr(), u.data_ptr(), px.data_ptr(), v.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), _ptrs(wg), _ptrs(wl),
@@ -181,7 +182,7 @@ def fused_gated_pair_bwd_kernel(h, u, px, v, idx, mask, Wg, Wl, g,
     scratch = _scratch(lib, "mp_pair_bwd", B, nx, H, D, V, K, h.device,
                        workspace)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    with torch.cuda.device(h.device):
+    with torch.cuda.device(h.device), tracing.span("launch.pair_bwd"):
         err = lib.mp_pair_bwd(
             h.data_ptr(), u.data_ptr(), px.data_ptr(), v.data_ptr(),
             idx.data_ptr(), mask.data_ptr(), rev_ptr.data_ptr(),
@@ -239,8 +240,9 @@ class FusedGatedPair(torch.autograd.Function):
         h, u, px, v, idx, mask, *rest = ctx.saved_tensors
         Wg, Wl = rest[:12], rest[12:24]
         if ctx.fused:
-            dh, dwg, dwl = _backward(h, u, px, v, idx, mask, Wg, Wl, g,
-                                     ctx.mp_precision)
+            with tracing.span("op.pair_bwd"):
+                dh, dwg, dwl = _backward(h, u, px, v, idx, mask, Wg, Wl, g,
+                                         ctx.mp_precision)
         else:
             dh, dwg, dwl = fallback_bwd(h, u, px, v, idx, mask, Wg, Wl,
                                         *rest[24:], g, ctx.mp_precision)
@@ -250,10 +252,12 @@ class FusedGatedPair(torch.autograd.Function):
 def fused_gated_pair(h, u, px, v, idx, mask, Wg, Wl, mp_precision="float32"):
     """CPU tensors -> the plain versions; CUDA tensors -> the kernels, in
     ``mp_precision``. With grad enabled and a differentiable input, through
-    ``FusedGatedPair``."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (h, *Wg, *Wl)):
-        return FusedGatedPair.apply(h, u, px, v, idx, mask, mp_precision,
-                                    *Wg, *Wl)
-    return _forward(h, u, px, v, idx, mask, Wg, Wl,
-                    mp_precision=mp_precision)
+    ``FusedGatedPair``. Its span: ``op.pair_fwd``; the backward's
+    ``op.pair_bwd`` (the fallback's, two ``op.layer_bwd``)."""
+    with tracing.span("op.pair_fwd"):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (h, *Wg, *Wl)):
+            return FusedGatedPair.apply(h, u, px, v, idx, mask,
+                                        mp_precision, *Wg, *Wl)
+        return _forward(h, u, px, v, idx, mask, Wg, Wl,
+                        mp_precision=mp_precision)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from msmp_pde_torch.data.graph import advance_windows
+from msmp_pde_torch import tracing
 
 
 def grid_from_h5(path: str, pde, mode: str, base_resolution,
@@ -215,17 +216,28 @@ class RolloutEngine:
         for k in range(parts):  # enqueue every part, then wait for each
             dev = self.replicas[k].device
             sl = slice(k * rows, (k + 1) * rows)
-            outs.append(self.program(n_windows, k)(
-                torch.as_tensor(window[sl], device=dev),
-                torch.as_tensor(steps[sl], device=dev, dtype=torch.int64),
-                {name: torch.as_tensor(v[sl], device=dev)
-                 for name, v in variables.items()}))
-        return np.concatenate([o.cpu().numpy() for o in outs])
+            args = (torch.as_tensor(window[sl], device=dev),
+                    torch.as_tensor(steps[sl], device=dev,
+                                    dtype=torch.int64),
+                    {name: torch.as_tensor(v[sl], device=dev)
+                     for name, v in variables.items()})
+            with tracing.span("serve.program"):
+                outs.append(self.program(n_windows, k)(*args))
+        with tracing.span("serve.answer"):
+            return np.concatenate([o.cpu().numpy() for o in outs])
 
     def rollout(self, window, variables: Optional[Dict] = None,
                 start_step=None, n_windows: int = 1) -> np.ndarray:
         """``start_step``: scalar or per-sample [B] label-window start
-        indices (the time-feature anchor); default ``tw``."""
+        indices (the time-feature anchor); default ``tw``. Its spans
+        (tracing.py): ``serve.rollout`` around the request, each
+        chunk's nested in it with the request's id; ``serve.program``
+        around each program call and ``serve.answer`` around the copy to
+        the host, which waits for the card."""
+        with tracing.span("serve.rollout", id=tracing.NEW):
+            return self._rollout(window, variables, start_step, n_windows)
+
+    def _rollout(self, window, variables, start_step, n_windows):
         trainer = self.trainer
         tw = trainer.tw
         window = np.asarray(window, np.float32)

@@ -45,6 +45,7 @@ from msmp_pde_torch.data.graph import (
 from msmp_pde_torch.models.common import assemble_variables
 from msmp_pde_torch.models.registry import FNO_VARS
 from msmp_pde_torch.parallel import mesh
+from msmp_pde_torch import tracing
 
 
 def make_var_fns(eq_norms: Dict[str, float], tmax: float):
@@ -127,18 +128,20 @@ class Trainer:
         time feature of a graph model); variables {name: [B]}. Returns
         (prediction [B, nx, d*tw], the LEM's new state or None); a grid
         model takes no state and returns None."""
-        if self.kind == "grid":
-            grid = window_to_grid(window, self.d, self.tw)
-            if getattr(self.model, "unstructured", False):
-                out = self.model(grid, self.grid_vars(variables), self.spec.x)
-            else:
-                out = self.model(grid, self.grid_vars(variables))
-            return grid_to_window(out, self.d, self.tw), None
-        spec = self.spec
-        pos_x = spec.x.expand(window.shape[0], spec.nx)
-        return self.model(window, pos_x, spec.t_grid[steps],
-                          self.var_vec(steps, variables), spec.idx,
-                          spec.mask, lem_state=lem_state)
+        with tracing.span("model.forward"):
+            if self.kind == "grid":
+                grid = window_to_grid(window, self.d, self.tw)
+                if getattr(self.model, "unstructured", False):
+                    out = self.model(grid, self.grid_vars(variables),
+                                     self.spec.x)
+                else:
+                    out = self.model(grid, self.grid_vars(variables))
+                return grid_to_window(out, self.d, self.tw), None
+            spec = self.spec
+            pos_x = spec.x.expand(window.shape[0], spec.nx)
+            return self.model(window, pos_x, spec.t_grid[steps],
+                              self.var_vec(steps, variables), spec.idx,
+                              spec.mask, lem_state=lem_state)
 
     # ------------------------------------------------------------ training
     def make_optimizer(self, lr: float, lr_decay: float, milestones,
@@ -168,33 +171,45 @@ class Trainer:
         variables = {k: v[idx_batch] for k, v in var_all.items()}
         window, _ = slice_windows(u_traj, steps, tw)
         state = None
-        # no_grad, not inference_mode: these windows feed the grad forward
-        with torch.no_grad():
-            for _ in range(unrolled):
-                pred, state = forward(window, steps, variables,
-                                      lem_state=state)
-                window = advance_windows(window, pred, self.d, tw)
-                steps = steps + tw
-        _, labels = slice_windows(u_traj, steps, tw)
-        pred, _ = forward(window, steps, variables, lem_state=state)
-        return torch.sqrt(mesh.global_sum(torch.sum((pred - labels) ** 2)))
+        if unrolled:
+            # no_grad, not inference_mode: these windows feed the grad
+            # forward
+            with torch.no_grad(), tracing.span("train.pushforward"):
+                for _ in range(unrolled):
+                    pred, state = forward(window, steps, variables,
+                                          lem_state=state)
+                    window = advance_windows(window, pred, self.d, tw)
+                    steps = steps + tw
+        with tracing.span("train.loss"):
+            _, labels = slice_windows(u_traj, steps, tw)
+            pred, _ = forward(window, steps, variables, lem_state=state)
+            return torch.sqrt(
+                mesh.global_sum(torch.sum((pred - labels) ** 2)))
 
     def _one_step(self, tx, unrolled: int):
         """The single optimizer step for a pushforward depth:
         step(u_all, var_all, idx_batch, steps) -> loss (a 0-d tensor on the
         device; the parameters and ``tx``'s state update in place). In a
         process group each rank runs its slice of the batch and the
-        gradients are summed over the ranks before AdamW."""
+        gradients are summed over the ranks before AdamW. Its spans
+        (tracing.py): ``train.step`` around it all, ``train.backward``
+        around the backward, and ``train.optimizer`` twice: around
+        ``zero_grad``, and around AdamW's step with the schedule's."""
         opt, sched = tx
 
         def step(u_all, var_all, idx_batch, steps):
-            loss = self.step_loss(u_all, var_all, idx_batch, steps, unrolled)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            mesh.sum_grads(self.model.parameters())
-            opt.step()
-            sched.step()
-            return loss.detach()
+            with tracing.span("train.step", id=tracing.NEW):
+                loss = self.step_loss(u_all, var_all, idx_batch, steps,
+                                      unrolled)
+                with tracing.span("train.optimizer"):
+                    opt.zero_grad(set_to_none=True)
+                with tracing.span("train.backward"):
+                    loss.backward()
+                mesh.sum_grads(self.model.parameters())
+                with tracing.span("train.optimizer"):
+                    opt.step()
+                    sched.step()
+                return loss.detach()
 
         return mesh.dp_sharded_step(step)
 

@@ -1,0 +1,144 @@
+"""PyTorch port, the spans of msmp_pde_torch/tracing.py on the card:
+under torch.profiler with CUDA activity, a training step of MSMP-PDE and a
+request of MP-PDE at E1's full widths open one ``launch.<k>`` span a
+kernel launch (each count the delta of its launch counter), each inside
+its ``op.<k>``; the backward's op spans, run on autograd's device thread,
+sit under the step's ``train.backward``; the spans lie inside their
+profiler ranges; the inverse lists are not recomputed and nothing is
+built. Skipped without a card. This file imports no JAX:
+
+    python -m pytest tests/test_torch_tracing_gpu.py -m gpu --noconftest -q
+"""
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+import torch.autograd.profiler as autograd_profiler
+from torch.profiler import ProfilerActivity, profile
+
+from msmp_pde_torch.ops import lem_scan, mp_layer, mp_pair
+from msmp_pde_torch.serving.engine import RolloutEngine, build_serving_trainer
+from msmp_pde_torch.training.setup import build_trainer
+from msmp_pde_torch import tracing
+
+from _torch_helpers import cuda_device  # noqa: F401
+
+pytestmark = pytest.mark.gpu
+
+# launch.<k> -> (module, its launch counter)
+COUNTERS = {"pair_fwd": (mp_pair, "launches"),
+            "pair_bwd": (mp_pair, "bwd_launches"),
+            "layer_fwd": (mp_layer, "launches"),
+            "layer_bwd": (mp_layer, "bwd_launches"),
+            "lem_fwd": (lem_scan, "launches"),
+            "lem_bwd": (lem_scan, "bwd_launches")}
+
+
+def _counts():
+    return {k: getattr(m, a) for k, (m, a) in COUNTERS.items()}
+
+
+def _traced(fn):
+    """``fn`` under torch.profiler with CUDA activity: (its spans, the
+    launch counters' deltas, the profile)."""
+    before = _counts()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    after = _counts()
+    return (tracing.spans(), {k: after[k] - before[k] for k in after},
+            prof)
+
+
+def _ancestors(spans, s):
+    out = []
+    while s.parent >= 0:
+        s = spans[s.parent]
+        out.append(s.name)
+    return out
+
+
+def _check_launches(spans, deltas):
+    counts = Counter(s.name for s in spans)
+    for k, d in deltas.items():
+        assert counts["launch." + k] == d, (k, counts["launch." + k], d)
+        assert counts["op." + k] == d, k
+    for s in spans:
+        if s.name.startswith("launch."):
+            assert spans[s.parent].name == "op." + s.name[len("launch."):]
+    assert "op.inverse_lists" not in counts and "op.build" not in counts
+
+
+def _check_inside_ranges(spans, prof):
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            ranges.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    for s in spans:
+        lo, hi = max(r for r in ranges[s.name] if r[0] <= s.start_ns)
+        assert lo <= s.start_ns <= s.end_ns <= hi, s
+
+
+def test_the_private_attributes_a_span_reads(cuda_device):
+    assert not autograd_profiler._is_profiler_enabled
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        assert autograd_profiler._is_profiler_enabled
+        with torch._C._profiler._RecordFunctionFast("probe.range"):
+            pass
+    finally:
+        prof.stop()
+    assert not autograd_profiler._is_profiler_enabled
+    assert tracing.span("x") is tracing.NOOP
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert names.count("probe.range") == 1
+
+
+def test_a_traced_training_step(cuda_device):
+    tr = build_trainer("E1", "MSMP-PDE", base_resolution=(250, 100),
+                       device=cuda_device)
+    tx = tr.make_optimizer(1e-4, 0.4, [1], 100)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    u_all = torch.randn(32, 250, 100, device=cuda_device, generator=g)
+    idx = torch.arange(16, device=cuda_device)
+    steps = torch.full((16,), 50, device=cuda_device)
+    step = tr.train_step_fn(tx, 1)
+    step(u_all, {}, idx, steps)  # warm
+    spans, deltas, prof = _traced(lambda: step(u_all, {}, idx, steps))
+    assert deltas["pair_bwd"] == 6 and deltas["lem_bwd"] == 1
+    _check_launches(spans, deltas)
+    assert [s.name for s in spans if s.parent < 0] == ["train.step"]
+    assert len({s.id for s in spans}) == 1
+    bwd = [s for s in spans if s.name in ("op.pair_bwd", "op.lem_bwd")]
+    assert len(bwd) == 7
+    for s in bwd:
+        assert _ancestors(spans, s)[:2] == ["train.backward", "train.step"]
+    _check_inside_ranges(spans, prof)
+
+
+def test_a_traced_request(cuda_device):
+    tr = build_serving_trainer("E1", "MP-PDE", base_resolution=(250, 100),
+                               device=cuda_device)
+    eng = RolloutEngine(tr, batch_buckets=(16,))
+    window = np.random.default_rng(0).normal(size=(16, 100, 25)).astype(
+        np.float32)
+
+    def run():
+        eng.rollout(window, start_step=50, n_windows=8)
+
+    run()  # warm
+    spans, deltas, prof = _traced(run)
+    assert deltas["layer_fwd"] == 48
+    _check_launches(spans, deltas)
+    counts = Counter(s.name for s in spans)
+    assert counts["serve.rollout"] == counts["serve.program"] == \
+        counts["serve.answer"] == 1 and counts["model.forward"] == 8
+    assert len({s.id for s in spans}) == 1
+    _check_inside_ranges(spans, prof)
