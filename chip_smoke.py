@@ -71,7 +71,10 @@ Phases, each of which fails the run on error:
  18. the train CLI's fit on that data: MSMP-PDE at full width (hidden 128,
      six gated pairs), batch 16, unrolling 1, lr 1e-4, two epochs, each
      step with its expected kernel launches and the metrics' forwards with
-     theirs, finite losses falling within epoch 0; the best-val
+     theirs, finite losses falling within epoch 0; after it (and every
+     later fit) ``replay_check``: the fit's last steps as replayed CUDA
+     graphs bitwise the eager step's, and the kernels traced in the
+     replays the launch counters' moves; the best-val
      checkpoint restores parameters, AdamW's state, the schedule and the
      epoch bitwise, and --resume starts after it; compute_l2_norms on the
      valid set, kernel path vs plain path; the HTTP server started with
@@ -279,32 +282,22 @@ def grad_scales(named):
                 else top(g)) for n, g in named.items()}
 
 
-COUNTERS = ("lem_fwd", "lem_fwd_stash", "lem_bwd", "mp_pair_fwd",
-            "mp_pair_fwd_stash", "mp_pair_bwd", "mp_layer_fwd",
-            "mp_layer_bwd")
-
-
 def launch_counts():
-    """{kernel: launches since the last reset}; the stash variants are
-    counted in their kernel's total too."""
-    from msmp_pde_torch.ops import lem_scan, mp_layer, mp_pair
+    """{kernel: launches since the last reset} (``ops.LAUNCH_COUNTERS``);
+    the stash variants are counted in their kernel's total too."""
+    from msmp_pde_torch import ops
 
-    return dict(zip(COUNTERS, (
-        lem_scan.launches, lem_scan.stash_launches, lem_scan.bwd_launches,
-        mp_pair.launches, mp_pair.stash_launches, mp_pair.bwd_launches,
-        mp_layer.launches, mp_layer.bwd_launches)))
+    return ops.launch_counts()
 
 
 def reset_counts():
-    from msmp_pde_torch.ops import lem_scan, mp_layer, mp_pair
+    from msmp_pde_torch import ops
 
-    lem_scan.launches = lem_scan.stash_launches = lem_scan.bwd_launches = 0
-    mp_pair.launches = mp_pair.stash_launches = mp_pair.bwd_launches = 0
-    mp_layer.launches = mp_layer.bwd_launches = 0
+    ops.set_launch_counts(dict.fromkeys(ops.LAUNCH_COUNTERS, 0))
 
 
 def diff_counts(now, before):
-    return {k: now[k] - before[k] for k in COUNTERS}
+    return {k: now[k] - before[k] for k in now}
 
 
 def expected_launches(model, forwards, grad_steps=0):
@@ -317,7 +310,7 @@ def expected_launches(model, forwards, grad_steps=0):
     none."""
     from msmp_pde_torch.models.gnn import MPSolver
 
-    want = dict.fromkeys(COUNTERS, 0)
+    want = dict.fromkeys(launch_counts(), 0)
     if not isinstance(model, MPSolver):
         return want
     towers = ((model.diff_tower, model.scale_tower) if model.twin_scale
@@ -1363,7 +1356,7 @@ def check_pair_fallback(rand, model, spec, T, H, V):
         out = mp_pair.fused_gated_pair(h, *args[1:6], ws[:12], ws[12:])
     got = torch.autograd.grad(out, [h] + ws, g)
     counts = launch_counts()
-    want_counts = dict.fromkeys(COUNTERS, 0)
+    want_counts = dict.fromkeys(launch_counts(), 0)
     want_counts.update(mp_pair_fwd=1, mp_pair_fwd_stash=1, mp_layer_bwd=2)
     check(counts == want_counts, f"fallback at batch 48: launches "
           f"{nonzero(counts)}, expected {nonzero(want_counts)}")
@@ -1538,13 +1531,96 @@ def datagen_phase(data_dir, on):
           f"u_base {ds.u_base.shape}, x {ds.x.shape}")
 
 
+# {launch counter: the names of the kernel that each of its launches runs
+# once} (the hidden-164 LEM's ring kernels beside the others)
+TRACED_KERNELS = {"lem_fwd": ("lem_fwd_kernel", "lem_fwd_ring"),
+                  "lem_bwd": ("lem_bwd_sweep", "lem_bwd_ring"),
+                  "mp_pair_fwd": ("mp_pair_fwd_kernel",),
+                  "mp_pair_bwd": ("mp_pair_bwd_kernel",),
+                  "mp_layer_fwd": ("mp_layer_fwd_kernel",),
+                  "mp_layer_bwd": ("mp_layer_bwd_kernel",)}
+REPLAY_STEPS = 4  # the steps of each depth that replay_check takes
+
+
+def replay_check(trainer, calls, name):
+    """What the graphed step of every fit is held to, from copies of
+    ``trainer``'s weights: the last REPLAY_STEPS steps of each depth in
+    ``calls`` ((depth, (u_all, var_all, idx, steps)) of the fit, in its
+    order), as replays of CUDA graphs and through the eager step
+    (``Trainer._one_step``) on the same kind of optimizer, with a milestone
+    two steps in, cuDNN deterministic and TF32 off, give bitwise equal
+    losses, weights and AdamW state, and move each launch counter alike;
+    and the kernels that torch.profiler records in the replays are, name
+    by name, the launches the counters add. Returns the counters' moves."""
+    import copy
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    picked = sorted(i for f in {f for f, _ in calls} for i in
+                    [j for j, c in enumerate(calls) if c[0] == f]
+                    [-REPLAY_STEPS:])
+    steps = [calls[i] for i in picked]
+    with cudnn_deterministic():
+        graphed, eager = copy.deepcopy(trainer), copy.deepcopy(trainer)
+        check(graphed.graphed(), f"{name}: the graphed route not taken")
+        tx_g = graphed.make_optimizer(1e-4, 0.4, [1], 2)
+        tx_e = eager.make_optimizer(1e-4, 0.4, [1], 2)
+        fns = {f: graphed.train_step_fn(tx_g, f) for f, _ in steps}
+        ref = {f: eager._one_step(tx_e, f) for f, _ in steps}
+        for f in fns:  # the captures, which change no state, untraced
+            fns[f].capture(*next(a for g, a in steps if g == f))
+        before = launch_counts()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+        try:
+            got = [fns[f](*a) for f, a in steps]
+            torch.cuda.synchronize()
+        finally:
+            prof.stop()
+        moved = diff_counts(launch_counts(), before)
+        before = launch_counts()
+        want = [ref[f](*a) for f, a in steps]
+        torch.cuda.synchronize()
+        check(diff_counts(launch_counts(), before) == moved,
+              f"{name}: replays launched {nonzero(moved)}, the eager steps "
+              f"{nonzero(diff_counts(launch_counts(), before))}")
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{name}: replayed losses {[x.item() for x in got]} against the "
+          f"eager steps' {[x.item() for x in want]}")
+    for (n, p), q in zip(graphed.model.named_parameters(),
+                         eager.model.parameters()):
+        check(torch.equal(p, q), f"{name}: {n} after the replays differs "
+              "from the eager steps'")
+        sg, se = tx_g[0].state[p], tx_e[0].state[q]
+        check(sg.keys() == se.keys() and all(
+            torch.equal(sg[k], se[k]) for k in sg),
+            f"{name}: AdamW's state of {n} after the replays differs")
+    kernels = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA)
+    traced = {k: sum(n for kernel, n in kernels.items()
+                     if any(x in kernel for x in names))
+              for k, names in TRACED_KERNELS.items()}
+    check(traced == {k: moved[k] for k in TRACED_KERNELS},
+          f"{name}: kernels traced in the replays {traced}, the counters "
+          f"moved {nonzero(moved)}")
+    print(f"{name}: {len(steps)} graphed steps (depths "
+          f"{[f for f, _ in steps]}) bitwise the eager steps' (losses, "
+          f"weights, AdamW's state); their traced kernels "
+          f"{nonzero(traced) or 'none'}, each the counters' move")
+    return moved
+
+
 def counted_fit(args, exp, data, save_path, on, snapshot=None):
     """Phases 18, 20 and 23: ``train.fit`` with each optimizer step's launches
     counted, and what every fit is held to: each step's expected launches,
     the metrics' forwards' launches, the pushforward depths of each epoch,
-    finite losses, a loss falling within epoch 0. ``snapshot(save, path,
-    model, tx, epoch)`` runs in place of each checkpoint save. Returns
-    (fit's result, the run's launch counts, its seconds)."""
+    finite losses, a loss falling within epoch 0, and after it
+    ``replay_check`` on the fit's last steps. ``snapshot(save, path, model,
+    tx, epoch)`` runs in place of each checkpoint save. Returns (fit's
+    result, the run's launch counts, its seconds)."""
     import numpy as np
 
     from msmp_pde_torch.training import train
@@ -1552,7 +1628,7 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
 
     trainer, t_res = exp.trainer, exp.t_res
     model, name = trainer.model, args.model
-    per_step = []
+    per_step, calls = [], []
     step_fn, save = trainer.train_step_fn, checkpoint.save_checkpoint
 
     def counted(tx, unrolled):
@@ -1562,6 +1638,7 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
             before = launch_counts()
             loss = fn(*a)
             per_step.append((unrolled, diff_counts(launch_counts(), before)))
+            calls.append((unrolled, a))
             return loss
 
         return step
@@ -1600,9 +1677,9 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
     fwd = sum(steps_at + windows + shw
               + (steps_at + 3 * windows + shw if h["improved"] else 0)
               for h in hist)
-    summed = dict.fromkeys(COUNTERS, 0)
+    summed = dict.fromkeys(totals, 0)
     for _, d in per_step:
-        summed = {k: summed[k] + d[k] for k in COUNTERS}
+        summed = {k: summed[k] + d[k] for k in totals}
     want = expected_launches(model, fwd)
     check(diff_counts(totals, summed) == want, f"{name} fit metrics: "
           f"launches {nonzero(diff_counts(totals, summed))}, expected "
@@ -1629,6 +1706,7 @@ def counted_fit(args, exp, data, save_path, on, snapshot=None):
     print(f"{name} fit: valid rel-L2 {100 * res['valid_rel_L2']:.3f} %, test "
           f"rel-L2 {100 * res['test_rel_L2']:.3f} % (32 training samples, "
           f"{epochs} epoch(s); {on})")
+    replay_check(trainer, calls, name)
     return res, totals, took
 
 
@@ -2386,6 +2464,10 @@ def grid_models_phase(rand, dev, on, names=None, experiment=None,
                   f"against float64: loss {loss.item():.6f} (rel "
                   f"{rel:.2e}); {len(names)} grads within the scale-aware "
                   f"bound (largest {worst:.2e} of a scale)")
+        # the last loss's autograd graph would tie the parameters' gradient
+        # accumulators to this stream: the graphed step below could not be
+        # captured
+        del loss
         counts = launch_counts()
         check(not any(counts.values()), f"{name}: launches "
               f"{nonzero(counts)}, expected none")
@@ -4033,10 +4115,13 @@ def cudnn_deterministic():
 
 
 def _step_grads(trainer, u_all, batch, unrolled):
-    """(loss, {name: gradient}) of one AdamW step of ``trainer`` at
-    ``unrolled`` on ``batch`` = (idx, steps), from its current weights."""
+    """(loss, {name: gradient}) of one eager AdamW step of ``trainer`` at
+    ``unrolled`` on ``batch`` = (idx, steps), from its current weights (the
+    eager step, ``Trainer._one_step``, leaves its gradients on the
+    parameters, where the graphed step keeps them in its graph; the card's
+    tests hold the two steps bitwise alike)."""
     tx = trainer.make_optimizer(1e-4, 0.4, [1, 5, 10, 15], 250)
-    loss = trainer.train_step_fn(tx, unrolled)(u_all, {}, *batch)
+    loss = trainer._one_step(tx, unrolled)(u_all, {}, *batch)
     return loss.detach().clone(), {n: p.grad.detach().clone() for n, p in
                                    trainer.model.named_parameters()}
 

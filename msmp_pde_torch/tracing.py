@@ -36,7 +36,10 @@ trace). Nothing is written to disk.
 
 The spans, by layer (PERF.md section 3): ``train.step`` (one optimizer
 step, ``NEW`` id), ``train.pushforward``, ``train.loss``,
-``train.backward``, ``train.optimizer`` (training/loop.py);
+``train.backward``, ``train.optimizer`` (training/loop.py, the eager
+step); ``train.replay`` around a replay and ``train.capture`` around a
+capture of the graphed step, inside its ``train.step`` (training/loop.py::
+GraphedStep, whose replayed kernels open no span on the host);
 ``serve.rollout`` (one request, ``NEW`` id), ``serve.program``,
 ``serve.answer`` (serving/engine.py); ``model.forward``
 (``Trainer.forward``); ``op.<k>`` around each op call and ``launch.<k>``

@@ -5,7 +5,12 @@ kernel launch (each count the delta of its launch counter), each inside
 its ``op.<k>``; the backward's op spans, run on autograd's device thread,
 sit under the step's ``train.backward``; the spans lie inside their
 profiler ranges; the inverse lists are not recomputed and nothing is
-built. Skipped without a card. This file imports no JAX:
+built. The eager step (``Trainer._one_step``, the route of a process
+group) opens those spans; the graphed step that ``train_step_fn`` gives on
+the card opens ``train.step`` and its ``train.replay`` alone, advances the
+launch counters as the eager step does, and the profiler still records
+the replayed kernels by name. Skipped without a card. This file imports
+no JAX:
 
     python -m pytest tests/test_torch_tracing_gpu.py -m gpu --noconftest -q
 """
@@ -109,7 +114,7 @@ def test_a_traced_training_step(cuda_device):
     u_all = torch.randn(32, 250, 100, device=cuda_device, generator=g)
     idx = torch.arange(16, device=cuda_device)
     steps = torch.full((16,), 50, device=cuda_device)
-    step = tr.train_step_fn(tx, 1)
+    step = tr._one_step(tx, 1)
     step(u_all, {}, idx, steps)  # warm
     spans, deltas, prof = _traced(lambda: step(u_all, {}, idx, steps))
     assert deltas["pair_bwd"] == 6 and deltas["lem_bwd"] == 1
@@ -121,6 +126,30 @@ def test_a_traced_training_step(cuda_device):
     for s in bwd:
         assert _ancestors(spans, s)[:2] == ["train.backward", "train.step"]
     _check_inside_ranges(spans, prof)
+
+
+def test_a_traced_replayed_step(cuda_device):
+    tr = build_trainer("E1", "MSMP-PDE", base_resolution=(250, 100),
+                       device=cuda_device)
+    tx = tr.make_optimizer(1e-4, 0.4, [1], 100)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    u_all = torch.randn(32, 250, 100, device=cuda_device, generator=g)
+    idx = torch.arange(16, device=cuda_device)
+    steps = torch.full((16,), 50, device=cuda_device)
+    step = tr.train_step_fn(tx, 1)
+    step(u_all, {}, idx, steps)  # captures
+    spans, deltas, prof = _traced(lambda: step(u_all, {}, idx, steps))
+    assert deltas["pair_fwd"] == 12 and deltas["pair_bwd"] == 6
+    assert deltas["lem_fwd"] == 2 and deltas["lem_bwd"] == 1
+    assert [s.name for s in spans] == ["train.step", "train.replay"]
+    assert spans[1].parent == 0
+    _check_inside_ranges(spans, prof)
+    kernels = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA)
+    for name, n in (("mp_pair_bwd_kernel", 6), ("mp_pair_fwd_kernel", 12),
+                    ("lem_bwd_sweep", 1)):
+        assert sum(c for k, c in kernels.items() if name in k) == n, (
+            name, sorted(kernels.items())[:40])
 
 
 def test_a_traced_request(cuda_device):
