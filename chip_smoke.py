@@ -20,7 +20,10 @@ Phases, each of which fails the run on error:
   5. the main path: the port's HTTP server on localhost answers rollout
      requests (B = 1, 3, 16, 20, and one trajectory) at n_windows=8, each
      checked against RolloutEngine.rollout and against the expected kernel
-     launch counts;
+     launch counts; after it (and every later serving phase)
+     ``rollout_replay_check``: each rollout the engine replays as a CUDA
+     graph bitwise its eager RolloutProgram's, and the kernels traced in
+     the replays the launch counters' moves;
   6. timings (CUDA events, medians) of each kernel beside its plain
      version (replayed from a CUDA graph, and eager) and its bound, the
      pair's forward at buckets 1 and 16, the model's forward at buckets 1
@@ -1232,6 +1235,7 @@ def serve_path(engine, name, experiment="E1"):
               f"{name} B={B}: served result differs from engine.rollout")
         print(f"{name} served B={B}{' trajectory' if traj else ''}: "
               f"{got.shape}, {lat * 1e3:.3f} ms, launches {nonzero(n)}")
+    rollout_replay_check(engine, name)
     return totals
 
 
@@ -1540,6 +1544,7 @@ TRACED_KERNELS = {"lem_fwd": ("lem_fwd_kernel", "lem_fwd_ring"),
                   "mp_layer_fwd": ("mp_layer_fwd_kernel",),
                   "mp_layer_bwd": ("mp_layer_bwd_kernel",)}
 REPLAY_STEPS = 4  # the steps of each depth that replay_check takes
+RETRACES = 2  # rollout_replay_check's traces after one that misses records
 
 
 def replay_check(trainer, calls, name):
@@ -1610,6 +1615,128 @@ def replay_check(trainer, calls, name):
           f"{[f for f, _ in steps]}) bitwise the eager steps' (losses, "
           f"weights, AdamW's state); their traced kernels "
           f"{nonzero(traced) or 'none'}, each the counters' move")
+    return moved
+
+
+def rollout_replay_check(engine, name):
+    """What every served engine is held to after its serving phase: for
+    each CUDA graph it captured (serving/engine.py::GraphedRollout, one a
+    (bucket, n_windows, replica)), a request of the bucket's size with
+    random windows, start steps and equation variables is replayed, not
+    captured, and its answer is bitwise ``engine.program(n_windows)``
+    called eagerly on the same inputs, under the same cuDNN and TF32
+    settings as the capture; the replays move each launch counter as the
+    eager calls do; and the kernels that torch.profiler records in the
+    replays are, name by name, the launches the counters add.
+
+    Where a trace keeps fewer records than the counters add, the requests
+    are traced again, up to ``RETRACES`` times, and one exact trace
+    passes. Only where every trace misses, each by the same records, all
+    of them the LEM forward's cluster launches (``lem_fwd_kernel``,
+    ``lem_fwd_ring``) and at most one a request, does the check pass,
+    printing the shortfall beside what the profiler records in the eager
+    calls of the same programs; any other miss fails. Returns the
+    counters' moves."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from msmp_pde_torch.serving import engine as engine_mod
+
+    tr, dev = engine.trainer, engine.trainer.device
+    keys = sorted(k for k in engine.graphs if k[2] == 0)
+    check(bool(keys), f"{name}: no served rollout was replayed from a graph")
+    nx, dtw, tw = tr.spec.nx, tr.d * tr.tw, tr.tw
+    nt = int(tr.spec.t_grid.shape[0])
+    requests = []
+    for i, (bucket, n, _) in enumerate(keys):
+        rng = np.random.default_rng(70 + i)
+        requests.append((n, rng.normal(size=(bucket, nx, dtw)).astype(
+            np.float32), rng.integers(tw, nt - tw + 1, bucket).astype(
+            np.int32), {k: rng.uniform(0.1, 1.0, bucket).astype(np.float32)
+                        for k in tr.eq_norms}))
+
+    def eager_calls():
+        with torch.inference_mode():
+            return [engine.program(n)(
+                torch.as_tensor(w, device=dev),
+                torch.as_tensor(st, device=dev, dtype=torch.int64),
+                {k: torch.as_tensor(v, device=dev) for k, v in var.items()}
+            ).cpu().numpy() for n, w, st, var in requests]
+
+    def replays():
+        return [engine.rollout(w, var or None, start_step=st, n_windows=n)
+                for n, w, st, var in requests]
+
+    def traced(calls):
+        """``calls()`` under torch.profiler: (what it returned, the
+        counters' moves, the kernels traced by TRACED_KERNELS' names, the
+        traced kernels whose names hold "lem")."""
+        torch.cuda.synchronize()
+        before = launch_counts()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+        try:
+            got = calls()
+            torch.cuda.synchronize()
+        finally:
+            prof.stop()
+        moved = diff_counts(launch_counts(), before)
+        kernels = Counter(
+            e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA)
+        return got, moved, {k: sum(c for kernel, c in kernels.items()
+                                   if any(x in kernel for x in names))
+                            for k, names in TRACED_KERNELS.items()}, {
+            k.split("(")[0]: c for k, c in kernels.items() if "lem" in k}
+
+    captured, replayed = engine_mod.captures, engine_mod.replays
+    got, moved, traced_k, lem_k = traced(replays)
+    check(engine_mod.captures == captured
+          and engine_mod.replays == replayed + len(requests),
+          f"{name}: {engine_mod.captures - captured} captures and "
+          f"{engine_mod.replays - replayed} replays for "
+          f"{len(requests)} requests of captured buckets")
+    before = launch_counts()
+    want = eager_calls()
+    eager = diff_counts(launch_counts(), before)
+    check(eager == moved, f"{name}: replayed rollouts launched "
+          f"{nonzero(moved)}, the eager programs {nonzero(eager)}")
+    for (bucket, n, _), a, b in zip(keys, got, want):
+        check(np.array_equal(a, b), f"{name} @bucket {bucket} x {n} "
+              f"windows: the replay differs from the eager program by "
+              f"{np.abs(a - b).max():.3e}")
+    shorts = []
+    for _ in range(RETRACES + 1):
+        short = {k: moved[k] - traced_k[k] for k in TRACED_KERNELS}
+        shorts.append(short)
+        if not any(short.values()):
+            break
+        print(f"{name}: a trace of the replays kept {nonzero(traced_k)} "
+              f"of the counters' {nonzero(moved)}; its LEM kernels {lem_k}")
+        if len(shorts) <= RETRACES:
+            _, moved, traced_k, lem_k = traced(replays)
+    if any(shorts[-1].values()):
+        _, _, eager_k, eager_lem = traced(eager_calls)
+        lem_only = {k: 0 for k in TRACED_KERNELS}
+        lem_only["lem_fwd"] = shorts[0]["lem_fwd"]
+        check(all(s == shorts[0] for s in shorts)
+              and shorts[0] == lem_only
+              and 0 < lem_only["lem_fwd"] <= len(requests),
+              f"{name}: kernels traced in the replayed rollouts "
+              f"{traced_k}, the counters moved {nonzero(moved)}")
+        print(f"{name}: every one of {len(shorts)} traces of the replays "
+              f"kept {traced_k['lem_fwd']} of their {moved['lem_fwd']} LEM "
+              f"forward records ({lem_k}); a trace of the eager calls kept "
+              f"{eager_k['lem_fwd']} ({eager_lem}), its other kernels "
+              f"{nonzero({k: v for k, v in eager_k.items() if k != 'lem_fwd'})}")
+    print(f"{name}: {len(keys)} graphed rollouts ((bucket, n_windows) "
+          f"{[k[:2] for k in keys]}) bitwise the eager program's; their "
+          f"traced kernels {nonzero(traced_k) or 'none'}, the counters moved "
+          f"{nonzero(moved) or 'none'}")
     return moved
 
 
@@ -1915,6 +2042,7 @@ def fit_phase(data_dir, work_dir, on, experiment="E1", model="MSMP-PDE",
     print(f"served the checkpoint on the grid of {health['grid']}: B=4, "
           f"{N_WINDOWS} windows, {got.shape}, equal to engine.rollout, "
           f"launches {nonzero(d)}")
+    rollout_replay_check(engine, f"{name} served")
     return totals
 
 
@@ -2118,6 +2246,7 @@ def serve_stateful(engine, name):
     from http.server import ThreadingHTTPServer
 
     import numpy as np
+    import torch
 
     from msmp_pde_torch.serving import engine as engine_mod
     from msmp_pde_torch.serving import serve
@@ -2135,7 +2264,10 @@ def serve_stateful(engine, name):
     resets, reset = [], engine_mod.reset_past_horizon
 
     def counting(state, s, last):
-        resets.append(int((s > last).sum()))
+        # the graph's capture records the reset on the card; its eager
+        # warm-up before it reads how many samples it reset
+        if not torch.cuda.is_current_stream_capturing():
+            resets.append(int((s > last).sum()))
         return reset(state, s, last)
 
     engine_mod.reset_past_horizon = counting
@@ -2187,7 +2319,9 @@ def serve_stateful(engine, name):
           f"running plain rollout at rel-L2 {drift:.3e}), launches "
           f"{nonzero(counts)}"
           + (f"; the state reset past nt - tw fired for {fired} "
-             f"sample-windows" if stateful else ""))
+             f"sample-windows in the capture's eager warm-up"
+             if stateful else ""))
+    rollout_replay_check(engine, name)
     return counts
 
 
@@ -3848,6 +3982,7 @@ def bf16_serve(ckpt, mode, data_dir, data, name="MSMP-PDE"):
           f"{N_WINDOWS} windows, equal to engine.rollout, launches "
           f"{nonzero(counts)}; each window within {r:.3f} of the plain "
           f"path's bf16-to-float32 distance from its plain bf16 forward")
+    rollout_replay_check(engine, f"{name} served in {mode}")
     return counts
 
 

@@ -5,8 +5,7 @@ registered as ``torch.library`` ops in the ``msmp`` namespace
 The kernel functions count their launches in module globals of their
 wrappers; ``LAUNCH_COUNTERS`` names them, and ``launch_counts`` and
 ``set_launch_counts`` read and set them by those names (a replayed CUDA
-graph of the training step adds its captured step's launches,
-training/loop.py::GraphedStep)."""
+graph adds the launches its capture made, graphs.py)."""
 from typing import Dict
 
 from msmp_pde_torch.ops import library  # noqa: F401

@@ -2,7 +2,7 @@
 msmp_pde_tpu/serving/engine.py).
 
 Requests are padded up to the nearest batch bucket (oversize requests are
-chunked over the largest), and the horizon runs as an eager loop of
+chunked over the largest), and the horizon runs as a loop of
 ``Trainer.forward`` calls under ``torch.inference_mode``, the windows
 advancing by the pushforward rule (``data.graph.advance_windows``). On the
 card each forward goes through the LEM-scan kernel once (LEM encoders) and
@@ -17,10 +17,14 @@ FNO) runs torch ops alone, on windows mapped to its grid layout by
 sample past the data horizon (``reset_past_horizon``).
 
 The loop is ``RolloutProgram``, a module of tensors in and out for a fixed
-number of windows, which the engine calls and serving/export.py exports:
-the eager path and the exported one share one body. ``devices`` holds one
-replica of the model on each device (the JAX engine's ``mesh``); a bucket
-that their number divides is split across them in order.
+number of windows, which serving/export.py exports: the eager path, the
+graphed one and the exported one share one body. On the card the engine
+replays it as a CUDA graph (``GraphedRollout``), one per (bucket,
+n_windows, replica) captured on first use, so a request costs the card's
+time and a handful of host calls instead of a launch per kernel; on the
+CPU it calls it eagerly. ``devices`` holds one replica of the model on
+each device (the JAX engine's ``mesh``); a bucket that their number
+divides is split across them in order.
 """
 from __future__ import annotations
 
@@ -32,7 +36,10 @@ import numpy as np
 import torch
 
 from msmp_pde_torch.data.graph import advance_windows
-from msmp_pde_torch import tracing
+from msmp_pde_torch import graphs, tracing
+
+captures = 0  # CUDA graphs of a rollout captured (GraphedRollout)
+replays = 0   # program calls run as a replay of one
 
 
 def grid_from_h5(path: str, pde, mode: str, base_resolution,
@@ -133,6 +140,86 @@ class RolloutProgram(torch.nn.Module):
         return torch.stack(preds, dim=1)
 
 
+class GraphedRollout:
+    """The rollout program of one (bucket, n_windows, replica) as a CUDA
+    graph: captured once from ``program`` (the engine's ``RolloutProgram``)
+    on static input buffers, then replayed for each request.
+
+    The capture goes through the module call ``program(*static inputs)``,
+    so the graph holds whatever that call ran at capture time, a wrapper of
+    ``program.forward`` installed before it included. The engine keys its
+    graphs by bucket, n_windows and replica alone: a wrapper installed
+    after the capture is never seen. Before the capture the program runs
+    ``WARMUP`` times eagerly on the capture stream (graphs.py, as the
+    training step's graph: the kernels' builds, cuDNN's and cuFFT's
+    plans); neither leaves a launch counted. The static inputs live
+    outside the graph's memory pool. The graphs of one replica share a
+    pool (``peer``'s) and a capture stream, and replay in turn on the
+    device's current stream, each one's output copied out (``fetch``)
+    before another replays. Raises, naming the model, where the program
+    cannot be captured.
+
+    ``replay`` copies a request's padded numpy inputs into the static
+    buffers, replays under the spans ``serve.program`` and ``serve.replay``
+    and adds the captured program's launches to the kernels' counters
+    (``ops.LAUNCH_COUNTERS``). ``fetch`` enqueues the copy of the output
+    into a pinned host buffer and returns it; it holds the answer once
+    ``done`` has completed, until the next ``fetch``."""
+
+    WARMUP = 2  # eager calls on the capture stream before a capture
+
+    def __init__(self, program: RolloutProgram, window, steps, variables,
+                 peer: Optional["GraphedRollout"] = None):
+        self.program = program
+        dev = self.device = program.trainer.device
+        self.window = torch.empty(window.shape, dtype=torch.float32,
+                                  device=dev)
+        self.steps = torch.empty(steps.shape, dtype=torch.int64, device=dev)
+        self.variables = {k: torch.empty(v.shape, dtype=torch.float32,
+                                         device=dev)
+                          for k, v in variables.items()}
+        self.fill(window, steps, variables)
+        self.stream = (peer.stream if peer is not None
+                       else torch.cuda.Stream(device=dev))
+        with torch.cuda.device(dev):
+            self._capture(peer)
+        self.host = torch.empty(self.out.shape, dtype=self.out.dtype,
+                                pin_memory=True)
+        self.done = torch.cuda.Event()
+
+    def fill(self, window, steps, variables):
+        """Copies a request's numpy inputs into the static buffers."""
+        self.window.copy_(torch.from_numpy(np.ascontiguousarray(window)))
+        self.steps.copy_(torch.from_numpy(steps.astype(np.int64)))
+        for k, v in variables.items():
+            self.variables[k].copy_(
+                torch.from_numpy(np.ascontiguousarray(v)))
+
+    def _capture(self, peer):
+        global captures
+        prog = self.program
+        args = (self.window, self.steps, self.variables)
+        graphs.warm_up(lambda: prog(*args), self.stream, self.WARMUP)
+        self.graph, self.out, self.deltas = graphs.capture(
+            lambda: prog(*args), self.stream,
+            peer.graph.pool() if peer is not None else None,
+            f"{type(prog.model).__name__}: the rollout of "
+            f"{prog.n_windows} windows at batch {self.window.shape[0]}")
+        captures += 1
+
+    def replay(self, window, steps, variables):
+        global replays
+        self.fill(window, steps, variables)
+        with tracing.span("serve.program"):
+            graphs.replay(self.graph, self.deltas, "serve.replay")
+        replays += 1
+
+    def fetch(self) -> torch.Tensor:
+        self.host.copy_(self.out, non_blocking=True)
+        self.done.record(torch.cuda.current_stream(self.device))
+        return self.host
+
+
 def _same_device(a, b) -> bool:
     a, b = torch.device(a), torch.device(b)
     if a.type != b.type:
@@ -169,6 +256,10 @@ class RolloutEngine:
     bucket their number divides is split into as many parts, part k on
     replica k, and the parts come back in order; any other bucket runs on
     the first replica.
+
+    A replica on the card replays a ``GraphedRollout`` of the request's
+    (bucket, n_windows, replica), captured on its first request
+    (``graphs``); a replica on the CPU calls its program eagerly.
     """
 
     def __init__(self, trainer, params=None,
@@ -184,6 +275,7 @@ class RolloutEngine:
         if not self.buckets:
             raise ValueError("need at least one batch bucket")
         self._programs = {}
+        self.graphs: Dict[tuple, GraphedRollout] = {}
 
     @property
     def devices(self):
@@ -196,6 +288,26 @@ class RolloutEngine:
             self._programs[key] = RolloutProgram(self.replicas[part],
                                                  n_windows)
         return self._programs[key]
+
+    def graphed(self, part: int) -> bool:
+        """Whether replica ``part`` replays its rollouts as CUDA graphs:
+        where it is on the card."""
+        return self.replicas[part].device.type == "cuda"
+
+    def _graph(self, bucket: int, n_windows: int, part: int, args):
+        """The graph of (bucket, n_windows, part), captured from ``args``
+        (numpy inputs) where there is none yet, sharing the pool and
+        stream of the replica's other graphs."""
+        key = (bucket, n_windows, part)
+        g = self.graphs.get(key)
+        if g is None:
+            peer = next((h for (_, _, k), h in self.graphs.items()
+                         if k == part), None)
+            with tracing.span("serve.capture"):
+                g = GraphedRollout(self.program(n_windows, part), *args,
+                                   peer=peer)
+            self.graphs[key] = g
+        return g
 
     def _bucket_for(self, B: int) -> int:
         for b in self.buckets:
@@ -214,25 +326,39 @@ class RolloutEngine:
         rows = B // parts
         outs = []
         for k in range(parts):  # enqueue every part, then wait for each
-            dev = self.replicas[k].device
             sl = slice(k * rows, (k + 1) * rows)
-            args = (torch.as_tensor(window[sl], device=dev),
-                    torch.as_tensor(steps[sl], device=dev,
-                                    dtype=torch.int64),
-                    {name: torch.as_tensor(v[sl], device=dev)
-                     for name, v in variables.items()})
+            args = (window[sl], steps[sl],
+                    {name: v[sl] for name, v in variables.items()})
+            if self.graphed(k):
+                g = self._graph(B, n_windows, k, args)
+                g.replay(*args)
+                outs.append(g)
+                continue
+            dev = self.replicas[k].device
+            args = (torch.as_tensor(args[0], device=dev),
+                    torch.as_tensor(args[1], device=dev, dtype=torch.int64),
+                    {name: torch.as_tensor(v, device=dev)
+                     for name, v in args[2].items()})
             with tracing.span("serve.program"):
                 outs.append(self.program(n_windows, k)(*args))
         with tracing.span("serve.answer"):
-            return np.concatenate([o.cpu().numpy() for o in outs])
+            host = [o.fetch() if isinstance(o, GraphedRollout) else o
+                    for o in outs]
+            for o in outs:
+                if isinstance(o, GraphedRollout):
+                    o.done.synchronize()
+            return np.concatenate([h.numpy() for h in host])
 
     def rollout(self, window, variables: Optional[Dict] = None,
                 start_step=None, n_windows: int = 1) -> np.ndarray:
         """``start_step``: scalar or per-sample [B] label-window start
-        indices (the time-feature anchor); default ``tw``. Its spans
+        indices (the time-feature anchor); default ``tw``. Returns a
+        fresh array, which no later request writes. Its spans
         (tracing.py): ``serve.rollout`` around the request, each
-        chunk's nested in it with the request's id; ``serve.program``
-        around each program call and ``serve.answer`` around the copy to
+        chunk's nested in it with the request's id; ``serve.capture``
+        around a capture of a graph; ``serve.program`` around each program
+        call (the inputs' copies excluded), with ``serve.replay`` around
+        the graph's launch on the card; ``serve.answer`` around the copy to
         the host, which waits for the card."""
         with tracing.span("serve.rollout", id=tracing.NEW):
             return self._rollout(window, variables, start_step, n_windows)

@@ -32,6 +32,17 @@ the number of devices the engine holds a replica on (0: every visible
 card, as the JAX server takes every device; with ``--device=cpu``, N CPU
 replicas), a bucket they divide split across them. Device work is
 serialized through a lock.
+
+On the card the engine replays each rollout as a CUDA graph of its
+(bucket, n_windows) on each replica, captured on the first request of that
+pair (serving/engine.py::GraphedRollout) and kept for the server's life.
+So a replica holds at most len(batch_buckets) x max_windows graphs, each
+keeping its output, bucket x n_windows x nx x d*tw float32, on the card
+and in a pinned host buffer of the same size: 41 MB each at bucket 64 and
+64 windows on E1's 100 nodes, 1.3 GB each way for all 64 horizons of that
+bucket. A key's first request also runs its capture (two eager rollouts
+and the capture) under the device lock; ``--warmup_windows`` captures
+every bucket at one horizon before the server listens.
 """
 from __future__ import annotations
 
@@ -382,7 +393,9 @@ def build_parser():
     p.add_argument("--warmup_windows", type=int, default=8,
                    help="run every bucket once at this horizon (0 = lazy)")
     p.add_argument("--max_windows", type=int, default=64,
-                   help="reject rollout requests beyond this horizon")
+                   help="reject rollout requests beyond this horizon (on "
+                        "the card each horizon served keeps a CUDA graph a "
+                        "bucket and replica)")
     p.add_argument("--max_batch", type=int, default=1024,
                    help="reject requests with more samples than this (an "
                         "oversize batch holds the device lock while it "

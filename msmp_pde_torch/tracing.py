@@ -41,7 +41,10 @@ step); ``train.replay`` around a replay and ``train.capture`` around a
 capture of the graphed step, inside its ``train.step`` (training/loop.py::
 GraphedStep, whose replayed kernels open no span on the host);
 ``serve.rollout`` (one request, ``NEW`` id), ``serve.program``,
-``serve.answer`` (serving/engine.py); ``model.forward``
+``serve.answer`` (serving/engine.py); ``serve.replay`` around a replay,
+inside its ``serve.program``, and ``serve.capture`` around a capture of a
+graphed rollout (serving/engine.py::GraphedRollout, whose replayed
+kernels open no span on the host); ``model.forward``
 (``Trainer.forward``); ``op.<k>`` around each op call and ``launch.<k>``
 around each kernel's C call, ``k`` one of pair_fwd, pair_bwd, layer_fwd,
 layer_bwd, lem_fwd, lem_bwd (ops/); ``op.inverse_lists`` and

@@ -63,7 +63,7 @@ from msmp_pde_torch.models.common import assemble_variables
 from msmp_pde_torch.models.registry import FNO_VARS
 from msmp_pde_torch.ops import mp_layer
 from msmp_pde_torch.parallel import mesh
-from msmp_pde_torch import ops, tracing
+from msmp_pde_torch import graphs, tracing
 
 captures = 0  # CUDA graphs captured (GraphedStep) since the last reset
 replays = 0   # steps run as a replay of one
@@ -366,10 +366,7 @@ class GraphedStep:
                 self.capture(u_all, var_all, idx_batch, steps)
             self.idx.copy_(idx_batch)
             self.steps.copy_(steps)
-            with tracing.span("train.replay"):
-                self.graph.replay()
-            ops.set_launch_counts({k: n + self.deltas[k] for k, n in
-                                   ops.launch_counts().items()})
+            graphs.replay(self.graph, self.deltas, "train.replay")
             replays += 1
             self.tx[1].step()
             return self.loss.clone()
@@ -415,36 +412,19 @@ class GraphedStep:
             elif self.stream is None:
                 self.stream = torch.cuda.Stream(device=dev)
             self._warm_up(u_all, var_all)
-            graph = torch.cuda.CUDAGraph()
-            before = ops.launch_counts()
-            # as torch.cuda.graph does: the warm-up's cached blocks go back
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
             try:
-                # not torch.cuda.graph: where the capture fails, its context
-                # leaves the side stream current
-                with torch.cuda.stream(self.stream):
-                    graph.capture_begin(
-                        pool=live[0].graph.pool() if live else None)
-                    try:
-                        loss = self._body(u_all, var_all)
-                    finally:
-                        graph.capture_end()
-            except RuntimeError as e:
-                raise RuntimeError(
+                graph, loss, self.deltas = graphs.capture(
+                    lambda: self._body(u_all, var_all), self.stream,
+                    live[0].graph.pool() if live else None,
                     f"{type(tr.model).__name__}: the training step at "
-                    f"pushforward depth {self.unrolled} cannot be captured "
-                    f"as a CUDA graph ({e}). Where an autograd graph of an "
-                    "earlier forward through the parameters is alive (a "
-                    "loss kept, say), free it before the first step: it "
-                    "ties their gradient accumulators to the stream it ran "
-                    "on.") from e
+                    f"pushforward depth {self.unrolled}",
+                    hint="Where an autograd graph of an earlier forward "
+                    "through the parameters is alive (a loss kept, say), "
+                    "free it before the first step: it ties their gradient "
+                    "accumulators to the stream it ran on.")
             finally:
                 # the graph keeps the gradients it made
                 opt.zero_grad(set_to_none=True)
-                after = ops.launch_counts()
-                ops.set_launch_counts(before)
-            self.deltas = {k: after[k] - before[k] for k in after}
             # the graph reads the backwards' inverse neighbour lists from
             # their memo, which may drop them
             self.kept = list(mp_layer._inverse_memo.values())
@@ -459,20 +439,17 @@ class GraphedStep:
         buffers, AdamW's state and the launch counters put back as they
         were."""
         tr, opt = self.trainer, self.tx[0]
-        counts = ops.launch_counts()
         saved = _snapshot(tr.model, opt)
-        main = torch.cuda.current_stream(tr.device)
-        self.stream.wait_stream(main)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            self._body(u_all, var_all)
+
         try:
-            with torch.cuda.stream(self.stream):
-                for _ in range(self.WARMUP):
-                    opt.zero_grad(set_to_none=True)
-                    self._body(u_all, var_all)
+            graphs.warm_up(step, self.stream, self.WARMUP)
         finally:
-            main.wait_stream(self.stream)
             _restore(tr.model, opt, saved)
             opt.zero_grad(set_to_none=True)
-            ops.set_launch_counts(counts)
 
 
 def _snapshot(model, opt):

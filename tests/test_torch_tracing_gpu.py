@@ -1,16 +1,19 @@
 """PyTorch port, the spans of msmp_pde_torch/tracing.py on the card:
 under torch.profiler with CUDA activity, a training step of MSMP-PDE and a
-request of MP-PDE at E1's full widths open one ``launch.<k>`` span a
+rollout of MP-PDE at E1's full widths open one ``launch.<k>`` span a
 kernel launch (each count the delta of its launch counter), each inside
 its ``op.<k>``; the backward's op spans, run on autograd's device thread,
 sit under the step's ``train.backward``; the spans lie inside their
 profiler ranges; the inverse lists are not recomputed and nothing is
 built. The eager step (``Trainer._one_step``, the route of a process
-group) opens those spans; the graphed step that ``train_step_fn`` gives on
-the card opens ``train.step`` and its ``train.replay`` alone, advances the
-launch counters as the eager step does, and the profiler still records
-the replayed kernels by name. Skipped without a card. This file imports
-no JAX:
+group) and the engine's ``RolloutProgram`` called directly open those
+spans; the graphed step that ``train_step_fn`` gives on the card opens
+``train.step`` and its ``train.replay`` alone, and a request to the
+engine, replayed from its graph, ``serve.rollout`` and its
+``serve.program`` (holding ``serve.replay``) and ``serve.answer``; both
+advance the launch counters as the eager route does, and the profiler
+still records the replayed kernels by name. Skipped without a card. This
+file imports no JAX:
 
     python -m pytest tests/test_torch_tracing_gpu.py -m gpu --noconftest -q
 """
@@ -152,22 +155,54 @@ def test_a_traced_replayed_step(cuda_device):
             name, sorted(kernels.items())[:40])
 
 
-def test_a_traced_request(cuda_device):
+def _mppde_engine(dev):
     tr = build_serving_trainer("E1", "MP-PDE", base_resolution=(250, 100),
-                               device=cuda_device)
+                               device=dev)
     eng = RolloutEngine(tr, batch_buckets=(16,))
     window = np.random.default_rng(0).normal(size=(16, 100, 25)).astype(
         np.float32)
+    return eng, window
+
+
+def test_a_traced_request(cuda_device):
+    eng, window = _mppde_engine(cuda_device)
 
     def run():
         eng.rollout(window, start_step=50, n_windows=8)
+
+    run()  # captures
+    spans, deltas, prof = _traced(run)
+    assert deltas["layer_fwd"] == 48
+    counts = Counter(s.name for s in spans)
+    assert counts == Counter(["serve.rollout", "serve.program",
+                              "serve.replay", "serve.answer"])
+    assert [s.name for s in spans if s.parent < 0] == ["serve.rollout"]
+    replay = next(s for s in spans if s.name == "serve.replay")
+    assert spans[replay.parent].name == "serve.program"
+    assert len({s.id for s in spans}) == 1
+    _check_inside_ranges(spans, prof)
+    kernels = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA)
+    assert sum(c for k, c in kernels.items()
+               if "mp_layer_fwd_kernel" in k) == 48, sorted(kernels.items())
+
+
+def test_a_traced_eager_request(cuda_device):
+    eng, window = _mppde_engine(cuda_device)
+    prog = eng.program(8)
+    args = (torch.as_tensor(window, device=cuda_device),
+            torch.full((16,), 50, dtype=torch.int64, device=cuda_device),
+            {})
+
+    def run():
+        with torch.inference_mode():
+            prog(*args)
 
     run()  # warm
     spans, deltas, prof = _traced(run)
     assert deltas["layer_fwd"] == 48
     _check_launches(spans, deltas)
     counts = Counter(s.name for s in spans)
-    assert counts["serve.rollout"] == counts["serve.program"] == \
-        counts["serve.answer"] == 1 and counts["model.forward"] == 8
-    assert len({s.id for s in spans}) == 1
+    assert counts["model.forward"] == 8
+    assert [s.name for s in spans if s.parent < 0] == ["model.forward"] * 8
     _check_inside_ranges(spans, prof)
